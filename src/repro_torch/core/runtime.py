@@ -1,0 +1,461 @@
+"""The transaction-runtime substrate of the single-host engine.
+
+PyTorch twin of ``repro.core.runtime`` (the single-host slice; the wire
+frames and the routing primitives belong to the sharded tier):
+
+- ``onehop_exec``          — one one-hop sub-query instance per root (the
+                             cache-miss path; Definition 2.1 semantics).
+- ``make_hop_kernel``      — one hop of the pipeline: cache probe through the
+                             ``cache_probe`` kernel, then masked miss
+                             execution behind the all-hit short circuit.
+- ``make_plan_fn``         — the whole-plan pipeline: all hops, on-device
+                             frontier merges, final clause, device metrics.
+- bucketing / padding      — ``BUCKETS`` / ``bucket_for`` / ``pad_roots``.
+- ``get_grw_step``         — the gRW-Tx commit (apply mutations + cache
+                             maintenance in one functional state transition).
+
+**Host syncs.** The reference's ``lax.cond`` / ``lax.while_loop`` have no
+eager twin, so the port decides on the host: each hop reads its miss count
+once (the all-hit short circuit stays a real branch, so an all-hit hop does
+no storage work, which is the cache's whole benefit) and each frontier merge
+reads its round condition once per round. Every such read is counted in the
+``SyncCount`` the caller passes, and ``GraphEngine`` reports the total in
+``metrics["host_syncs"]``, the one metric the port's parity tests skip.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache import cache_lookup_lean
+from repro_torch.core.keys import PARAM_LEN
+from repro_torch.core.templates import DIR_BOTH, DIR_IN, DIR_OUT, MAX_CONDS, evaluate_pred
+from repro_torch.graphstore.store import GlobalStoreView
+from repro_torch.utils import (
+    NULL_ID,
+    SyncCount,
+    compact_masked,
+    dedup_masked,
+    segmented_dedup_merge,
+    take_along0,
+)
+
+# final-clause codes of a QueryPlan
+FINAL_IDS, FINAL_COUNT, FINAL_VALUES = 0, 1, 2
+
+# batch buckets: gR-Tx batches are padded to the next bucket so the set of
+# batch shapes stays small. ``CachePopulator`` uses the prefix ``BUCKETS[:4]``.
+BUCKETS = (8, 32, 128, 512, 2048, 8192)
+
+
+def bucket_for(k: int, buckets=BUCKETS, clamp: bool = False) -> int:
+    """Smallest bucket >= k; next power of two (or, clamped, the largest
+    bucket — the caller then chunks) beyond the table."""
+    for b in buckets:
+        if b >= k:
+            return b
+    if clamp:
+        return buckets[-1]
+    return 1 << int(np.ceil(np.log2(max(k, 1))))
+
+
+def pad_roots(roots: np.ndarray, bucket: int):
+    """Pad a host root batch to ``bucket``: (roots [bucket], valid [bucket])."""
+    B = len(roots)
+    proots = np.zeros(bucket, np.int32)
+    proots[:B] = roots
+    bvalid = np.zeros(bucket, bool)
+    bvalid[:B] = True
+    return proots, bvalid
+
+
+def compact_rows(mask, cap: int, arrays, fills):
+    """Order-preserving row compaction of parallel tensors to ``cap`` rows.
+
+    Returns (compacted tensors, n kept, overflow — masked rows dropped past
+    ``cap``). One index scatter builds a gather map, so each column costs a
+    ``cap``-row gather.
+    """
+    mask = mask.to(torch.bool)
+    dev = mask.device
+    M = mask.shape[0]
+    total = mask.sum(dtype=torch.int32)
+    n = total.clamp(max=cap)
+    if M == 0:
+        outs = [torch.full((cap,) + tuple(a.shape[1:]), fill, dtype=a.dtype, device=dev)
+                for a, fill in zip(arrays, fills)]
+        return outs, n, total - n
+    idx = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    dest = torch.where(mask, idx, cap).clamp(max=cap)
+    sel = torch.full((cap + 1,), M, dtype=torch.int64, device=dev)
+    sel[dest] = torch.arange(M, device=dev)
+    sel = sel[:cap]
+    live = sel < M
+    selc = sel.clamp(0, M - 1)
+    outs = []
+    for a, fill in zip(arrays, fills):
+        m = live.reshape((cap,) + (1,) * (a.ndim - 1))
+        outs.append(torch.where(m, a[selc], torch.as_tensor(fill, dtype=a.dtype, device=dev)))
+    return outs, n, total - n
+
+
+# --------------------------------------------------------------- miss exec
+def onehop_exec_view(espec, view, direction: int, edge_label: int, pr, pe, pl,
+                     roots, params, rmask):
+    """Execute one one-hop sub-query instance per root (the cache-miss path)
+    against a storage ``view``.
+
+    Returns (leaves [B, RW], lmask, n_true [B], truncated [B], stats) where
+    RW = espec.result_width. ``n_true`` is the un-truncated cardinality and
+    ``truncated`` flags supernode rows whose adjacency exceeded the gather
+    window — neither is cacheable when truncated.
+    """
+    pe_bound = params[:, :MAX_CONDS]
+    pl_bound = params[:, MAX_CONDS:]
+
+    rlab = take_along0(view.vlabel, roots)
+    rprops = take_along0(view.vprops, roots)
+    r_ok = evaluate_pred(pr, rlab, rprops) & rmask
+
+    leaf_parts, mask_parts, el_parts, ep_parts = [], [], [], []
+    trunc = torch.zeros_like(r_ok)
+    sides = []
+    if direction in (DIR_OUT, DIR_BOTH):
+        sides.append(False)
+    if direction in (DIR_IN, DIR_BOTH):
+        sides.append(True)
+    for incoming in sides:
+        o, m, t, el, epr = view.adjacency(roots, espec.max_deg, incoming=incoming)
+        leaf_parts.append(o)
+        mask_parts.append(m)
+        el_parts.append(el)
+        ep_parts.append(epr)
+        trunc |= t
+    leaf = torch.cat(leaf_parts, dim=1)
+    # gate by rmask so per-row stats only count rows this call executes
+    scanned_mask = torch.cat(mask_parts, dim=1) & rmask[:, None]
+    mask = scanned_mask
+    n_edges_scanned = mask.sum(dtype=torch.int32)
+
+    elab = torch.cat(el_parts, dim=1)
+    ep = torch.cat(ep_parts, dim=1)
+    if edge_label >= 0:
+        mask = mask & (elab == edge_label)
+    mask = mask & evaluate_pred(pe, elab, ep, bound_vals=pe_bound[:, None, :])
+    n_leaf_fetches = mask.sum(dtype=torch.int32)  # the paper's "n"
+
+    llab = take_along0(view.vlabel, leaf)
+    lp = take_along0(view.vprops, leaf)
+    l_ok = evaluate_pred(pl, llab, lp, bound_vals=pl_bound[:, None, :])
+    mask = mask & l_ok & r_ok[:, None]
+
+    mask = dedup_masked(leaf, mask)  # set semantics (Definition 2.1)
+    n_true = mask.sum(dim=1, dtype=torch.int32)
+    leaves, lmask = compact_masked(leaf, mask, espec.result_width)
+    stats = {
+        "edges_scanned": n_edges_scanned,
+        "leaf_fetches": n_leaf_fetches,
+        # full read-conflict set for OCC population commits: every vertex
+        # this execution observed, including filtered-out leaves
+        "scanned": leaf,
+        "scanned_mask": scanned_mask,
+    }
+    return leaves, lmask, n_true, trunc & rmask, stats
+
+
+def onehop_exec(espec, store, direction: int, edge_label: int, pr, pe, pl,
+                roots, params, rmask):
+    """``onehop_exec_view`` against a full ``GraphStore`` (single-host)."""
+    return onehop_exec_view(
+        espec, GlobalStoreView(espec.store, store), direction, edge_label,
+        pr, pe, pl, roots, params, rmask,
+    )
+
+
+class MissRecord(NamedTuple):
+    """Host-side record of one cache miss awaiting async population."""
+
+    tpl_idx: int
+    root: int
+    params: np.ndarray  # int32 [PARAM_LEN]
+    read_version: int
+
+
+def _hop_params(hop, n: int, device):
+    p = torch.as_tensor(np.asarray(hop.params, np.int32), device=device)
+    return p.expand(n, PARAM_LEN)
+
+
+# ----------------------------------------------------------- hop pipeline
+def make_hop_kernel(espec, hop, use_cache: bool):
+    """One hop of the pipeline over a flat root frontier.
+
+    Returns ``kernel(store, cache, ttable, roots_flat, rmask_flat,
+    syncs=None) -> (vals [BF, RW], cnt [BF], miss_roots [BF],
+    n_miss_records, stats)``. The probe runs through the
+    ``cache_probe`` kernel; the miss path (storage gathers, hit/miss select,
+    miss-record compaction) runs only when some row missed, decided by one
+    host read of the miss count ``k`` (counted in ``syncs``), so an all-hit
+    frontier pays none of it. ``stats["k"]`` is that host int; the other
+    stats are device scalars.
+    """
+    RW = espec.result_width
+    cacheable = hop.tpl_idx >= 0 and use_cache
+
+    def kernel(store, cache, ttable, roots_flat, rmask_flat, syncs=None):
+        syncs = syncs if syncs is not None else SyncCount()
+        dev = roots_flat.device
+        BF = roots_flat.shape[0]
+        params = _hop_params(hop, BF, dev)
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        if cacheable:
+            hit, leaves_c, cnt_c, _ = cache_lookup_lean(
+                espec.cache, cache, hop.tpl_idx, roots_flat, params
+            )
+            hit = hit & rmask_flat & bool(ttable.read_enabled[hop.tpl_idx])
+            cnt_c = torch.where(hit, cnt_c, 0)
+            n_read = rmask_flat.sum(dtype=torch.int32)
+            n_hit = hit.sum(dtype=torch.int32)
+        else:
+            hit = torch.zeros(BF, dtype=torch.bool, device=dev)
+            n_read = n_hit = z
+        miss_mask = rmask_flat & ~hit
+        k = syncs.read(miss_mask.sum())
+        null_roots = torch.full((BF,), NULL_ID, dtype=torch.int32, device=dev)
+        if k > 0:
+            leaves_e, _lmask, n_true, trunc, stats = onehop_exec(
+                espec, store, hop.direction, hop.edge_label, hop.pr, hop.pe,
+                hop.pl, roots_flat, params, miss_mask,
+            )
+            cnt_e = torch.where(miss_mask, n_true.clamp(max=RW), 0)
+            if cacheable:
+                vals = torch.where(hit[:, None], leaves_c, leaves_e)
+                cnt = torch.where(hit, cnt_c, cnt_e)
+                rec = miss_mask & ~trunc & (n_true <= RW)
+                mr, _ = compact_masked(roots_flat.to(torch.int32), rec, BF)
+                nrec = rec.sum(dtype=torch.int32)
+            else:
+                vals, cnt, mr, nrec = leaves_e, cnt_e, null_roots, z
+            trunc_n = trunc.sum(dtype=torch.int32)
+            es, lf = stats["edges_scanned"], stats["leaf_fetches"]
+        else:
+            # the all-hit short circuit: no storage gathers at all
+            if cacheable:
+                vals, cnt = leaves_c, cnt_c
+            else:
+                vals = torch.full((BF, RW), NULL_ID, dtype=torch.int32, device=dev)
+                cnt = torch.zeros(BF, dtype=torch.int32, device=dev)
+            mr, nrec, trunc_n, es, lf = null_roots, z, z, z, z
+        stats = {
+            "k": k, "n_read": n_read, "hits": n_hit,
+            "trunc": trunc_n, "edges": es, "leaves": lf,
+        }
+        return vals, cnt, mr, nrec, stats
+
+    return kernel
+
+
+def finalize_frontier(plan, store, q_roots, leaves, lmask):
+    """Apply a plan's post filter + final clause to the final frontier."""
+    if plan.post_filter is not None:
+        kind = plan.post_filter[0]
+        if kind == "id_neq":
+            lmask = lmask & (leaves != q_roots[:, None])
+        elif kind == "prop_neq_root":
+            pid = plan.post_filter[1]
+            lp = take_along0(store.vprops, leaves)[..., pid]
+            rp = take_along0(store.vprops, q_roots)[..., pid]
+            lmask = lmask & (lp != rp[:, None])
+    if plan.final == FINAL_COUNT:
+        return lmask.sum(dim=1, dtype=torch.int32)
+    if plan.final == FINAL_VALUES:
+        vals = take_along0(store.vprops, leaves)[..., plan.final_prop]
+        return torch.where(lmask, vals, NULL_ID)
+    return torch.where(lmask, leaves, NULL_ID)
+
+
+class LocalPlanTier:
+    """The single-host instantiation of the hop driver: no routing, so both
+    hooks are the identity. The sharded tier (a later slice) moves frontier
+    rows to their owners in ``route`` and results home in ``unroute``."""
+
+    def route(self, hop_idx, A, roots_flat, rmask_flat):
+        return roots_flat, rmask_flat, None
+
+    def unroute(self, ctx, vals, cnt):
+        return vals, cnt
+
+
+def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
+    """The whole-plan pipeline: every hop's probe + masked miss-exec +
+    frontier merge, the final clause, per-hop compact miss arrays and the
+    metrics, over the ``tier``'s route/storage hooks.
+
+    Returns ``fused(store, cache, ttable, roots, bvalid, syncs=None) ->
+    (result, miss_roots, miss_counts, metrics, version)``; metric values
+    are host ints or device scalars. ``overlap=True`` (the sharded tier's
+    double-buffered schedule) is not part of this slice; neither is its
+    degraded mode, so ``metrics["deferred"]`` is always 0 here.
+    """
+    if overlap:
+        raise NotImplementedError("overlap=True belongs to the sharded tier")
+    F, RW = espec.frontier, espec.result_width
+    kernels = [make_hop_kernel(espec, hop, use_cache) for hop in plan.hops]
+    cached_hops = [hop.tpl_idx >= 0 and use_cache for hop in plan.hops]
+
+    def fused(store, cache, ttable, roots, bvalid, syncs=None):
+        syncs = syncs if syncs is not None else SyncCount()
+        dev = roots.device
+        Bb = roots.shape[0]
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        m = {
+            "phases": 1,  # root index lookup (request 1)
+            "requests": bvalid.sum(dtype=torch.int32),
+            "hits": z, "misses": 0, "truncated": z,
+            "leaf_fetches": z, "edges_scanned": z, "cache_reads": z,
+            "deferred": 0,
+        }
+        frontier = torch.full((Bb, F), NULL_ID, dtype=torch.int32, device=dev)
+        frontier[:, 0] = roots
+        fmask = torch.zeros((Bb, F), dtype=torch.bool, device=dev)
+        fmask[:, 0] = bvalid
+        A = 1  # occupied frontier prefix: 1 for the root hop, then min(F, A*RW)
+        miss_roots, miss_counts = [], []
+        for h, kernel in enumerate(kernels):
+            q, qmask, ctx = tier.route(
+                h, A, frontier[:, :A].reshape(-1), fmask[:, :A].reshape(-1)
+            )
+            vals, cnt, mr, nrec, hs = kernel(store, cache, ttable, q, qmask, syncs)
+            if cached_hops[h]:
+                m["requests"] = m["requests"] + hs["n_read"]
+                m["cache_reads"] = m["cache_reads"] + hs["n_read"]
+                m["hits"] = m["hits"] + hs["hits"]
+                m["phases"] += 1  # one cache get round-trip
+                miss_roots.append(mr)
+                miss_counts.append(nrec)
+            m["requests"] = m["requests"] + hs["k"] + hs["leaves"]
+            m["leaf_fetches"] = m["leaf_fetches"] + hs["leaves"]
+            m["edges_scanned"] = m["edges_scanned"] + hs["edges"]
+            m["misses"] += hs["k"]
+            m["truncated"] = m["truncated"] + hs["trunc"]
+            m["phases"] += 2 * (hs["k"] > 0)  # edge read + leaf fetch
+            vals, cnt = tier.unroute(ctx, vals, cnt)
+            frontier, fmask = segmented_dedup_merge(
+                vals.reshape(Bb, A, RW), cnt.reshape(Bb, A), F, syncs=syncs
+            )
+            A = min(F, A * RW)
+
+        result = finalize_frontier(plan, store, roots, frontier, fmask)
+        if plan.post_filter is not None and plan.post_filter[0] != "id_neq":
+            m["phases"] += 1  # un-rewritten property fetch
+            m["requests"] = m["requests"] + fmask.sum(dtype=torch.int32)
+        if plan.final == FINAL_VALUES:
+            m["phases"] += 1  # valueMap fetch
+            m["requests"] = m["requests"] + fmask.sum(dtype=torch.int32)
+        m["phases"] += plan.extra_phases
+        return result, tuple(miss_roots), tuple(miss_counts), m, store.version
+
+    return fused
+
+
+def make_fused_plan_fn(espec, plan, use_cache: bool):
+    """The single-host whole-plan pipeline: ``make_plan_fn`` with identity
+    hooks."""
+    return make_plan_fn(espec, plan, use_cache, LocalPlanTier())
+
+
+def decode_miss_records(plan, use_cache, miss_roots, miss_counts, read_version):
+    """Turn per-hop compact miss arrays (host numpy) into ``MissRecord``s.
+
+    Each hop entry may hold several independently counted segments:
+    ``miss_roots[i]`` reshapes to [segments, L] with ``miss_counts[i]`` of
+    shape [segments].
+    """
+    misses: list[MissRecord] = []
+    ci = 0
+    for hop in plan.hops:
+        if hop.tpl_idx >= 0 and use_cache:
+            counts = np.asarray(miss_counts[ci]).reshape(-1)
+            segs = np.asarray(miss_roots[ci]).reshape(len(counts), -1)
+            ci += 1
+            params = np.asarray(hop.params, np.int32)
+            for seg, cnt in zip(segs, counts):
+                for r in seg[: int(cnt)]:
+                    misses.append(MissRecord(hop.tpl_idx, int(r), params, read_version))
+    return misses
+
+
+def host_compact_dedup(vals: np.ndarray, mask: np.ndarray, width: int):
+    """Host-side per-row dedup + compaction (frontier merge between hops)."""
+    B = vals.shape[0]
+    out = np.full((B, width), NULL_ID, np.int32)
+    omask = np.zeros((B, width), bool)
+    for b in range(B):
+        row = vals[b][mask[b]]
+        if row.size:
+            _, first = np.unique(row, return_index=True)
+            row = row[np.sort(first)][:width]
+            out[b, : len(row)] = row
+            omask[b, : len(row)] = True
+    return out, omask
+
+
+# ---------------------------------------------------------------- gRW step
+def get_grw_step(espec, policy: str = "write-around", *, ops_cap: int = 4096,
+                 sweep_cap: int = 512):
+    """The gRW-Tx commit: apply mutations + maintain the cache in one
+    functional state transition (graph writes and cache maintenance land in
+    one commit, as FDB buffers both in one transaction).
+
+    The maintenance phase derives the impacted keys as tensor streams,
+    compacts the mostly-masked stream to ``ops_cap`` real ops (and sweeps to
+    ``sweep_cap``), and applies sweeps first, then the exact-key deletes.
+
+    Returns ``step(store, cache, ttable, batch) -> (store', cache',
+    impacted, op_overflow)``; ``impacted`` counts distinct logical entries
+    removed (chunk-0 occupancy delta); a nonzero ``op_overflow`` means real
+    maintenance ops were dropped by the caps. Only write-around is in this
+    slice: ``policy="write-through"`` raises ``NotImplementedError``.
+    """
+    if policy != "write-around":
+        raise NotImplementedError(f"gRW policy {policy!r} is not ported yet")
+    from repro_torch.core.invalidation import (
+        CacheOpStream,
+        SweepStream,
+        apply_op_stream_batched,
+        apply_sweeps,
+        derive_cache_ops,
+    )
+    from repro_torch.graphstore.mutations import apply_mutations
+
+    cspec = espec.cache
+
+    def step(store, cache, ttable, batch):
+        store2, applied = apply_mutations(espec.store, store, batch)
+        ops, sweeps = derive_cache_ops(espec, store, store2, ttable, applied, through=False)
+        dev = store.vlabel.device
+        (okind, otpl, oroot, oparams, ovid, oorder), n_ops, ovf_o = compact_rows(
+            ops.ok, ops_cap,
+            (ops.kind, ops.tpl, ops.root, ops.params, ops.vid, ops.order),
+            (0, -1, NULL_ID, 0, NULL_ID, 0),
+        )
+        cops = CacheOpStream(
+            kind=okind, tpl=otpl, root=oroot, params=oparams, vid=ovid, order=oorder,
+            ok=torch.arange(ops_cap, device=dev) < n_ops,
+        )
+        (stpl, sroot), n_sw, ovf_s = compact_rows(
+            sweeps.ok, sweep_cap, (sweeps.tpl, sweeps.root), (-1, NULL_ID)
+        )
+        gsw = SweepStream(tpl=stpl, root=sroot, ok=torch.arange(sweep_cap, device=dev) < n_sw)
+        head = lambda c: (c.valid & (c.chunk == 0)).sum(dtype=torch.int32)
+        occ0 = head(cache)
+        cache2 = apply_sweeps(cspec, cache, gsw)
+        cache2 = apply_op_stream_batched(cspec, cache2, cops)
+        impacted = occ0 - head(cache2)
+        cache2 = cache2._replace(n_delete=cache.n_delete + impacted)
+        return store2, cache2, impacted, ovf_o + ovf_s
+
+    return step

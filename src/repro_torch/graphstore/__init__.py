@@ -1,0 +1,42 @@
+"""Tensorized transactional property-graph store (single-host slice).
+
+Slotted vertex/edge tensors + CSR indexes over the compacted prefix, with a
+linearly-scanned recent region for post-compaction edge inserts; per-vertex
+version counters give optimistic conflict detection at vertex granularity.
+"""
+
+from repro_torch.graphstore.store import (
+    GlobalStoreView,
+    GraphStore,
+    StoreSpec,
+    compact,
+    empty_store,
+    gather_in,
+    gather_out,
+    ingest,
+)
+from repro_torch.graphstore.mutations import (
+    AppliedMutations,
+    MutationBatch,
+    apply_mutations,
+    make_mutation_batch,
+)
+from repro_torch.graphstore.txn import TxnError, commit_with_conflict_check, conflicts
+
+__all__ = [
+    "GraphStore",
+    "GlobalStoreView",
+    "StoreSpec",
+    "empty_store",
+    "ingest",
+    "gather_out",
+    "gather_in",
+    "compact",
+    "MutationBatch",
+    "AppliedMutations",
+    "make_mutation_batch",
+    "apply_mutations",
+    "commit_with_conflict_check",
+    "conflicts",
+    "TxnError",
+]
