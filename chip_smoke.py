@@ -17,10 +17,21 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    and shapes, ``torch.equal`` on every output, with kernel / plain / bound
    times;
 6. consistency of the final state: cached results against a numpy one-hop
-   reference, and against the engine with the cache off.
+   reference, and against the engine with the cache off;
+7. the partitioned tier: the final store split over 4 owner shards in one
+   process, 24 gR batches of the six read plans through
+   ``ShardedTxnRuntime`` with CP through ``ShardedMissDrain``, each batch
+   held equal to the single-host engine (results always; metrics, miss
+   multisets and cache entries while neither cache evicted), with latency
+   percentiles of both, ``route_overflow`` under the default caps, per-shard
+   store bytes and the ``block_gather`` launches (counted around the
+   partitioned calls only); then ``cache_probe`` and ``block_gather`` against
+   their plain versions on every input the partitioned path gave them
+   (``block_gather``'s recent-region lanes must have scanned edges in both
+   orientations), with times for the largest.
 
-Between 4 and 5 a short ``torch.profiler`` window over gR batches prints the
-device's busy time by kernel and its idle share.
+Between 4 and 5, and in 7, a short ``torch.profiler`` window over gR
+batches prints the device's busy time by kernel and its idle share.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -300,35 +311,35 @@ def run_traffic(seed, espec, state, ttable, plans, meta, ranges, includes, dev):
     return (store, cache), report, engines
 
 
-def profile_window(seed, espec, state, ttable, plans, ranges, engines):
+def profile_window(tag, seed, plans, ranges, run):
     """Device time by kernel over a short steady window of gR batches
-    (two of each cached read plan), with ``torch.profiler``."""
+    (two of each cached read plan, ``run(name, roots)`` each), with
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    store, cache = state
     rng = np.random.default_rng(seed + 5)
     batches = [(n, label) for n, _, label, _ in plans if n != "q_agg"] * 2
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for name, label in batches:
-            engines[name].run(store, cache, ttable, zipf_pick(rng, *ranges[label], BATCH))
+            run(name, zipf_pick(rng, *ranges[label], BATCH))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     if not events:
-        print("profile: no device time recorded (not measured)", flush=True)
+        print(f"profile{tag}: no device time recorded (not measured)", flush=True)
         return
     by_name: dict = {}
     for e in events:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
-    print(f"profile: {len(batches)} gR batches, wall {wall_ms:.3f} ms, device busy "
+    print(f"profile{tag}: {len(batches)} gR batches, wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms in {len(events)} device events, idle share "
           f"{1 - busy_ms / wall_ms:.4f}", flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"profile kernel: {name[:70]:70s} device_ms={us / 1e3:.3f} calls={n}",
+        print(f"profile{tag} kernel: {name[:70]:70s} device_ms={us / 1e3:.3f} calls={n}",
               flush=True)
 
 
@@ -529,6 +540,255 @@ def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed):
               f"(hits={hits})", flush=True)
 
 
+# ---------------------------------------------------- partitioned tier
+N_OWNERS = 4  # owner shards held in one process on the one card
+P_ROUNDS = 4  # rounds over the six read plans in phase 7
+# miss records each side populates after a phase-7 batch: the same records
+# on both sides (the first by key), few enough that a 2^18-slot cache is
+# unlikely to evict, which the entry comparison needs
+P_CP_PER_BATCH = 512
+SHARDED_ONLY = ("route_overflow", "locality_routed", "route_cap_retries",
+                "locality_retry_rows", "host_syncs")
+
+
+def miss_key(ms):
+    return sorted((m.tpl_idx, m.root, tuple(np.asarray(m.params).tolist()), m.read_version)
+                  for m in ms)
+
+
+class CallCapture:
+    """Wraps kernel wrappers, given as ``(module, name)`` pairs, while the
+    ``with`` block is open, and keeps the arguments of every call they get,
+    so each kernel is held to its plain version on exactly the inputs the
+    path gave it. It keeps references, not copies: every such input is a
+    fresh tensor or a view of store or cache state, which the path never
+    writes in place."""
+
+    def __init__(self, *targets):
+        self.inner = {t: getattr(*t) for t in targets}
+        self.calls = {name: [] for _, name in targets}
+
+    def __enter__(self):
+        for (mod, name), inner in self.inner.items():
+            setattr(mod, name, self._wrap(name, inner))
+        return self
+
+    def _wrap(self, name, inner):
+        def wrapped(*args, **kw):
+            self.calls[name].append((args, kw))
+            return inner(*args, **kw)
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        for (mod, name), inner in self.inner.items():
+            setattr(mod, name, inner)
+
+
+def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, engines, dev):
+    """Phase 7: the partitioned gR-Tx tier over N_OWNERS owner shards, with
+    CP through ``ShardedMissDrain``, against the single-host engine on the
+    same store and batches (both caches start empty; after every batch both
+    populate the same ``P_CP_PER_BATCH`` miss records)."""
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.core import CachePopulator, cache_entries, empty_cache
+    from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_mesh
+    from repro_torch.graphstore.partition import local_shard
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    mesh = flat_mesh(N_OWNERS)
+    rt = ShardedTxnRuntime(espec, mesh, device=dev)
+    t0 = time.perf_counter()
+    pstore = rt.partition_store(store)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    rep = rt.store_bytes(pstore)
+    print(f"partitioned store: {N_OWNERS} owners, e_blk_cap {rt.pspec.e_blk_cap}, "
+          f"recent_blk_cap {rt.pspec.recent_blk_cap}, built in {part_s:.2f}s; per shard "
+          f"{rep['per_shard_bytes'] / 2**20:.1f} MiB (blocks {rep['per_shard_block_bytes'] / 2**20:.1f}"
+          f" MiB) vs replicated {rep['replicated_per_shard_bytes'] / 2**20:.1f} MiB, ratio "
+          f"{rep['ratio']:.4f}; blk_len-csr_len per shard out "
+          f"{(pstore.out.blk_len - pstore.out.csr_len).tolist()} in "
+          f"{(pstore.inc.blk_len - pstore.inc.csr_len).tolist()}", flush=True)
+    # the kernels' calls on the partitioned path (the read path reaches
+    # cache_probe through core.cache's name for it)
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    capture.inc_keys = {local_shard(rt.pspec, pstore, s).inc.key.data_ptr()
+                        for s in range(N_OWNERS)}
+
+    hcache, pcache = empty_cache(espec.cache, device=dev), rt.empty_cache()
+    hpop = CachePopulator(espec, meta, device=dev)
+    drain = ShardedMissDrain(rt, meta)
+    rng = np.random.default_rng(seed + 21)
+    lat_h, lat_p, syncs_h, syncs_p = [], [], [], []
+    overflow = equal_metrics = 0
+    bg = {"block_gather": 0, "cache_probe": 0}
+    cp_ops.launches = bg_ops.launches = 0
+    for _ in range(P_ROUNDS):
+        for name, plan, label, _ in plans:
+            roots = zipf_pick(rng, *ranges[label], BATCH)
+            t = time.perf_counter()
+            rh, mh, meth = engines[name].run(store, hcache, ttable, roots)
+            lat_h.append((time.perf_counter() - t) * 1e3)
+            l0 = (bg_ops.launches, cp_ops.launches)
+            with capture:
+                t = time.perf_counter()
+                rp, mp, metp = rt.run_gr_tx_batch(pstore, pcache, ttable, plan, roots)
+                lat_p.append((time.perf_counter() - t) * 1e3)
+                drain.push(sorted(mp, key=lambda m: miss_key([m]))[:P_CP_PER_BATCH])
+                pcache = drain.drain(pstore, pstore, pcache, ttable, k=1 << 30)
+            bg["block_gather"] += bg_ops.launches - l0[0]
+            bg["cache_probe"] += cp_ops.launches - l0[1]
+            syncs_h.append(meth["host_syncs"])
+            syncs_p.append(metp["host_syncs"])
+            # a dropped row is a wrong result: the default caps must drop none
+            assert metp["route_overflow"] == 0, f"partitioned {name}: route_overflow " \
+                f"{metp['route_overflow']}"
+            overflow += metp["route_overflow"]
+            assert np.array_equal(rh, rp), f"partitioned {name}: result differs"
+            hpop.queue.push(sorted(mh, key=lambda m: miss_key([m]))[:P_CP_PER_BATCH])
+            hcache = hpop.drain(store, store, hcache, ttable, 1 << 30)
+            if int(hcache.n_evict) == 0 and int(pcache.n_evict) == 0:
+                meth.pop("host_syncs")
+                for k in SHARDED_ONLY:
+                    metp.pop(k)
+                assert metp == meth, f"partitioned {name}: metrics {metp} != {meth}"
+                assert miss_key(mp) == miss_key(mh), f"partitioned {name}: misses differ"
+                equal_metrics += 1
+    torch.cuda.synchronize()
+    n_evict = (int(hcache.n_evict), int(pcache.n_evict))
+    assert (drain.committed, drain.aborted) == (hpop.committed, hpop.aborted), "CP outcomes differ"
+    entries_equal = None
+    if n_evict == (0, 0):
+        entries_equal = cache_entries(espec.cache, hcache) == cache_entries(espec.cache, pcache)
+        assert entries_equal, "partitioned cache entries differ from the single-host cache"
+    report = dict(
+        batches=len(lat_p), p50_ms=pct(lat_p, 50), p95_ms=pct(lat_p, 95), p99_ms=pct(lat_p, 99),
+        single_p50_ms=pct(lat_h, 50), single_p95_ms=pct(lat_h, 95), single_p99_ms=pct(lat_h, 99),
+        route_overflow=int(overflow), batches_metrics_equal=equal_metrics,
+        host_syncs_per_batch=float(np.mean(syncs_p)),
+        single_host_syncs_per_batch=float(np.mean(syncs_h)),
+        committed=drain.committed, aborted=drain.aborted, n_evict_single=n_evict[0],
+        n_evict_partitioned=n_evict[1], entries_equal=entries_equal,
+        block_gather_launches=bg["block_gather"],
+        block_gather_launches_per_batch=bg["block_gather"] / len(lat_p),
+        cache_probe_launches=bg["cache_probe"], mesh_collectives=dict(mesh.counts),
+        partition_s=part_s, per_shard_bytes=rep["per_shard_bytes"],
+        replicated_bytes=rep["replicated_per_shard_bytes"], bytes_ratio=rep["ratio"],
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("partitioned: " + json.dumps(report), flush=True)
+    assert bg["block_gather"] > 0, "the partitioned path never launched block_gather"
+    assert bg["cache_probe"] > 0, "the partitioned path never launched cache_probe"
+    profile_window(" partitioned", seed, plans, ranges,
+                   lambda name, r: rt.run_gr_tx_batch(pstore, pcache, ttable,
+                                                      dict((n, p) for n, p, _, _ in plans)[name], r))
+    return report, capture
+
+
+def block_gather_bound(args_, kw, out):
+    """Least bytes: each output once, each per-row input once, and the block
+    and vertex records the run's data needs, each once: the leaf id of every
+    distinct slot the lanes name, the recent keys in the region, the CSR
+    offsets of every distinct local root, the edge record (alive, label,
+    props) of every distinct scanned slot, the liveness of every distinct
+    scanned leaf and root, and the vertex record (label, props) of every
+    distinct leaf past the edge filters."""
+    from repro_torch.core.templates import MAX_CONDS
+
+    (indptr, key, other, label, alive, props, vlabel, valive, vprops, csr_len, blk_len,
+     roots, lroot, rvalid, cvalid, rmask, r_ok, pe_bound, pl_bound) = args_
+    leaf, scan, emask, qual, trunc = out
+    B, W = leaf.shape
+    max_deg, R, EB = kw["max_deg"], kw["recent_cap"], kw["e_blk_cap"]
+    v_cap = valive.shape[0]
+    start = indptr[lroot.long()]
+    lane = torch.arange(max_deg, device=roots.device)
+    csr_slots = (start[:, None] + lane[None, :]).clamp(0, EB - 1)
+    sid = csr_len.clamp(0, EB - R) + torch.arange(R, device=roots.device)
+    slots = torch.cat([csr_slots, sid[None, :].expand(B, R)], dim=1)
+    in_region = int(((sid >= csr_len) & (sid < blk_len)).sum())
+    u = lambda x: int(torch.unique(x).numel())
+    nep, nvp = props.shape[1], vprops.shape[1]
+    nbytes = (B * W * (4 + 1 + 1 + 1) + B  # outputs
+              + B * (4 + 4 + 4 * 1 + 4 * 2 * MAX_CONDS)  # per-row inputs
+              + u(slots) * 4 + in_region * 4 + u(torch.cat([lroot, lroot + 1])) * 4
+              + u(slots[scan]) * (1 + 4 + 4 * nep)
+              + u(torch.cat([leaf[scan].clamp(0, v_cap - 1), roots.clamp(0, v_cap - 1)]))
+              + u(leaf[emask].clamp(0, v_cap - 1)) * (4 + 4 * nvp))
+    ops = B * W * 12  # index, compare and select work per lane
+    return nbytes, ops
+
+
+def check_partitioned_kernels(capture, launches, max_deg):
+    """Phase 7's kernels held bit-equal to their plain versions on every
+    call the partitioned path made: ``cache_probe`` on each owner's C/n-slot
+    block, ``block_gather`` in both orientations, whose recent-region lanes
+    (index >= max_deg) must have scanned edges in each. The largest call of
+    each is timed; returns the ``block_gather`` JSON row of the larger
+    orientation (both print)."""
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.cache_probe.ref import cache_probe_ref
+
+    calls = capture.calls["cache_probe"]
+    assert calls, "the partitioned path made no cache_probe call"
+    for a, kw in calls:
+        got, want = cp_ops.cache_probe(*a, **kw), cache_probe_ref(*a, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"cache_probe disagrees with its plain version at {a[4].shape[0]} keys"
+    a, kw = max(calls, key=lambda c: c[0][4].shape[0])
+    hit, slot = cache_probe_ref(*a, **kw)
+    t = timings(lambda: cp_ops.cache_probe(*a, **kw), lambda: cache_probe_ref(*a, **kw))
+    nbytes, ops = probe_bound(a, hit, slot, kw["probes"])
+    bms, by = bound_ms(nbytes, ops)
+    print(f"kernel cache_probe partitioned calls={len(calls)} (all equal) largest keys="
+          f"{a[4].shape[0]} cap={a[0].shape[0]} hits={int(hit.sum())} {fmt_us(t)} "
+          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+
+    largest, recent, n_calls, err = {}, {False: 0, True: 0}, {False: 0, True: 0}, 0
+    for a, kw in capture.calls["block_gather"]:
+        got = bg_ops.block_gather(*a, **kw)
+        want = block_gather_filter_ref(*a, **kw)
+        for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+            assert torch.equal(g, w), f"block_gather {name} disagrees with its plain version"
+        if got[0].numel():
+            err = max(err, int((got[0].long() - want[0].long()).abs().max()))
+        incoming = a[1].data_ptr() in capture.inc_keys
+        recent[incoming] += int(want[1][:, max_deg:].sum())
+        n_calls[incoming] += 1
+        if incoming not in largest or a[11].shape[0] > largest[incoming][0][11].shape[0]:
+            largest[incoming] = (a, kw)
+    print(f"block_gather partitioned calls out={n_calls[False]} in={n_calls[True]} (all equal); "
+          f"recent-region lanes scanned out={recent[False]} in={recent[True]}", flush=True)
+    assert set(largest) == {False, True}, "block_gather saw one orientation only"
+    assert recent[False] > 0 and recent[True] > 0, \
+        "an orientation's recent-region lanes scanned nothing on the card"
+
+    rows = []
+    for incoming, (a, kw) in sorted(largest.items()):
+        want = block_gather_filter_ref(*a, **kw)
+        t = timings(lambda: bg_ops.block_gather(*a, **kw),
+                    lambda: block_gather_filter_ref(*a, **kw))
+        nbytes, ops = block_gather_bound(a, kw, want)
+        bms, by = bound_ms(nbytes, ops)
+        B, W = want[0].shape
+        side = "in" if incoming else "out"
+        print(f"kernel block_gather {side} rows={B} lanes={W} EB={kw['e_blk_cap']} "
+              f"scanned={int(want[1].sum())} recent_scanned={int(want[1][:, max_deg:].sum())} "
+              f"qual={int(want[3].sum())} {fmt_us(t)} "
+              f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+        rows.append((B, dict(
+            name="block_gather", route="cuda", source="src/repro_torch/csrc/block_gather.cu",
+            replaces="src/repro/kernels/block_gather/kernel.py:106", launches=launches,
+            max_abs_err=err, **t, bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"{side}:rows={B},lanes={W}")))
+    return max(rows, key=lambda r: r[0])[1]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -548,6 +808,7 @@ def main():
     # 2. build every kernel from the checkout's sources
     from repro_torch.kernels import _build
     from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.block_gather import ops as bg_ops
     from repro_torch.kernels.onehop_gather import ops as og_ops
 
     t0 = time.perf_counter()
@@ -585,23 +846,32 @@ def main():
           f"built in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 4. traffic: the main path, with the kernel counts zeroed around it
-    cp_ops.launches = og_ops.launches = 0
+    cp_ops.launches = og_ops.launches = bg_ops.launches = 0
     state, report, engines = run_traffic(
         args.seed, espec, (store, cache), ttable, plans, meta, ranges, includes, dev)
-    launches = {"cache_probe": cp_ops.launches, "onehop_gather": og_ops.launches}
+    launches = {"cache_probe": cp_ops.launches, "onehop_gather": og_ops.launches,
+                "block_gather": bg_ops.launches}
     print(f"launches on the main path: {launches}", flush=True)
     assert launches["cache_probe"] > 0, "the read path never launched cache_probe"
     assert report["R_hat"]["hit_rate"] > 0, "R-hat saw no cache hit"
     assert sum(r["committed"] for r in report.values()) > 0, "CP committed nothing"
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
-    profile_window(args.seed, espec, state, ttable, plans, ranges, engines)
+    profile_window("", args.seed, plans, ranges,
+                   lambda name, r: engines[name].run(*state, ttable, r))
 
     # 5. each kernel against its plain version at the main path's shapes
     rows = check_kernels(espec, state, plans, ranges, launches, dev, args.seed)
 
     # 6. consistency of the final state
     check_consistency(espec, state, ttable, plans, ranges, engines, dev, args.seed)
+
+    # 7. the partitioned tier on the final store, against the single host;
+    # then block_gather against its plain version at the inputs it was given
+    p_report, capture = run_partitioned(args.seed, espec, state[0], ttable, plans, meta, ranges,
+                                        engines, dev)
+    rows.append(check_partitioned_kernels(capture, p_report["block_gather_launches"],
+                                          espec.max_deg))
 
     print(f"total: {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

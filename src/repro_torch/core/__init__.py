@@ -44,6 +44,7 @@ from repro_torch.core.cache import (
     cache_insert_sequential,
     cache_lookup,
     cache_lookup_lean,
+    cache_shard,
     cache_stats,
     empty_cache,
     sweep_root,
@@ -53,6 +54,7 @@ from repro_torch.core.runtime import (
     BUCKETS,
     LocalPlanTier,
     bucket_for,
+    bucketize,
     decode_miss_records,
     get_grw_step,
     make_fused_plan_fn,

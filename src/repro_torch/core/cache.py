@@ -93,6 +93,15 @@ def empty_cache(spec: CacheSpec, device=None) -> CacheState:
     )
 
 
+def cache_shard(cache: CacheState, n: int, s: int) -> CacheState:
+    """Shard ``s`` of a global cache co-partitioned over ``n`` owners: views
+    of its block of ``capacity // n`` slots, which it probes with that local
+    capacity; the 0-d stats counters are the global ones."""
+    cloc = cache.tpl.shape[0] // n
+    rows = slice(s * cloc, (s + 1) * cloc)
+    return cache._replace(**{f: getattr(cache, f)[rows] for f in _SLOT_FIELDS})
+
+
 def _key_cols(tpl_id, root, params, chunk):
     root = torch.as_tensor(root).to(torch.int32)
     dev = root.device

@@ -12,6 +12,7 @@ Population never runs on the gR-Tx path.
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 
 import numpy as np
@@ -74,16 +75,21 @@ class MissQueue:
 def populate_step(espec: EngineSpec, store_exec: GraphStore, store_commit: GraphStore,
                   cache: CacheState, ttable: TemplateTable, tpl_idx: int,
                   direction: int, edge_label: int, roots, params, mask,
-                  read_versions, syncs: SyncCount | None = None):
+                  read_versions, syncs: SyncCount | None = None, exec_view=None):
     """One CP transaction batch for one template.
 
     Executes against ``store_exec`` (the CP read snapshot) and commits
     against ``store_commit`` (current state at commit time): entries whose
     read set was written in between abort. Returns (cache', committed[B],
     aborted[B]).
+
+    ``exec_view`` overrides the miss-execution storage view (the
+    partitioned tier passes a ``BlockStoreView`` over one owner's blocks);
+    ``store_exec`` / ``store_commit`` then supply only ``.version`` /
+    ``.vversion``, which a ``PartitionedGraphStore`` has.
     """
     pr, pe, pl = (pred_row(getattr(ttable, f), tpl_idx) for f in ("pr", "pe", "pl"))
-    view = GlobalStoreView(espec.store, store_exec)
+    view = exec_view if exec_view is not None else GlobalStoreView(espec.store, store_exec)
     leaves, _lmask, n_true, trunc, stats = onehop_exec_view(
         espec, view, direction, edge_label, pr, pe, pl, roots, params, mask
     )
@@ -109,18 +115,37 @@ class CachePopulator:
     """Host orchestrator: drains a MissQueue and runs CP transactions.
 
     ``templates_meta[t] = (direction, edge_label)``, static per template.
+    ``step_builder(tpl_idx, bucket)`` optionally supplies the CP step (the
+    signature of ``populate_step`` without its static arguments); the
+    sharded runtime uses it to run population at the owner shards while
+    reusing this orchestrator unchanged.
     """
 
     _BUCKETS = runtime.BUCKETS[:4]
 
     def __init__(self, espec: EngineSpec, templates_meta, max_retries: int = 3,
-                 device=None):
+                 device=None, step_builder=None):
         self.device = resolve_device(device)
         self.espec = espec
         self.meta = templates_meta
         self.queue = MissQueue(max_retries=max_retries)
+        self._steps: dict = {}
+        self._step_builder = step_builder
         self.committed = 0
         self.aborted = 0
+
+    def _fn(self, tpl_idx: int, bucket: int):
+        key = (tpl_idx, bucket)
+        if key not in self._steps:
+            if self._step_builder is not None:
+                self._steps[key] = self._step_builder(tpl_idx, bucket)
+            else:
+                direction, edge_label = self.meta[tpl_idx]
+                self._steps[key] = functools.partial(
+                    populate_step, self.espec, tpl_idx=tpl_idx, direction=direction,
+                    edge_label=edge_label,
+                )
+        return self._steps[key]
 
     def drain(self, store_exec, store_commit, cache, ttable, k: int = 128):
         """Process up to k queued misses. Returns the new cache.
@@ -138,7 +163,6 @@ class CachePopulator:
             by_tpl.setdefault(rec.tpl_idx, []).append((rec, attempts))
         for t, items in by_tpl.items():
             n = len(items)
-            direction, edge_label = self.meta[t]
             roots_all = np.fromiter((rec.root for rec, _ in items), np.int32, n)
             params_all = np.stack(
                 [np.asarray(rec.params, np.int32) for rec, _ in items]
@@ -156,11 +180,12 @@ class CachePopulator:
                 params[:nb] = params_all[lo: lo + nb]
                 vers[:nb] = vers_all[lo: lo + nb]
                 m[:nb] = True
-                cache, ok, conflicted = populate_step(
-                    self.espec, store_exec, store_commit, cache, ttable, t,
-                    direction, edge_label, torch.as_tensor(roots, device=dev),
-                    torch.as_tensor(params, device=dev), torch.as_tensor(m, device=dev),
-                    torch.as_tensor(vers, device=dev),
+                cache, ok, conflicted = self._fn(t, bucket)(
+                    store_exec=store_exec, store_commit=store_commit, cache=cache,
+                    ttable=ttable, roots=torch.as_tensor(roots, device=dev),
+                    params=torch.as_tensor(params, device=dev),
+                    mask=torch.as_tensor(m, device=dev),
+                    read_versions=torch.as_tensor(vers, device=dev),
                 )
                 ok = ok.cpu().numpy()
                 conflicted = conflicted.cpu().numpy()

@@ -1,15 +1,28 @@
-"""The transaction-runtime substrate of the single-host engine.
+"""The shared transaction-runtime substrate.
 
-PyTorch twin of ``repro.core.runtime`` (the single-host slice; the wire
-frames and the routing primitives belong to the sharded tier):
+PyTorch twin of ``repro.core.runtime``. Both entry points run on it: the
+single-host ``GraphEngine`` (core/engine.py) and the sharded serve tier
+(distributed/graph_serve.py).
 
 - ``onehop_exec``          — one one-hop sub-query instance per root (the
                              cache-miss path; Definition 2.1 semantics).
 - ``make_hop_kernel``      — one hop of the pipeline: cache probe through the
                              ``cache_probe`` kernel, then masked miss
-                             execution behind the all-hit short circuit.
+                             execution behind the all-hit short circuit,
+                             through a storage hook (``exec_fn``).
 - ``make_plan_fn``         — the whole-plan pipeline: all hops, on-device
-                             frontier merges, final clause, device metrics.
+                             frontier merges, final clause, device metrics,
+                             over a tier of route / storage hooks. It is a
+                             per-rank program: a generator that yields each
+                             collective it needs (see
+                             ``repro_torch.distributed.sharding``); the
+                             single-host tier never yields, and
+                             ``make_fused_plan_fn`` runs it to its end.
+- wire format / routing    — ``pack_``/``unpack_query_frame``,
+                             ``pack_``/``unpack_result_frame``, and the
+                             routing primitives ``route_plan`` /
+                             ``route_scatter`` / ``bucketize``, which count
+                             the valid rows a full peer bucket dropped.
 - bucketing / padding      — ``BUCKETS`` / ``bucket_for`` / ``pad_roots``.
 - ``get_grw_step``         — the gRW-Tx commit (apply mutations + cache
                              maintenance in one functional state transition).
@@ -19,8 +32,9 @@ eager twin, so the port decides on the host: each hop reads its miss count
 once (the all-hit short circuit stays a real branch, so an all-hit hop does
 no storage work, which is the cache's whole benefit) and each frontier merge
 reads its round condition once per round. Every such read is counted in the
-``SyncCount`` the caller passes, and ``GraphEngine`` reports the total in
-``metrics["host_syncs"]``, the one metric the port's parity tests skip.
+``SyncCount`` the caller passes, and the engines report the total in
+``metrics["host_syncs"]``, the one metric the port's parity tests skip. On
+a mesh each rank reads its own miss count.
 """
 
 from __future__ import annotations
@@ -39,12 +53,52 @@ from repro_torch.utils import (
     SyncCount,
     compact_masked,
     dedup_masked,
+    scatter_drop,
     segmented_dedup_merge,
     take_along0,
 )
 
 # final-clause codes of a QueryPlan
 FINAL_IDS, FINAL_COUNT, FINAL_VALUES = 0, 1, 2
+
+# ------------------------------------------------------- packed wire format
+# One hop exchange each direction moves ONE contiguous int32 buffer.
+#
+# Query frame (querier -> owner), int32 lanes per routed row:
+#     [0]              root vertex id (>= 0 for delivered rows)
+#     [1]              flags — bit 0 (WIRE_FLAG_VALID) marks a live row;
+#                      bucket padding is zero-filled, so its flags are 0
+#     [2 : 2+PARAM_LEN] the hop's bound predicate params (wildcard values)
+#
+# Result frame (owner -> querier), int32 lanes per row:
+#     [0 : RW]         left-packed leaf ids (cache hit or miss exec)
+#     [RW]             count lane: >= 0 is the leaf count, -1 marks a row
+#                      deferred at a down owner (not produced by this port yet)
+WIRE_FLAG_VALID = 1
+WIRE_QUERY_LANES = 2 + PARAM_LEN
+
+
+def pack_query_frame(roots, flags, params):
+    """``roots`` int32 [M], ``flags`` int32 [M], ``params`` int32
+    [M, PARAM_LEN] -> int32 [M, WIRE_QUERY_LANES]."""
+    return torch.cat([roots[:, None].to(torch.int32), flags[:, None].to(torch.int32),
+                      params.to(torch.int32)], dim=1)
+
+
+def unpack_query_frame(frame):
+    """Inverse of ``pack_query_frame``: (roots, flags, params)."""
+    return frame[..., 0], frame[..., 1], frame[..., 2:]
+
+
+def pack_result_frame(vals, cnt):
+    """Per-row results + count lane: [M, RW] + [M] -> [M, RW + 1]."""
+    return torch.cat([vals, cnt[..., None].to(vals.dtype)], dim=-1)
+
+
+def unpack_result_frame(frame):
+    """Inverse of ``pack_result_frame``: (vals [M, RW], cnt [M])."""
+    return frame[..., :-1], frame[..., -1]
+
 
 # batch buckets: gR-Tx batches are padded to the next bucket so the set of
 # batch shapes stays small. ``CachePopulator`` uses the prefix ``BUCKETS[:4]``.
@@ -70,6 +124,47 @@ def pad_roots(roots: np.ndarray, bucket: int):
     bvalid = np.zeros(bucket, bool)
     bvalid[:B] = True
     return proots, bvalid
+
+
+# ------------------------------------------------------------------ routing
+def route_plan(dest, n: int, cap: int):
+    """Slot assignment for routing M items into [n, cap] peer buckets.
+
+    Returns (slot [M] — each input's ``peer * cap + rank``, or ``n * cap``
+    when dropped, kept [M], overflow — the count of *valid* (0 <= dest < n)
+    items dropped because their peer bucket overflowed ``cap``). Items with
+    a dest outside [0, n) are padding: dropped, not counted. Ranks follow
+    input order within a peer (a stable sort, as the reference's).
+    """
+    dev = dest.device
+    M = dest.shape[0]
+    sd, order = torch.sort(dest.to(torch.int32), stable=True)
+    offs = torch.searchsorted(sd, torch.arange(n, dtype=torch.int32, device=dev))
+    rank = torch.arange(M, device=dev) - offs[sd.clamp(0, n - 1).long()]
+    keep_sorted = (rank < cap) & (sd >= 0) & (sd < n)
+    slot_sorted = torch.where(keep_sorted, sd.long() * cap + rank, n * cap)
+    slot = torch.full((M,), n * cap, dtype=torch.int32, device=dev)
+    slot[order] = slot_sorted.to(torch.int32)
+    kept = slot < n * cap
+    overflow = ((dest >= 0) & (dest < n) & ~kept).sum(dtype=torch.int32)
+    return slot, kept, overflow
+
+
+def route_scatter(vals, slot, n: int, cap: int, fill=NULL_ID):
+    """Place ``vals`` into the [n, cap] send buckets of a ``route_plan``."""
+    buckets = torch.full((n * cap,) + tuple(vals.shape[1:]), fill, dtype=vals.dtype,
+                         device=vals.device)
+    out = scatter_drop(buckets, slot, vals, slot < n * cap)
+    return out.reshape((n, cap) + tuple(vals.shape[1:]))
+
+
+def bucketize(vals, dest, n: int, cap: int, fill=NULL_ID):
+    """Route ``vals`` into [n, cap] peer buckets (MoE-dispatch style).
+
+    Returns (buckets [n, cap, ...], slot, kept, overflow); see ``route_plan``.
+    """
+    slot, kept, overflow = route_plan(dest, n, cap)
+    return route_scatter(vals, slot, n, cap, fill), slot, kept, overflow
 
 
 def compact_rows(mask, cap: int, arrays, fills):
@@ -190,26 +285,37 @@ def _hop_params(hop, n: int, device):
 
 
 # ----------------------------------------------------------- hop pipeline
-def make_hop_kernel(espec, hop, use_cache: bool):
+def make_hop_kernel(espec, hop, use_cache: bool, exec_fn=None):
     """One hop of the pipeline over a flat root frontier.
 
     Returns ``kernel(store, cache, ttable, roots_flat, rmask_flat,
-    syncs=None) -> (vals [BF, RW], cnt [BF], miss_roots [BF],
-    n_miss_records, stats)``. The probe runs through the
-    ``cache_probe`` kernel; the miss path (storage gathers, hit/miss select,
-    miss-record compaction) runs only when some row missed, decided by one
-    host read of the miss count ``k`` (counted in ``syncs``), so an all-hit
-    frontier pays none of it. ``stats["k"]`` is that host int; the other
-    stats are device scalars.
+    params_flat=None, syncs=None) -> (vals [BF, RW], cnt [BF], miss_roots
+    [BF], n_miss_records, stats)``. ``params_flat`` holds the per-row bound
+    predicate params ([BF, PARAM_LEN]); the sharded tier unpacks them from
+    the routed query frame, the single host leaves them None and the hop's
+    own params broadcast. The probe runs through the ``cache_probe``
+    kernel; the miss path (storage gathers, hit/miss select, miss-record
+    compaction) runs only when some row missed, decided by one host read of
+    the miss count ``k`` (counted in ``syncs``), so an all-hit frontier pays
+    none of it. ``stats["k"]`` is that host int; the other stats are device
+    scalars.
+
+    ``exec_fn(store, roots, params, rmask)`` is the storage hook of the miss
+    path (default: ``onehop_exec`` over a full ``GraphStore``; the
+    partitioned tier supplies an owner-local block executor).
     """
     RW = espec.result_width
     cacheable = hop.tpl_idx >= 0 and use_cache
+    if exec_fn is None:
+        def exec_fn(store, roots_f, params, miss_m):
+            return onehop_exec(espec, store, hop.direction, hop.edge_label, hop.pr,
+                               hop.pe, hop.pl, roots_f, params, miss_m)
 
-    def kernel(store, cache, ttable, roots_flat, rmask_flat, syncs=None):
+    def kernel(store, cache, ttable, roots_flat, rmask_flat, params_flat=None, syncs=None):
         syncs = syncs if syncs is not None else SyncCount()
         dev = roots_flat.device
         BF = roots_flat.shape[0]
-        params = _hop_params(hop, BF, dev)
+        params = _hop_params(hop, BF, dev) if params_flat is None else params_flat
         z = torch.zeros((), dtype=torch.int32, device=dev)
         if cacheable:
             hit, leaves_c, cnt_c, _ = cache_lookup_lean(
@@ -226,10 +332,7 @@ def make_hop_kernel(espec, hop, use_cache: bool):
         k = syncs.read(miss_mask.sum())
         null_roots = torch.full((BF,), NULL_ID, dtype=torch.int32, device=dev)
         if k > 0:
-            leaves_e, _lmask, n_true, trunc, stats = onehop_exec(
-                espec, store, hop.direction, hop.edge_label, hop.pr, hop.pe,
-                hop.pl, roots_flat, params, miss_mask,
-            )
+            leaves_e, _lmask, n_true, trunc, stats = exec_fn(store, roots_flat, params, miss_mask)
             cnt_e = torch.where(miss_mask, n_true.clamp(max=RW), 0)
             if cacheable:
                 vals = torch.where(hit[:, None], leaves_c, leaves_e)
@@ -278,35 +381,65 @@ def finalize_frontier(plan, store, q_roots, leaves, lmask):
 
 
 class LocalPlanTier:
-    """The single-host instantiation of the hop driver: no routing, so both
-    hooks are the identity. The sharded tier (a later slice) moves frontier
-    rows to their owners in ``route`` and results home in ``unroute``."""
+    """The single-host instantiation of the hop driver's hooks: no routing,
+    no collectives, storage is the full ``GraphStore``. ``route``,
+    ``unroute``, ``psum`` and ``reduce_metrics`` are generators, as on a
+    mesh, that return at once without yielding."""
 
-    def route(self, hop_idx, A, roots_flat, rmask_flat):
-        return roots_flat, rmask_flat, None
+    routed = False
+
+    def exec_fn(self, hop):
+        return None  # default: onehop_exec over the full store
+
+    def route(self, hop_idx, A, roots_flat, rmask_flat, params_row):
+        # rows stay home; per-row params stay implicit (None -> the hop
+        # kernel broadcasts its own)
+        return roots_flat, rmask_flat, None, None, 0
+        yield  # a generator that never yields: one host has no collective
 
     def unroute(self, ctx, vals, cnt):
         return vals, cnt
+        yield
+
+    def psum(self, x):
+        return x
+        yield
+
+    def pack_count(self, nrec):
+        return nrec
+
+    def reduce_metrics(self, m):
+        return m
+        yield
 
 
 def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
-    """The whole-plan pipeline: every hop's probe + masked miss-exec +
-    frontier merge, the final clause, per-hop compact miss arrays and the
-    metrics, over the ``tier``'s route/storage hooks.
+    """The whole-plan per-rank program: every hop's route, probe + masked
+    miss-exec, unroute and frontier merge, the final clause, per-hop compact
+    miss arrays and the metrics, over the ``tier``'s hooks.
 
-    Returns ``fused(store, cache, ttable, roots, bvalid, syncs=None) ->
-    (result, miss_roots, miss_counts, metrics, version)``; metric values
-    are host ints or device scalars. ``overlap=True`` (the sharded tier's
-    double-buffered schedule) is not part of this slice; neither is its
-    degraded mode, so ``metrics["deferred"]`` is always 0 here.
+    Tier hooks: ``exec_fn(hop)`` supplies the miss-path storage executor
+    (None -> full-store ``onehop_exec``); ``route`` / ``unroute`` move
+    frontier rows to their owners and results home (identity on a single
+    host, one all_to_all each on a mesh); ``pack_count`` shapes per-hop miss
+    counts (one segment per rank on a mesh); ``reduce_metrics`` globalizes
+    the additive metrics and the per-hop miss counts in one reduction,
+    after which each hop's edge-read + leaf-fetch phases are gated on the
+    *global* count, as in the reference.
+
+    Returns ``steps(store, cache, ttable, roots, bvalid, syncs=None)``, a
+    generator function: it yields the tier's collective requests and
+    returns ``(result, miss_roots, miss_counts, metrics, version)``; metric
+    values are host ints or device scalars. ``overlap=True`` and the
+    degraded mode are not ported yet, so ``metrics["deferred"]`` is 0.
     """
     if overlap:
-        raise NotImplementedError("overlap=True belongs to the sharded tier")
+        raise NotImplementedError("the double-buffered schedule is not ported yet")
     F, RW = espec.frontier, espec.result_width
-    kernels = [make_hop_kernel(espec, hop, use_cache) for hop in plan.hops]
+    kernels = [make_hop_kernel(espec, hop, use_cache, tier.exec_fn(hop)) for hop in plan.hops]
     cached_hops = [hop.tpl_idx >= 0 and use_cache for hop in plan.hops]
 
-    def fused(store, cache, ttable, roots, bvalid, syncs=None):
+    def steps(store, cache, ttable, roots, bvalid, syncs=None):
         syncs = syncs if syncs is not None else SyncCount()
         dev = roots.device
         Bb = roots.shape[0]
@@ -318,31 +451,36 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
             "leaf_fetches": z, "edges_scanned": z, "cache_reads": z,
             "deferred": 0,
         }
+        if tier.routed:
+            m["route_overflow"] = z
         frontier = torch.full((Bb, F), NULL_ID, dtype=torch.int32, device=dev)
         frontier[:, 0] = roots
         fmask = torch.zeros((Bb, F), dtype=torch.bool, device=dev)
         fmask[:, 0] = bvalid
         A = 1  # occupied frontier prefix: 1 for the root hop, then min(F, A*RW)
-        miss_roots, miss_counts = [], []
+        miss_roots, miss_counts, hop_k = [], [], []
         for h, kernel in enumerate(kernels):
-            q, qmask, ctx = tier.route(
-                h, A, frontier[:, :A].reshape(-1), fmask[:, :A].reshape(-1)
+            q, qmask, qparams, ctx, ovf = yield from tier.route(
+                h, A, frontier[:, :A].reshape(-1), fmask[:, :A].reshape(-1),
+                plan.hops[h].params,
             )
-            vals, cnt, mr, nrec, hs = kernel(store, cache, ttable, q, qmask, syncs)
+            if tier.routed:
+                m["route_overflow"] = m["route_overflow"] + ovf
+            vals, cnt, mr, nrec, hs = kernel(store, cache, ttable, q, qmask, qparams, syncs)
             if cached_hops[h]:
                 m["requests"] = m["requests"] + hs["n_read"]
                 m["cache_reads"] = m["cache_reads"] + hs["n_read"]
                 m["hits"] = m["hits"] + hs["hits"]
                 m["phases"] += 1  # one cache get round-trip
                 miss_roots.append(mr)
-                miss_counts.append(nrec)
+                miss_counts.append(tier.pack_count(nrec))
+            hop_k.append(hs["k"])
             m["requests"] = m["requests"] + hs["k"] + hs["leaves"]
             m["leaf_fetches"] = m["leaf_fetches"] + hs["leaves"]
             m["edges_scanned"] = m["edges_scanned"] + hs["edges"]
             m["misses"] += hs["k"]
             m["truncated"] = m["truncated"] + hs["trunc"]
-            m["phases"] += 2 * (hs["k"] > 0)  # edge read + leaf fetch
-            vals, cnt = tier.unroute(ctx, vals, cnt)
+            vals, cnt = yield from tier.unroute(ctx, vals, cnt)
             frontier, fmask = segmented_dedup_merge(
                 vals.reshape(Bb, A, RW), cnt.reshape(Bb, A), F, syncs=syncs
             )
@@ -356,15 +494,37 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
             m["phases"] += 1  # valueMap fetch
             m["requests"] = m["requests"] + fmask.sum(dtype=torch.int32)
         m["phases"] += plan.extra_phases
+        # one deferred reduction: the per-hop miss counts ride the metrics
+        # through ``reduce_metrics``, then gate each hop's edge-read +
+        # leaf-fetch phases on the global count
+        m["_hop_k"] = hop_k
+        m = yield from tier.reduce_metrics(m)
+        for k in m.pop("_hop_k"):
+            m["phases"] = m["phases"] + 2 * (k > 0)
         return result, tuple(miss_roots), tuple(miss_counts), m, store.version
 
-    return fused
+    return steps
+
+
+def run_local(program):
+    """Run a per-rank program whose tier never asks for a collective."""
+    try:
+        ask = next(program)
+    except StopIteration as stop:
+        return stop.value
+    raise RuntimeError(f"a single-host program asked for a collective: {ask[0]}")
 
 
 def make_fused_plan_fn(espec, plan, use_cache: bool):
     """The single-host whole-plan pipeline: ``make_plan_fn`` with identity
-    hooks."""
-    return make_plan_fn(espec, plan, use_cache, LocalPlanTier())
+    hooks, run to its end. ``fused(store, cache, ttable, roots, bvalid,
+    syncs=None) -> (result, miss_roots, miss_counts, metrics, version)``."""
+    steps = make_plan_fn(espec, plan, use_cache, LocalPlanTier())
+
+    def fused(*args, **kwargs):
+        return run_local(steps(*args, **kwargs))
+
+    return fused
 
 
 def decode_miss_records(plan, use_cache, miss_roots, miss_counts, read_version):

@@ -1,0 +1,41 @@
+"""The sharded transaction runtime (PyTorch): the process-local mesh, the
+routing table of the partitioned tier, and ``ShardedTxnRuntime``."""
+
+from repro_torch.distributed.sharding import (
+    ALL_REDUCE_SUM,
+    ALL_TO_ALL,
+    LocalMesh,
+    MeshError,
+    flat_mesh,
+)
+from repro_torch.distributed.routing import (
+    RoutingTable,
+    base_owner,
+    cache_owner_of,
+    identity_table,
+    storage_owner_of,
+)
+
+__all__ = [
+    "ALL_REDUCE_SUM",
+    "ALL_TO_ALL",
+    "LocalMesh",
+    "MeshError",
+    "flat_mesh",
+    "RoutingTable",
+    "base_owner",
+    "cache_owner_of",
+    "identity_table",
+    "storage_owner_of",
+    "ShardedTxnRuntime",
+    "ShardedMissDrain",
+]
+
+
+def __getattr__(name):
+    # lazy: graph_serve pulls in the whole core engine stack
+    if name in ("ShardedTxnRuntime", "ShardedMissDrain"):
+        from repro_torch.distributed import graph_serve
+
+        return getattr(graph_serve, name)
+    raise AttributeError(name)

@@ -1,0 +1,351 @@
+"""The partitioned gR-Tx serving tier: owner shards over a mesh.
+
+PyTorch twin of ``repro.distributed.graph_serve`` (the partitioned tier's
+read path and CP population; gRW on the partitioned tier, the overlapped
+schedule, telemetry, degraded mode, routing overlays, maintenance and the
+replicated tier are not ported yet). Vertex ownership is interleaved
+(shard ``v mod n`` owns ``v``) and the one-hop result cache is
+co-partitioned with it: the global cache of ``C`` slots is ``n`` blocks of
+``C // n`` slots, and a key's block is its root's owner, so a probe is
+always local to the owner.
+
+A gR-Tx batch runs one per-rank program (``runtime.make_plan_fn`` over a
+``_MeshTier``) on every rank of a ``LocalMesh``; rank ``r`` holds rows
+``[r * B/n, (r+1) * B/n)`` of the padded batch. Per hop:
+
+- **route** — each frontier root ships as a query frame ``[root | flags |
+  params]`` into per-peer buckets of ``cap`` rows (``route_cap_factor``
+  sizes them; valid rows a full bucket drops are counted in
+  ``route_overflow``), then one all_to_all delivers every bucket to its
+  owner;
+- **exec** — the owner probes its cache block through the ``cache_probe``
+  kernel and runs its misses through the ``block_gather`` kernel over its
+  owner-local blocks (``kernels.block_gather.ops.block_onehop_exec``);
+- **unroute** — results return as ``[vals x RW | cnt]`` frames in the
+  mirror all_to_all, and the querying rank merges them into its frontier.
+
+After the hops, one all-reduce globalizes the additive metrics and the
+per-hop miss counts, so every metric equals the single-host engine's except
+``route_overflow`` and ``locality_routed`` (sharded-only, both 0 with
+no-drop caps and the identity routing table) and ``host_syncs``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.cache import _SLOT_FIELDS, CacheState, cache_shard, empty_cache
+from repro_torch.core.keys import PARAM_LEN
+from repro_torch.core.runtime import (
+    WIRE_FLAG_VALID,
+    bucket_for,
+    bucketize,
+    decode_miss_records,
+    make_plan_fn,
+    pack_query_frame,
+    pack_result_frame,
+    pad_roots,
+    unpack_query_frame,
+    unpack_result_frame,
+)
+from repro_torch.distributed.routing import (
+    base_owner,
+    cache_owner_of,
+    identity_table,
+    storage_owner_of,
+)
+from repro_torch.distributed.sharding import ALL_REDUCE_SUM, ALL_TO_ALL, LocalMesh
+from repro_torch.graphstore.partition import (
+    BlockStoreView,
+    default_pspec,
+    local_shard,
+    owner_of,
+    partition_store,
+    store_bytes_report,
+)
+from repro_torch.kernels.block_gather.ops import block_onehop_exec
+from repro_torch.utils import NULL_ID, SyncCount, resolve_device
+
+_STAT_FIELDS = ("n_hit", "n_miss", "n_insert", "n_evict", "n_delete", "n_oversize")
+_ADDITIVE_METRICS = (
+    "requests", "hits", "misses", "truncated", "leaf_fetches",
+    "edges_scanned", "cache_reads", "route_overflow", "deferred",
+    "locality_routed",
+)
+
+# The reference's measured per-hop routing capacity multipliers (Zipf 1.3
+# eCommerce roots on an 8-shard mesh): hop 1 routes query roots with 4x
+# headroom over the uniform share, later hops leaf-derived frontiers at 3x.
+DEFAULT_ROUTE_CAP_FACTOR = (4, 3)
+
+
+def _replicate_stats(before: CacheState, shards) -> CacheState:
+    """Reassemble a global cache from its ``n`` shards after a step that
+    wrote them: slot blocks in owner order, and each 0-d stats counter the
+    global value plus the sum of every shard's delta (the reference's psum
+    of local deltas)."""
+    slots = {f: torch.cat([getattr(s, f) for s in shards]) for f in _SLOT_FIELDS}
+    stats = {f: getattr(before, f) + sum(getattr(s, f) - getattr(before, f) for s in shards)
+             for f in _STAT_FIELDS}
+    return before._replace(**slots, **stats)
+
+
+class _MeshTier:
+    """One rank's hooks of the hop driver: owner routing over all_to_all,
+    the one metrics all-reduce, and owner-local block execution."""
+
+    routed = True
+
+    def __init__(self, rt: "ShardedTxnRuntime", caps, me: int):
+        self.rt, self.caps, self.me = rt, caps, me
+        self.n, self.pspec, self.rtable = rt.n, rt.pspec, rt.rtable
+        self._locality = 0  # rows the table routed away from their base owner
+
+    def exec_fn(self, hop):
+        pspec, espec = self.pspec, self.rt.lspec
+
+        def exec_fn(store, roots_f, params, miss_m):
+            view = BlockStoreView(pspec, store, self.me, rtable=self.rtable)
+            return block_onehop_exec(espec, view, hop.direction, hop.edge_label,
+                                     hop.pr, hop.pe, hop.pl, roots_f, params, miss_m)
+
+        return exec_fn
+
+    def route(self, hop_idx, A, roots_flat, rmask_flat, params_row):
+        # one exchange: root id + valid flag + bound params in one frame.
+        # Bucket padding is zero-filled, so padded rows decode flags = 0.
+        n, cap = self.n, self.caps[hop_idx]
+        M, dev = roots_flat.shape[0], roots_flat.device
+        rvals = torch.where(rmask_flat, roots_flat, NULL_ID)
+        ok = rmask_flat & (roots_flat >= 0)
+        # gR routes by the *cache* owner; the identity table makes this the
+        # base owner exactly
+        dest = cache_owner_of(self.rtable, roots_flat, n)
+        owner = torch.where(ok, dest, -1)
+        self._locality = self._locality + (ok & (dest != owner_of(roots_flat, n))).sum(
+            dtype=torch.int32)
+        flags = rmask_flat.to(torch.int32) * WIRE_FLAG_VALID
+        params = torch.as_tensor(np.asarray(params_row, np.int32), device=dev).expand(M, PARAM_LEN)
+        frame = pack_query_frame(rvals, flags, params)
+        send, slot, kept, ovf = bucketize(frame, owner, n, cap, fill=0)
+        recv = yield (ALL_TO_ALL, send)
+        q, qflags, qparams = unpack_query_frame(recv.reshape(n * cap, -1))
+        qmask = (qflags & WIRE_FLAG_VALID) == WIRE_FLAG_VALID
+        return q.contiguous(), qmask, qparams.contiguous(), (slot, kept, cap), ovf
+
+    def unroute(self, ctx, vals, cnt):
+        # one exchange home: the RW leaf lanes and the count lane
+        slot, kept, cap = ctx
+        n, RW = self.n, vals.shape[-1]
+        frame = pack_result_frame(vals, cnt).reshape(n, cap, RW + 1)
+        back = (yield (ALL_TO_ALL, frame)).reshape(n * cap, RW + 1)
+        back_v, back_c = unpack_result_frame(back)
+        sl = slot.clamp(0, n * cap - 1).long()
+        return (torch.where(kept[:, None], back_v[sl], NULL_ID),
+                torch.where(kept, back_c[sl], 0))
+
+    def psum(self, x):
+        return (yield (ALL_REDUCE_SUM, x))
+
+    def pack_count(self, nrec):
+        return nrec.reshape(1)  # one independently counted miss segment per rank
+
+    def reduce_metrics(self, m):
+        # ONE all-reduce for the whole plan: the additive metrics and the
+        # per-hop miss counts (the deferred phase gate) in one vector
+        m["locality_routed"] = self._locality
+        keys = [k for k in _ADDITIVE_METRICS if k in m]
+        hop_k = m["_hop_k"]
+        dev = self.rt.device
+        vec = torch.stack([torch.as_tensor(v, dtype=torch.int64, device=dev)
+                           for v in [m[k] for k in keys] + list(hop_k)])
+        g = yield from self.psum(vec)
+        for i, k in enumerate(keys):
+            m[k] = g[i]
+        m["_hop_k"] = list(g[len(keys):])
+        return m
+
+
+class ShardedTxnRuntime:
+    """One transaction runtime spread over the ``n`` ranks of a mesh, on the
+    partitioned storage tier.
+
+    ``espec`` is the *global* spec: ``espec.cache.capacity`` is the fleet
+    cache capacity, split into ``n`` co-partitioned blocks of
+    ``capacity // n`` slots (each a power of two). Block capacities are
+    twice the uniform share (``partition.default_pspec``).
+
+    ``route_cap_factor`` bounds the per-peer routing buckets: the default is
+    the reference's measured production caps, a tuple gives per-hop factors
+    (hop ``i`` uses entry ``min(i, last)``), and ``None`` sizes them for the
+    worst case, so nothing can drop (the parity tests' configuration).
+
+    Entry points run on CUDA unless ``device`` names another device, and
+    raise if it is absent. The identity routing table is threaded through
+    every step, as the reference does by default.
+    """
+
+    def __init__(self, espec, mesh: LocalMesh, *,
+                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR, device=None):
+        self.device = resolve_device(device)
+        self.mesh = mesh
+        n = self.n = mesh.n
+        if n & (n - 1):
+            raise ValueError(f"shard count {n} is not a power of two")
+        C = espec.cache.capacity
+        Cloc = C // n
+        if Cloc * n != C or Cloc & (Cloc - 1):
+            raise ValueError(f"cache capacity {C} does not shard into power-of-two blocks")
+        self.espec = espec
+        self.lspec = espec._replace(cache=espec.cache._replace(capacity=Cloc))
+        self.pspec = default_pspec(espec.store, n)
+        if isinstance(route_cap_factor, (list, tuple)):
+            route_cap_factor = tuple(route_cap_factor)
+            if not route_cap_factor or not all(isinstance(f, int) for f in route_cap_factor):
+                raise ValueError("per-hop route_cap_factor entries must be ints")
+        self.route_cap_factor = route_cap_factor
+        self.rtable = identity_table(n, device=self.device)
+
+    # ------------------------------------------------------------ state
+    def partition_store(self, store):
+        """Partition a single-host ``GraphStore`` (on this runtime's device)
+        into the owner-local blocks of every rank."""
+        if store.esrc.device.type != self.device.type:
+            raise ValueError(f"the store lies on {store.esrc.device}, the runtime on {self.device}")
+        return partition_store(self.pspec, store)
+
+    def store_bytes(self, pstore) -> dict:
+        """Per-shard bytes vs the replicated snapshot."""
+        return store_bytes_report(self.pspec, pstore)
+
+    def empty_cache(self) -> CacheState:
+        """Global-capacity empty cache: block ``s`` of every slot tensor is
+        shard ``s``'s cache."""
+        return empty_cache(self.espec.cache, device=self.device)
+
+    # --------------------------------------------------------- gR-Tx path
+    def _hop_route_caps(self, plan, Bloc: int):
+        """Per-hop per-peer routing capacity: ``ceil(factor * rows / n)`` for
+        the ``rows = Bloc * A`` a rank routes at a hop, or ``rows`` (no
+        drop) when the factor is None."""
+        caps, A = [], 1
+        F, RW = self.espec.frontier, self.espec.result_width
+        rcf = self.route_cap_factor
+        for i, _ in enumerate(plan.hops):
+            rows = Bloc * A
+            f = rcf[min(i, len(rcf) - 1)] if isinstance(rcf, tuple) else rcf
+            caps.append(max(1, rows) if f is None else max(1, -(-f * rows // self.n)))
+            A = min(F, A * RW)
+        return caps
+
+    def run_gr_tx_batch(self, store, cache, ttable, plan, roots):
+        """Pad, run every rank's program on the mesh, decode the misses.
+        Same contract as ``GraphEngine.run``: (result, misses, metrics).
+
+        ``metrics["host_syncs"]`` counts each rank's miss-count read per hop,
+        each rank's merge rounds and the one result copy."""
+        from repro_torch.core.engine import _to_host
+
+        n, pspec = self.n, self.pspec
+        B = len(roots)
+        bucket = max(bucket_for(B), n)
+        if bucket // n * n != bucket:
+            raise ValueError(f"batch bucket {bucket} does not divide over {n} shards")
+        Bloc = bucket // n
+        proots, bvalid = pad_roots(roots, bucket)
+        proots = torch.as_tensor(proots, device=self.device)
+        bvalid = torch.as_tensor(bvalid, device=self.device)
+        caps = self._hop_route_caps(plan, Bloc)
+        syncs = SyncCount()
+        programs = []
+        for me in range(n):
+            steps = make_plan_fn(self.lspec, plan, True, _MeshTier(self, caps, me))
+            rows = slice(me * Bloc, (me + 1) * Bloc)
+            programs.append(steps(local_shard(pspec, store, me), cache_shard(cache, n, me),
+                                  ttable, proots[rows], bvalid[rows], syncs))
+        outs = self.mesh.run(programs)
+        result = torch.cat([o[0] for o in outs])
+        n_seg = len(outs[0][1])
+        mroots = [torch.cat([o[1][i] for o in outs]) for i in range(n_seg)]
+        mcounts = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
+        metrics, (result, *host) = _to_host(dict(outs[0][3], _version=outs[0][4]),
+                                            [result, *mroots, *mcounts])
+        version = metrics.pop("_version")
+        metrics["host_syncs"] = syncs.n + 1
+        metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
+        metrics["locality_retry_rows"] = 0  # no routing overlays yet
+        misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
+        return result[:B], misses, metrics
+
+    # ------------------------------------------------------ CP population
+    def populator(self, templates_meta, owner: int, max_retries: int = 3):
+        """A ``CachePopulator`` for the misses of one owner shard: its CP
+        transactions execute against that owner's blocks and insert into its
+        cache block (rows of other owners are masked off)."""
+        from repro_torch.core.population import CachePopulator
+
+        return CachePopulator(self.espec, templates_meta, max_retries=max_retries,
+                              device=self.device,
+                              step_builder=functools.partial(self._pop, templates_meta, owner))
+
+    def _pop(self, templates_meta, me: int, tpl_idx: int, bucket: int):
+        from repro_torch.core.population import populate_step
+
+        del bucket  # eager torch compiles nothing per batch shape
+        n, pspec, lspec, rtable = self.n, self.pspec, self.lspec, self.rtable
+        direction, edge_label = templates_meta[tpl_idx]
+
+        def step(store_exec, store_commit, cache, ttable, roots, params, mask, read_versions):
+            # under the identity table the executing and the committing shard
+            # of a row are both its storage owner
+            mine = mask & (roots >= 0) & (storage_owner_of(rtable, roots, n) == me)
+            view = BlockStoreView(pspec, local_shard(pspec, store_exec, me), me, rtable)
+            c2, ok, ab = populate_step(
+                lspec, store_exec, store_commit, cache_shard(cache, n, me), ttable,
+                tpl_idx, direction, edge_label, roots, params, mine, read_versions,
+                exec_view=view,
+            )
+            shards = [c2 if s == me else cache_shard(cache, n, s) for s in range(n)]
+            return _replicate_stats(cache, shards), ok, ab
+
+        return step
+
+
+class ShardedMissDrain:
+    """Per-shard CP drain loops over the runtime's per-shard miss records.
+
+    Each miss record lands in its root's owner queue, drained by that
+    owner's populator (the shard whose blocks execute it and whose cache
+    block receives the insert); ``drain`` walks the shards in order, so
+    every CP batch is single-owner and runs one owner's step (the
+    CP-per-shard layout of §4's population threads).
+    """
+
+    def __init__(self, rt: ShardedTxnRuntime, templates_meta, max_retries: int = 3):
+        self.n = rt.n
+        self.rt = rt
+        self.pops = [rt.populator(templates_meta, s, max_retries) for s in range(rt.n)]
+
+    def push(self, misses):
+        for m in misses:
+            self.pops[int(base_owner(m.root, self.n))].queue.push([m])
+
+    def drain(self, store_exec, store_commit, cache, ttable, k: int = 128):
+        """Drain up to ``k`` misses per shard queue; returns the new cache."""
+        for pop in self.pops:
+            cache = pop.drain(store_exec, store_commit, cache, ttable, k)
+        return cache
+
+    @property
+    def committed(self) -> int:
+        return sum(p.committed for p in self.pops)
+
+    @property
+    def aborted(self) -> int:
+        return sum(p.aborted for p in self.pops)
+
+    def pending(self) -> int:
+        return sum(len(p.queue) for p in self.pops)

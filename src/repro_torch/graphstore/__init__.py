@@ -1,8 +1,10 @@
-"""Tensorized transactional property-graph store (single-host slice).
+"""Tensorized transactional property-graph store.
 
 Slotted vertex/edge tensors + CSR indexes over the compacted prefix, with a
 linearly-scanned recent region for post-compaction edge inserts; per-vertex
 version counters give optimistic conflict detection at vertex granularity.
+``partition`` splits the edges into owner-local dual-CSR blocks for the
+partitioned tier.
 """
 
 from repro_torch.graphstore.store import (
@@ -14,6 +16,19 @@ from repro_torch.graphstore.store import (
     gather_in,
     gather_out,
     ingest,
+)
+from repro_torch.graphstore.partition import (
+    BlockCapacityError,
+    BlockStoreView,
+    EdgeBlock,
+    PartitionedGraphStore,
+    PartitionedStoreSpec,
+    default_pspec,
+    local_of,
+    local_shard,
+    owner_of,
+    partition_store,
+    store_bytes_report,
 )
 from repro_torch.graphstore.mutations import (
     AppliedMutations,
@@ -32,6 +47,17 @@ __all__ = [
     "gather_out",
     "gather_in",
     "compact",
+    "PartitionedStoreSpec",
+    "PartitionedGraphStore",
+    "EdgeBlock",
+    "BlockStoreView",
+    "partition_store",
+    "default_pspec",
+    "owner_of",
+    "local_of",
+    "local_shard",
+    "store_bytes_report",
+    "BlockCapacityError",
     "MutationBatch",
     "AppliedMutations",
     "make_mutation_batch",

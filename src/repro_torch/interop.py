@@ -5,6 +5,10 @@ The JAX package's state is given here as dicts of numpy arrays (a
 as JAX objects, so this module imports numpy and torch only. With it the
 tests feed both packages the same state and compare what comes out.
 
+The sharded runtime keeps one global ``CacheState`` whose slot tensors are
+the owners' blocks in order, so ``cache_from_numpy`` / ``cache_to_numpy``
+carry a co-partitioned cache as they carry a single-host one.
+
 Dtypes: ids, labels, properties and counters are int32 on both sides; the
 cache fingerprint is uint32 in the reference and int32 holding the same
 bits in the port.
@@ -18,6 +22,7 @@ import torch
 from repro_torch.core.cache import CacheSpec, CacheState
 from repro_torch.core.engine import EngineSpec, Hop, QueryPlan
 from repro_torch.core.templates import PredSpec, TemplateTable
+from repro_torch.graphstore.partition import EdgeBlock, PartitionedGraphStore
 from repro_torch.graphstore.store import GraphStore, StoreSpec
 from repro_torch.utils import resolve_device
 
@@ -40,6 +45,23 @@ def store_from_numpy(d: dict, device=None) -> GraphStore:
 
 def store_to_numpy(store: GraphStore) -> dict:
     return {f: _numpy(getattr(store, f)) for f in GraphStore._fields}
+
+
+def pstore_from_numpy(d: dict, device=None) -> PartitionedGraphStore:
+    """A partitioned store from the reference's fields, the two edge blocks
+    as nested dicts."""
+    dev = resolve_device(device)
+    blk = lambda b: EdgeBlock(**{f: _tensor(b[f], dev) for f in EdgeBlock._fields})
+    return PartitionedGraphStore(**{
+        f: blk(d[f]) if f in ("out", "inc") else _tensor(d[f], dev)
+        for f in PartitionedGraphStore._fields
+    })
+
+
+def pstore_to_numpy(ps: PartitionedGraphStore) -> dict:
+    blk = lambda b: {f: _numpy(getattr(b, f)) for f in EdgeBlock._fields}
+    return {f: blk(getattr(ps, f)) if f in ("out", "inc") else _numpy(getattr(ps, f))
+            for f in PartitionedGraphStore._fields}
 
 
 def cache_from_numpy(d: dict, device=None) -> CacheState:

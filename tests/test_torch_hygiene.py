@@ -39,6 +39,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.core import CacheSpec, EngineSpec, GraphEngine, QueryPlan, empty_cache
     from repro_torch.core.engine import build_grw_step
     from repro_torch.core.population import CachePopulator
+    from repro_torch.distributed import ShardedTxnRuntime, flat_mesh
     from repro_torch.graphstore import StoreSpec, empty_store, ingest, make_mutation_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -52,6 +53,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: CachePopulator(espec, {}),
         lambda: build_grw_step(espec),
         lambda: make_mutation_batch(spec),
+        lambda: ShardedTxnRuntime(espec, flat_mesh(2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
