@@ -19,7 +19,7 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
 6. consistency of the final state: cached results against a numpy one-hop
    reference, and against the engine with the cache off;
 7. the partitioned tier: the final store split over 4 owner shards in one
-   process, 24 gR batches of the six read plans through
+   process, 12 gR batches of the six read plans through
    ``ShardedTxnRuntime`` with CP through ``ShardedMissDrain``, each batch
    held equal to the single-host engine (results always; metrics, miss
    multisets and cache entries while neither cache evicted), with latency
@@ -28,10 +28,20 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    partitioned calls only); then ``cache_probe`` and ``block_gather`` against
    their plain versions on every input the partitioned path gave them
    (``block_gather``'s recent-region lanes must have scanned edges in both
-   orientations), with times for the largest.
+   orientations), with times for the largest;
+8. GNN serving at the ``minibatch_lg`` shape: a graph sized like Reddit
+   (232,965 vertices, ~7.4M edges, 602 fp32 features, 41 classes) in the
+   store, 1,024 seeds at fanouts (15, 10) through ``CachedNeighborSampler``
+   (one ``cache_probe`` lookup per neighbour list), the PNA forward and loss
+   at FULL widths, CP of every miss, a gRW-Tx of 64 new and 64 deleted
+   edges, and a second epoch whose cache-served lists must equal the
+   store's. ``segment_spmm`` launches are counted around the forwards only;
+   every call they made is held to the plain version (fp32 allclose), one
+   bf16 call too, and the kernel forward's logits to the plain forward's;
+   times at the largest call beside its bound and ``torch.sparse.mm``.
 
-Between 4 and 5, and in 7, a short ``torch.profiler`` window over gR
-batches prints the device's busy time by kernel and its idle share.
+Between 4 and 5, in 7 and in 8, a short ``torch.profiler`` window prints
+the device's busy time by kernel and its idle share.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -63,7 +73,7 @@ P_STATUS, P_LISTING_ID, P_LAST_SEEN = 0, 1, 2
 P_ISACTIVE = 0
 WRITE_MIX = [("upsert", 0.4485), ("last_seen", 0.4394), ("del_edges", 0.1122)]
 MIXES = [("R_hat", 0.99), ("W_hat", 0.62)]
-N_OPS = 200  # operations per traffic mix
+N_OPS = 100  # operations per traffic mix
 BATCH = 512  # Zipf roots per gR batch
 SCALE = 1600  # multiple of benchmarks/workload.py's default world size
 
@@ -228,9 +238,10 @@ def device_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters=20) -> float | None:
-    """Device time per call of ``fn`` (the sum of the kernels it launches),
-    from ``torch.profiler``; None when the profiler records no device time."""
+def device_ms(fn, iters=20, match=None) -> float | None:
+    """Device time per call of ``fn`` (the sum of the kernels it launches,
+    or of those whose name contains ``match``), from ``torch.profiler``;
+    None when the profiler records no such device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -239,7 +250,7 @@ def device_ms(fn, iters=20) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    evs = device_events(prof)
+    evs = [e for e in device_events(prof) if match is None or match in e.name]
     return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3 if evs else None
 
 
@@ -311,36 +322,45 @@ def run_traffic(seed, espec, state, ttable, plans, meta, ranges, includes, dev):
     return (store, cache), report, engines
 
 
-def profile_window(tag, seed, plans, ranges, run):
-    """Device time by kernel over a short steady window of gR batches
-    (two of each cached read plan, ``run(name, roots)`` each), with
-    ``torch.profiler``."""
+def profiled(tag, what, body, host_ops=True):
+    """Runs ``body()`` under ``torch.profiler`` and prints its wall time,
+    the device's busy time by kernel and its idle share. ``host_ops=False``
+    traces the device alone. Returns ``(wall_ms, busy_ms)``; busy is None
+    when no device time was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(seed + 5)
-    batches = [(n, label) for n, _, label, _ in plans if n != "q_agg"] * 2
+    acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for name, label in batches:
-            run(name, zipf_pick(rng, *ranges[label], BATCH))
+        body()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     if not events:
         print(f"profile{tag}: no device time recorded (not measured)", flush=True)
-        return
+        return wall_ms, None
     by_name: dict = {}
     for e in events:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
-    print(f"profile{tag}: {len(batches)} gR batches, wall {wall_ms:.3f} ms, device busy "
+    print(f"profile{tag}: {what}, wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms in {len(events)} device events, idle share "
           f"{1 - busy_ms / wall_ms:.4f}", flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"profile{tag} kernel: {name[:70]:70s} device_ms={us / 1e3:.3f} calls={n}",
               flush=True)
+    return wall_ms, busy_ms
+
+
+def profile_window(tag, seed, plans, ranges, run):
+    """Device time by kernel over a short steady window of gR batches
+    (two of each cached read plan, ``run(name, roots)`` each)."""
+    rng = np.random.default_rng(seed + 5)
+    batches = [(n, label) for n, _, label, _ in plans if n != "q_agg"] * 2
+    roots = [(name, zipf_pick(rng, *ranges[label], BATCH)) for name, label in batches]
+    profiled(tag, f"{len(batches)} gR batches", lambda: [run(n, r) for n, r in roots])
 
 
 def probe_inputs(espec, cache, hop, roots, dev):
@@ -542,7 +562,7 @@ def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed):
 
 # ---------------------------------------------------- partitioned tier
 N_OWNERS = 4  # owner shards held in one process on the one card
-P_ROUNDS = 4  # rounds over the six read plans in phase 7
+P_ROUNDS = 2  # rounds over the six read plans in phase 7
 # miss records each side populates after a phase-7 batch: the same records
 # on both sides (the first by key), few enough that a 2^18-slot cache is
 # unlikely to evict, which the entry comparison needs
@@ -789,6 +809,310 @@ def check_partitioned_kernels(capture, launches, max_deg):
     return max(rows, key=lambda r: r[0])[1]
 
 
+# ------------------------------------------------------------ GNN serving
+# Phase 8: cached neighbour sampling over a graph sized like Reddit, the
+# dataset behind the minibatch_lg cell (src/repro/configs/gnn_shapes.py),
+# and the PNA forward at FULL widths with that cell's override
+# (src/repro/launch/steps.py: d_in 602, 41 classes).
+GNN_V = 232_965  # Reddit's vertices
+GNN_FEAT, GNN_CLASSES = 602, 41
+GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)
+GNN_DEG = 32  # Poisson mean out-degree, clipped to [1, max_deg]
+GNN_GRW = 64  # new and deleted edges of the gRW-Tx between the epochs
+SPMM_RTOL = SPMM_ATOL = 1e-5  # fp32: the same sums in another order
+SPMM_BF16_TOL = 1e-1  # the JAX sweep's bf16 tolerance
+LOGITS_TOL = 1e-4  # four PNA layers on top of those sums
+
+
+def build_gnn_world(rng, device, n_vertices, max_deg=64):
+    """One vertex label; out-degrees Poisson(GNN_DEG) clipped to [1,
+    max_deg] with uniform destinations and no duplicate pairs; fp32 features
+    and labels; the example's NBR template (all out-neighbours); a cache of
+    ``v_cap`` slots (2^18 at Reddit's size)."""
+    from repro_torch.core import (ANY_LABEL, DIR_OUT, CacheSpec, EngineSpec, Template,
+                                  make_template_table)
+    from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
+    from repro_torch.graphstore import StoreSpec, ingest
+
+    V = n_vertices
+    deg = np.clip(rng.poisson(GNN_DEG, V), 1, max_deg)
+    src = np.repeat(np.arange(V, dtype=np.int64), deg)
+    dst = rng.integers(0, V, len(src))
+    _, first = np.unique(src * V + dst, return_index=True)
+    keep = np.sort(first)
+    src, dst = src[keep], dst[keep]
+    v_cap = 1 << (V - 1).bit_length()
+    spec = StoreSpec(v_cap=v_cap, e_cap=32 * v_cap, n_vprops=1, n_eprops=1, recent_cap=1024)
+    store = ingest(spec, np.zeros(V, np.int32), np.full((V, 1), MISSING, np.int32), src, dst,
+                   np.zeros(len(src), np.int32), np.full((len(src), 1), MISSING, np.int32),
+                   device=device)
+    cspec = CacheSpec(capacity=v_cap, probes=8, max_leaves=32, max_chunks=2)
+    espec = EngineSpec(store=spec, cache=cspec, max_deg=max_deg, frontier=32)
+    qp = GraphQP("qp0")
+    sc = ServiceCoordinator([qp])
+    sc.register(0)
+    sc.enable(0)
+    nbr = Template("NBR", DIR_OUT, (ANY_LABEL, []), (ANY_LABEL, []), (ANY_LABEL, []))
+    ttable = qp.ttable_masks(make_template_table([nbr]), 1)
+    feats = rng.standard_normal((V, GNN_FEAT), dtype=np.float32)
+    labels = rng.integers(0, GNN_CLASSES, V).astype(np.int32)
+    return espec, store, ttable, feats, labels, src
+
+
+class ServedLog:
+    """Records every ``neighbors(v)`` call of a sampler: the vertex, the
+    list it returned and whether the cache served it."""
+
+    def __init__(self, sampler):
+        self.sampler, self.inner, self.calls = sampler, sampler.neighbors, []
+        sampler.neighbors = self.neighbors
+
+    def neighbors(self, v):
+        h = self.sampler.hits
+        nb = self.inner(v)
+        self.calls.append((v, nb, self.sampler.hits > h))
+        return nb
+
+
+def run_gnn(seed, dev, n_vertices=GNN_V):
+    """Phase 8: two epochs of cached sampling and the PNA forward + loss,
+    a gRW-Tx between them, the consistency gate on every list epoch 2
+    served from the cache, and profile windows of the sampler and the
+    forward. Returns the report, the capture of every ``segment_spmm``
+    call the forwards made, and (config, params, epoch 2's batch)."""
+    import dataclasses
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.configs import pna
+    from repro_torch.core import DIR_OUT, empty_cache
+    from repro_torch.core.engine import run_grw_tx
+    from repro_torch.core.population import CachePopulator
+    from repro_torch.gnn import CachedNeighborSampler
+    from repro_torch.gnn import graph as graph_mod
+    from repro_torch.gnn.models import init_params, loss_fn
+    from repro_torch.graphstore import gather_out, make_mutation_batch
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
+
+    print("gnn: reduced: Reddit's mean degree of ~492 is cut to out-degrees Poisson(32) "
+          "clipped to [1, 64], as one neighbour list is bounded by max_deg 64 and by one "
+          "cache entry (32 x 2 leaves)", flush=True)
+    rng = np.random.default_rng(seed + 31)
+    t0 = time.perf_counter()
+    espec, store, ttable, feats, labels, esrc = build_gnn_world(rng, dev, n_vertices)
+    torch.cuda.synchronize()
+    print(f"gnn world: {n_vertices} vertices, {len(esrc)} edges (v_cap {espec.store.v_cap}, "
+          f"e_cap {espec.store.e_cap}), features {feats.shape} fp32 "
+          f"({feats.nbytes / 2**20:.1f} MiB), store {tensor_bytes(store) / 2**20:.1f} MiB, "
+          f"cache {espec.cache.capacity} slots; built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    cfg = dataclasses.replace(pna.FULL, d_in=GNN_FEAT, n_classes=max(GNN_CLASSES, 2))
+    params = init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
+    pop = CachePopulator(espec, {0: (DIR_OUT, -1)}, device=dev)
+    sampler = CachedNeighborSampler(espec, store, empty_cache(espec.cache, device=dev), ttable,
+                                    0, pop, GNN_FANOUTS, seed=seed, device=dev)
+    log = ServedLog(sampler)
+    seeds = rng.choice(n_vertices, GNN_SEEDS, replace=False)
+    capture = CallCapture((graph_mod, "segment_spmm"))
+    report = {"segment_spmm_launches": 0, "cache_probe_launches": 0}
+
+    def epoch(tag):
+        c0, h0 = len(log.calls), sampler.hits
+        cp_ops.launches = 0
+        t = time.perf_counter()
+        g = sampler.sample_store(seeds, feats, labels)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t
+        report["cache_probe_launches"] += cp_ops.launches
+        n_calls, hits = len(log.calls) - c0, sampler.hits - h0
+        ss_ops.launches = 0
+        with capture:
+            t = time.perf_counter()
+            loss = loss_fn(cfg, params, g)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t) * 1e3
+        report["segment_spmm_launches"] += ss_ops.launches
+        n_nodes, n_edges = int(g.node_mask.sum()), int(g.edge_mask.sum())
+        report[tag] = dict(
+            sample_s=sample_s, neighbors_calls=n_calls, s_per_neighbors_call=sample_s / n_calls,
+            hits=hits, hit_rate=hits / n_calls, forward_loss_ms=fwd_ms, loss=float(loss),
+            nodes=n_nodes, edges=n_edges, padded=(g.node_mask.shape[0], g.edge_mask.shape[0]),
+            segment_spmm_launches=ss_ops.launches)
+        print(f"gnn {tag}: " + json.dumps(report[tag]), flush=True)
+        assert report[tag]["padded"] == (sampler._cap_nodes(GNN_SEEDS),
+                                         sampler._cap_edges(GNN_SEEDS)), report[tag]["padded"]
+        assert np.isfinite(float(loss)), f"{tag}: the loss is not finite"
+        assert ss_ops.launches > 0, f"{tag}: the PNA forward never launched segment_spmm"
+        return g
+
+    # epoch 1: every list misses; then CP drains every queued miss
+    epoch("epoch1")
+    touched = np.unique([v for v, _, _ in log.calls])
+    t = time.perf_counter()
+    drains = 0
+    while len(pop.queue):
+        sampler.populate()
+        drains += 1
+    torch.cuda.synchronize()
+    print(f"gnn populate: {drains} drains in {time.perf_counter() - t:.2f}s, committed "
+          f"{pop.committed} aborted {pop.aborted}", flush=True)
+    assert pop.committed > 0, "CP committed no neighbour list"
+
+    # a gRW-Tx among the vertices epoch 1 touched: write-around invalidation
+    spec = espec.store
+    new = [(int(u), int(w), 0, [MISSING]) for u, w in
+           zip(rng.choice(touched, GNN_GRW), rng.integers(0, n_vertices, GNN_GRW))]
+    dele = rng.choice(np.flatnonzero(np.isin(esrc, touched)), GNN_GRW, replace=False)
+    mb = make_mutation_batch(spec, new_edges=new, del_edges=[int(e) for e in dele],
+                             caps=(8, GNN_GRW, GNN_GRW, 8, 32, 32), device=dev)
+    sampler.store, sampler.cache, mw = run_grw_tx(espec, sampler.store, sampler.cache, ttable,
+                                                  mb, device=dev)
+    print(f"gnn gRW: {GNN_GRW} new + {GNN_GRW} deleted edges, {json.dumps(mw)}", flush=True)
+    assert mw["impacted_keys"] > 0 and mw["op_overflow"] == 0, mw
+    report["grw"] = mw
+
+    # epoch 2: the same seeds; every list served from the cache must equal
+    # the store's list after the gRW (one batched gather_out)
+    c0 = len(log.calls)
+    g2 = epoch("epoch2")
+    served = [(v, nb) for v, nb, hit in log.calls[c0:] if hit]
+    assert served, "epoch 2 had no cache hit"
+    vs = np.unique([v for v, _ in served]).astype(np.int32)
+    _, other, mask, _ = gather_out(spec, sampler.store, torch.as_tensor(vs, device=dev),
+                                   espec.max_deg)
+    other, mask = other.cpu().numpy(), mask.cpu().numpy()
+    want = {int(v): np.unique(other[i][mask[i]]) for i, v in enumerate(vs)}
+    for v, nb in served:
+        assert np.array_equal(np.sort(nb), want[v]), f"vertex {v}: stale cached neighbour list"
+    print(f"gnn consistency: {len(served)} lists served from the cache in epoch 2 "
+          f"({len(vs)} vertices) equal the store's after the gRW", flush=True)
+    report["consistency_checked"] = len(served)
+    print(f"gnn launches: segment_spmm {report['segment_spmm_launches']} over the two "
+          f"forwards, cache_probe {report['cache_probe_launches']} over the two samplings",
+          flush=True)
+    assert report["cache_probe_launches"] > 0, "the sampler never launched cache_probe"
+
+    # the device's idle share over a sample and a forward. A whole sample
+    # launches millions of small kernels, too many events to trace, so the
+    # window holds every 16th neighbors() call of epoch 2, replayed on the
+    # same cache (the same hits and misses), and one forward + loss; epoch
+    # 2's share is estimated from their busy time per call. The sampler's
+    # cache_probe calls in the window are kept for check_gnn_kernels
+    ep = report["epoch2"]
+    window = [v for v, _, _ in log.calls[c0:c0 + ep["neighbors_calls"]:16]]
+    report["probe_capture"] = CallCapture((cache_mod, "cache_probe"))
+    with report["probe_capture"]:
+        s_wall, s_busy = profiled(" gnn sampling", f"{len(window)} neighbors() calls of epoch 2",
+                                  lambda: [sampler.neighbors(v) for v in window], host_ops=False)
+    f_wall, f_busy = profiled(" gnn forward", "one PNA forward + loss",
+                              lambda: loss_fn(cfg, params, g2), host_ops=False)
+    if s_busy is not None and f_busy is not None:
+        busy = s_busy / len(window) * ep["neighbors_calls"] + f_busy
+        report["idle_share"] = 1 - busy / (ep["sample_s"] * 1e3 + ep["forward_loss_ms"])
+        print(f"gnn idle share over epoch 2's sample + forward (estimated from the two "
+              f"windows): {report['idle_share']:.4f}", flush=True)
+    return report, capture, (cfg, params, g2)
+
+
+def spmm_bound(x, src, dst, n, mask):
+    """Least bytes: the rows of x the kept edges read, src, dst, the mask,
+    the CSR offsets and the output, each once; one add per value read."""
+    keep = mask & (dst >= 0) & (dst < n)
+    rows = int(torch.unique(src[keep]).numel())
+    E, D, es = src.shape[0], x.shape[1], x.element_size()
+    nbytes = rows * D * es + E * (4 + 4 + 1) + (n + 1) * 4 + n * D * es
+    return nbytes, int(keep.sum()) * D
+
+
+def check_gnn_kernels(capture, probe_capture, launches, model):
+    """The sampler's ``cache_probe`` calls (batch 1) held equal to the plain
+    version, with times and bound; every ``segment_spmm`` call of the
+    forwards against its plain version (fp32 allclose), one bf16 call at the
+    largest shape, the logits of the kernel forward against the plain
+    forward's, then times at the largest call with its bound and
+    ``torch.sparse.mm``'s time."""
+    from repro_torch.gnn import graph as graph_mod
+    from repro_torch.gnn.models import forward
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.cache_probe.ref import cache_probe_ref
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+
+    probes = probe_capture.calls["cache_probe"]
+    assert probes, "the sampler made no cache_probe call"
+    for a, kw in probes:
+        got, want = cp_ops.cache_probe(*a, **kw), cache_probe_ref(*a, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            "cache_probe disagrees with its plain version on a sampler lookup"
+    a, kw = probes[0]
+    hit, slot = cache_probe_ref(*a, **kw)
+    t = timings(lambda: cp_ops.cache_probe(*a, **kw), lambda: cache_probe_ref(*a, **kw))
+    nbytes, ops = probe_bound(a, hit, slot, kw["probes"])
+    bms, by = bound_ms(nbytes, ops)
+    print(f"kernel cache_probe gnn calls={len(probes)} (all equal) keys={a[4].shape[0]} "
+          f"cap={a[0].shape[0]} {fmt_us(t)} bound_us={bms * 1e3:.6f} ({by}, {nbytes} B)",
+          flush=True)
+
+    calls = capture.calls["segment_spmm"]
+    assert calls, "the PNA forwards made no segment_spmm call"
+    err = 0.0
+    for a, kw in calls:
+        got, want = ss_ops.segment_spmm(*a, **kw), segment_spmm_ref(*a, **kw)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.allclose(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL), \
+            f"segment_spmm disagrees with its plain version at x {tuple(a[0].shape)}"
+        err = max(err, float((got - want).abs().max()))
+    (x, src, dst, n, mask), kw = max(calls, key=lambda c: c[0][0].numel())
+    xb = x.to(torch.bfloat16)
+    gb, wb = ss_ops.segment_spmm(xb, src, dst, n, mask), segment_spmm_ref(xb, src, dst, n, mask)
+    assert gb.dtype == torch.bfloat16 and torch.allclose(
+        gb.float(), wb.float(), rtol=SPMM_BF16_TOL, atol=SPMM_BF16_TOL), "bf16 segment_spmm"
+    bf16_err = float((gb.float() - wb.float()).abs().max())
+    print(f"kernel segment_spmm calls={len(calls)} (all within rtol={SPMM_RTOL} "
+          f"atol={SPMM_ATOL} of the plain version, max abs err {err:.3e}); bf16 at x "
+          f"{tuple(x.shape)}: max abs err {bf16_err:.3e} (tol {SPMM_BF16_TOL})", flush=True)
+
+    cfg, params, g = model
+    logits = forward(cfg, params, g)
+    graph_mod.segment_spmm = segment_spmm_ref
+    try:
+        plain = forward(cfg, params, g)
+    finally:
+        graph_mod.segment_spmm = ss_ops.segment_spmm
+    diff = float((logits - plain).abs().max())
+    print(f"gnn logits {tuple(logits.shape)}: kernel forward vs plain forward max abs diff "
+          f"{diff:.3e} (rtol=atol={LOGITS_TOL})", flush=True)
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    assert torch.allclose(logits, plain, rtol=LOGITS_TOL, atol=LOGITS_TOL), \
+        "the kernel forward's logits disagree with the plain forward's"
+
+    kern = lambda: ss_ops.segment_spmm(x, src, dst, n, mask)
+    t = timings(kern, lambda: segment_spmm_ref(x, src, dst, n, mask))
+    kernel_only = device_ms(kern, match="segment_spmm_kernel")
+    # cuSPARSE on the same function: a CSR [n, rows of x] built once, untimed
+    src_s, offs = ss_ops.prepare_edges(src, dst, n, x.shape[0], mask)
+    nnz = int(offs[-1])
+    A = torch.sparse_csr_tensor(offs.long(), src_s[:nnz].long(),
+                                torch.ones(nnz, dtype=x.dtype, device=x.device),
+                                size=(n, x.shape[0]), check_invariants=True)
+    lib = lambda: torch.sparse.mm(A, x)
+    assert torch.allclose(lib(), segment_spmm_ref(x, src, dst, n, mask),
+                          rtol=SPMM_RTOL, atol=SPMM_ATOL), "torch.sparse.mm computes another sum"
+    lib_ms, lib_dev = cuda_ms(lib), device_ms(lib)
+    nbytes, ops = spmm_bound(x, src, dst, n, mask)
+    bms, by = bound_ms(nbytes, ops)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
+    print(f"kernel segment_spmm largest x={tuple(x.shape)} E={src.shape[0]} kept={nnz} n={n} "
+          f"{fmt_us(t)} kernel_only_device_us={us(kernel_only)} "
+          f"sparse_mm_us={us(lib_ms)} (device {us(lib_dev)}) "
+          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+    return dict(name="segment_spmm", route="cuda", source="src/repro_torch/csrc/segment_spmm.cu",
+                replaces="src/repro/kernels/segment_spmm/kernel.py:49", launches=launches,
+                max_abs_err=err, **t, kernel_only_device_ms=kernel_only, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+                shape=f"x={tuple(x.shape)},E={src.shape[0]},n={n}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -810,6 +1134,7 @@ def main():
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.block_gather import ops as bg_ops
     from repro_torch.kernels.onehop_gather import ops as og_ops
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -846,11 +1171,11 @@ def main():
           f"built in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 4. traffic: the main path, with the kernel counts zeroed around it
-    cp_ops.launches = og_ops.launches = bg_ops.launches = 0
+    cp_ops.launches = og_ops.launches = bg_ops.launches = ss_ops.launches = 0
     state, report, engines = run_traffic(
         args.seed, espec, (store, cache), ttable, plans, meta, ranges, includes, dev)
     launches = {"cache_probe": cp_ops.launches, "onehop_gather": og_ops.launches,
-                "block_gather": bg_ops.launches}
+                "block_gather": bg_ops.launches, "segment_spmm": ss_ops.launches}
     print(f"launches on the main path: {launches}", flush=True)
     assert launches["cache_probe"] > 0, "the read path never launched cache_probe"
     assert report["R_hat"]["hit_rate"] > 0, "R-hat saw no cache hit"
@@ -872,6 +1197,18 @@ def main():
                                         engines, dev)
     rows.append(check_partitioned_kernels(capture, p_report["block_gather_launches"],
                                           espec.max_deg))
+
+    # 8. GNN serving: cached neighbour sampling + the PNA forward at the
+    # minibatch_lg shape; segment_spmm counted around the forwards only
+    from repro_torch.configs.gnn_shapes import GNN_SHAPES
+
+    t0 = time.perf_counter()
+    g_report, g_capture, model = run_gnn(args.seed, dev)
+    lg = GNN_SHAPES["minibatch_lg"]
+    assert g_report["epoch1"]["padded"] == (lg["n_nodes"], lg["n_edges"]), g_report["epoch1"]
+    rows.append(check_gnn_kernels(g_capture, g_report.pop("probe_capture"),
+                                  g_report["segment_spmm_launches"], model))
+    print(f"gnn phase: {time.perf_counter() - t0:.1f}s", flush=True)
 
     print(f"total: {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

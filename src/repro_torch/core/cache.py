@@ -138,26 +138,16 @@ def _probe(spec: CacheSpec, cache: CacheState, tpl_id, root, params, chunk):
     return found, slot, slots, fp
 
 
-def _probe_kernel(spec: CacheSpec, cache: CacheState, tpl_eff, tpl_id, root,
-                  params, chunk):
-    """Read-path probe through the ``cache_probe`` kernel; (found, slot) equal
-    to ``_probe``'s. The kernel matches on (valid, tpl, root, fp), so the
-    chunk is folded into the tpl channel (``tpl * max_chunks + chunk``, with
-    ``tpl_eff`` the cache side of the fold); never-used slots carry tpl = -1,
-    whose folded value is negative and matches no real key. The slot hash
-    and the fingerprint go to the kernel as int32 bits: it needs only the
-    hash's low bits and an equality test on the fingerprint."""
-    cols = _key_cols(tpl_id, root, params, chunk)
-    shape = cols[1].shape
-    h = u32_bits(hash_rows(cols, _SEED_SLOT)).reshape(-1)
-    fp = u32_bits(hash_rows(cols, _SEED_FP)).reshape(-1)
-    key_tpl = (cols[0] * spec.max_chunks + cols[-1]).reshape(-1).contiguous()
-    found, slot = cache_probe(
-        tpl_eff, cache.root, cache.fp, cache.valid, key_tpl,
-        cols[1].reshape(-1).contiguous(), h.contiguous(), fp.contiguous(),
-        probes=spec.probes,
-    )
-    return found.reshape(shape), slot.reshape(shape)
+def _chunk_hashes(tpl_id, root, params, n_chunks):
+    """Slot hash and fingerprint (int32 bits, each [..., n_chunks]) of the
+    keys of chunks ``0 .. n_chunks - 1``, equal to ``hash_rows`` of each
+    key under each seed. One pass: the chunk is the last key column, so the
+    columns before it are mixed once for both seeds and every chunk."""
+    cols = _key_cols(tpl_id, root, params, 0)[:-1]
+    chunks = torch.arange(n_chunks, dtype=torch.int32, device=cols[1].device)
+    h = hash_rows([c[..., None, None] for c in cols] + [chunks[:, None]],
+                  (_SEED_SLOT, _SEED_FP))
+    return u32_bits(h[..., 0]), u32_bits(h[..., 1])
 
 
 def cache_lookup_lean(spec: CacheSpec, cache: CacheState, tpl_id, root, params):
@@ -173,17 +163,40 @@ def cache_lookup_lean(spec: CacheSpec, cache: CacheState, tpl_id, root, params):
     ``lax.cond`` when no row spills, the port always probes them: a branch
     would cost a host read per lookup, and the counted prefix, the hit mask
     and the version are the same either way.
+
+    Each chunk's probe runs through the ``cache_probe`` kernel, with
+    (found, slot) equal to ``_probe``'s. The kernel matches on (valid, tpl,
+    root, fp), so the chunk is folded into the tpl channel
+    (``tpl * max_chunks + chunk``, with ``tpl_eff`` the cache side of the
+    fold); never-used slots carry tpl = -1, whose folded value is negative
+    and matches no real key. The slot hash and the fingerprint go to the
+    kernel as int32 bits: it needs only the hash's low bits and an equality
+    test on the fingerprint.
     """
     L, C = spec.max_leaves, spec.max_chunks
     tpl_eff = (cache.tpl * C + cache.chunk).contiguous()
-    found0, slot0 = _probe_kernel(spec, cache, tpl_eff, tpl_id, root, params, 0)
+    root = torch.as_tensor(root).to(torch.int32)
+    shape = root.shape
+    tpl = torch.broadcast_to(torch.as_tensor(tpl_id, dtype=torch.int32, device=root.device),
+                             shape)
+    h, fp = _chunk_hashes(tpl, root, params, C)
+    flat = lambda t: t.reshape(-1).contiguous()
+
+    def probe(c):
+        found, slot = cache_probe(
+            tpl_eff, cache.root, cache.fp, cache.valid, flat(tpl * C + c), flat(root),
+            flat(h[..., c]), flat(fp[..., c]), probes=spec.probes,
+        )
+        return found.reshape(shape), slot.reshape(shape)
+
+    found0, slot0 = probe(0)
     s0 = slot0.clamp(min=0).long()
     tlen = torch.where(found0, cache.total_len[s0], 0)
     need = ((tlen + L - 1) // L).clamp(1, C)
     ok = found0
     parts = [cache.vals[s0]]
     for c in range(1, C):
-        f, s = _probe_kernel(spec, cache, tpl_eff, tpl_id, root, params, c)
+        f, s = probe(c)
         sc = s.clamp(min=0).long()
         parts.append(cache.vals[sc])
         ok = ok & ((need <= c) | f)

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.cache import CacheSpec, CacheState
 from repro_torch.core.engine import EngineSpec, Hop, QueryPlan
 from repro_torch.core.templates import PredSpec, TemplateTable
+from repro_torch.gnn.graph import GraphBatch
 from repro_torch.graphstore.partition import EdgeBlock, PartitionedGraphStore
 from repro_torch.graphstore.store import GraphStore, StoreSpec
 from repro_torch.utils import resolve_device
@@ -139,3 +140,35 @@ def plan_from_numpy(d) -> QueryPlan:
         final_prop=int(d["final_prop"]), post_filter=d["post_filter"],
         extra_phases=int(d["extra_phases"]),
     )
+
+
+def gnn_params_from_numpy(tree, device=None):
+    """GNN parameters from the reference's nested layout (dicts and lists
+    of ``(w, b)`` pairs, each array as numpy), with the same nesting."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        return _tensor(x, dev)
+
+    return conv(tree)
+
+
+def gnn_params_to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: gnn_params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gnn_params_to_numpy(v) for v in tree)
+    return _numpy(tree)
+
+
+def graph_batch_from_numpy(d: dict, device=None) -> GraphBatch:
+    """A ``GraphBatch`` from a dict of its fields (arrays as numpy; None
+    for an absent optional field; ``n_graphs`` as an int)."""
+    dev = resolve_device(device)
+    return GraphBatch(**{
+        k: v if v is None or k == "n_graphs" else _tensor(v, dev) for k, v in d.items()
+    })

@@ -107,13 +107,16 @@ def _finalize(h):
     return h ^ (h >> 16)
 
 
-def hash_rows(cols, seed: int):
+def hash_rows(cols, seed):
     """Hash a sequence of integer tensors (broadcastable) element-wise.
 
     Returns int64 holding the uint32 hash. Different ``seed`` values give
-    independent hash families (slot hash vs fingerprint).
+    independent hash families (slot hash vs fingerprint). A tuple of seeds
+    hashes every family in one pass, on a trailing axis of ``len(seed)``
+    that the columns broadcast against.
     """
-    h = torch.tensor(seed & U32, dtype=torch.int64)
+    seeds = [s & U32 for s in seed] if isinstance(seed, (tuple, list)) else seed & U32
+    h = torch.tensor(seeds, dtype=torch.int64)
     for c in cols:
         c = torch.as_tensor(c)
         h = hash_mix(h.to(c.device), c)

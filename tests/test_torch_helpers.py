@@ -27,8 +27,13 @@ def test_hash_rows_bits(seed):
     # the edge values: negatives (two's complement), PROP_MISSING, extremes
     cols[0][:6] = [-1, 0, int(J.PROP_MISSING), I32_MIN, I32_MAX, -2]
     cols[1][:3] = int(J.PROP_MISSING)
-    for s in (0, 0x51ED5EED, 0xF1A9F00D, 0xFFFFFFFF):
+    seeds = (0, 0x51ED5EED, 0xF1A9F00D, 0xFFFFFFFF)
+    # every family in one pass, on a trailing axis
+    many = T.hash_rows([_t(c)[:, None] for c in cols], seeds).numpy()
+    assert many.shape == (n, len(seeds))
+    for k, s in enumerate(seeds):
         want = np.asarray(J.hash_rows([jnp.asarray(c) for c in cols], s))
+        np.testing.assert_array_equal(many[:, k].astype(np.uint32), want)
         got = T.hash_rows([_t(c) for c in cols], s).numpy()
         assert want.dtype == np.uint32
         np.testing.assert_array_equal(got.astype(np.uint32), want)

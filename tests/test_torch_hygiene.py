@@ -40,6 +40,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.core.engine import build_grw_step
     from repro_torch.core.population import CachePopulator
     from repro_torch.distributed import ShardedTxnRuntime, flat_mesh
+    from repro_torch.gnn import CachedNeighborSampler, CSRGraph, FanoutSampler
+    from repro_torch.gnn.config import GNNConfig
+    from repro_torch.gnn.graph import random_graph_batch
+    from repro_torch.gnn.models import init_params
     from repro_torch.graphstore import StoreSpec, empty_store, ingest, make_mutation_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -55,8 +59,28 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: make_mutation_batch(spec),
         lambda: ShardedTxnRuntime(espec, flat_mesh(2)),
     ]
-    for call in calls:
+    # the GNN serving path's entry points, each run on the CPU when asked
+    cfg = GNNConfig(name="t", kind="pna", n_layers=1, d_hidden=4, d_in=3, n_classes=2)
+    graph = CSRGraph.random(np.random.default_rng(0), 8, 2, 3)
+    seeds = np.array([0, 1])
+
+    def cached(**dev):
+        store = ingest(spec, [0] * 4, np.zeros((4, 1)), [0, 1], [1, 2], [0, 0],
+                       np.zeros((2, 1)), device="cpu")
+        return CachedNeighborSampler(espec, store, empty_cache(espec.cache, device="cpu"),
+                                     None, 0, CachePopulator(espec, {}, device="cpu"), (2,),
+                                     **dev).sample_store(seeds, graph.feats, graph.labels)
+
+    gnn_calls = [
+        lambda **dev: init_params(cfg, torch.Generator(), **dev)["head"][0][0],
+        lambda **dev: random_graph_batch(torch.Generator(), 4, 6, 3, **dev).node_feat,
+        lambda **dev: FanoutSampler(graph, (2, 2), **dev).sample(seeds).node_feat,
+        lambda **dev: cached(**dev).edge_src,
+    ]
+    for call in calls + gnn_calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the CPU is there when asked for
     assert empty_store(spec, device="cpu").vlabel.device.type == "cpu"
+    for call in gnn_calls:
+        assert call(device="cpu").device.type == "cpu"
