@@ -40,8 +40,31 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    bf16 call too, and the kernel forward's logits to the plain forward's;
    times at the largest call beside its bound and ``torch.sparse.mm``.
 
-Between 4 and 5, in 7 and in 8, a short ``torch.profiler`` window prints
-the device's busy time by kernel and its idle share.
+9. two-tower serving (``src/repro/configs/two_tower_retrieval.py`` FULL
+   widths, user vocab cut to 50M) on 61.4 GB of fp32 tables made on the
+   card: a 1M-item corpus embedded by ``item_tower``, then the
+   retrieval_cand (1 user, top-100), serve_p99 (512 x 256) and serve_bulk
+   (262,144 x 16) shapes, Zipf(1.1) ids in bags of 1-16. ``embedding_bag``
+   launches are counted around the towers only; every call is held to the
+   plain version (fp32 allclose), one bf16 call too, and the whole path to
+   a run with the plain version in the kernel's place (scores, ``best`` and
+   the top-100 ids under the tie rule); latency per shape, and the kernel's
+   times beside its bound and ``F.embedding_bag``;
+10. Yi-6B (``src/repro/configs/yi_6b.py`` FULL, bf16) prefill of 8 x 4,000
+   tokens, then 96 greedy decode steps in a 4,096 cache. The 32
+   ``flash_attention`` launches of the prefill are held to the plain
+   version, the prefill to one with plain attention (KV and logits), then
+   synthetic cases the path does not reach (Gemma3's window and dh 256,
+   dh 112 and 16, fp32, non-causal 48 x 96, ``q_offset``); prefill and
+   decode times, and the kernel's times beside its bound and SDPA.
+
+Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
+the device's busy time by kernel and its idle share. Phase 8 runs last, after
+10: its sampling window traces ~390,000 device events, after which the
+profiler drops more device events of later windows. Each window opens with
+spin kernels that take that loss and reports any kernel it still dropped; a
+device time is taken only from a window that dropped none. Each phase
+prints its peak device memory; each phase's world is freed before the next.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -50,6 +73,7 @@ Run:  python3 chip_smoke.py [--seed 0]
 """
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -65,6 +89,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 # used as the operations bound for the kernels' integer compares
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak: the attention bound
 
 MISSING = -(2**31) + 1
 L_USER, L_WATCHLIST, L_LISTING = 2, 0, 1
@@ -238,20 +263,55 @@ def device_events(prof):
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters=20, match=None) -> float | None:
+LEAD_SPINS = 64  # spin kernels that open each profile window
+
+
+def open_window():
+    """Once a process has traced many device events, the profiler loses the
+    first kernels of each later window, so a device time summed over the
+    window reads low. Each window opens with LEAD_SPINS spin kernels,
+    synchronised, which take most of that loss (a window may still lose one
+    kernel elsewhere); ``window_events`` leaves them out."""
+    for _ in range(LEAD_SPINS):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def window_events(prof):
+    """(the window's device events past its opening spin kernels, the
+    kernels of them the profiler still dropped: launches seen on the host
+    less kernels recorded on the device)."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in device_events(prof) if "spin_kernel" not in e.name]
+    launched = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+                   and "aunch" in e.name and "Kernel" in e.name) - LEAD_SPINS
+    kernels = sum(1 for e in events if not e.name.startswith(("Memcpy", "Memset")))
+    return events, max(launched - kernels, 0)
+
+
+def device_ms(fn, iters=20, match=None, attempts=3) -> float | None:
     """Device time per call of ``fn`` (the sum of the kernels it launches,
-    or of those whose name contains ``match``), from ``torch.profiler``;
-    None when the profiler records no such device time."""
+    or of those whose name contains ``match``), from ``torch.profiler``,
+    over the first of ``attempts`` windows that dropped no kernel; None
+    when none is whole or none records such time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in device_events(prof) if match is None or match in e.name]
-    return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3 if evs else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            open_window()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events, lost = window_events(prof)
+        if not lost:
+            evs = [e for e in events if match is None or match in e.name]
+            return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3 if evs else None
+    print(f"device_ms: the profiler dropped kernels in each of {attempts} windows "
+          f"({lost} in the last; not measured)", flush=True)
+    return None
 
 
 def pct(xs, q):
@@ -332,11 +392,12 @@ def profiled(tag, what, body, host_ops=True):
     acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
+        open_window()
         t0 = time.perf_counter()
         body()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(prof)
+    events, lost = window_events(prof)
     if not events:
         print(f"profile{tag}: no device time recorded (not measured)", flush=True)
         return wall_ms, None
@@ -346,8 +407,8 @@ def profiled(tag, what, body, host_ops=True):
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
     print(f"profile{tag}: {what}, wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms in {len(events)} device events, idle share "
-          f"{1 - busy_ms / wall_ms:.4f}", flush=True)
+          f"{busy_ms:.3f} ms in {len(events)} device events ({lost} kernels dropped), "
+          f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"profile{tag} kernel: {name[:70]:70s} device_ms={us / 1e3:.3f} calls={n}",
               flush=True)
@@ -422,13 +483,13 @@ def bound_ms(nbytes, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def timings(kernel_fn, plain_fn) -> dict:
+def timings(kernel_fn, plain_fn, iters=(50, 20)) -> dict:
     """``ms`` / ``plain_ms``: CUDA-event time per call over back-to-back calls
-    (what a caller pays, host work of the wrapper included);
-    ``device_ms`` / ``plain_device_ms``: device time per call from the
-    profiler (the kernels alone)."""
+    (what a caller pays, host work of the wrapper included), ``iters`` calls
+    of each; ``device_ms`` / ``plain_device_ms``: device time per call from
+    the profiler (the kernels alone)."""
     return dict(
-        ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, iters=20),
+        ms=cuda_ms(kernel_fn, iters=iters[0]), plain_ms=cuda_ms(plain_fn, iters=iters[1]),
         device_ms=device_ms(kernel_fn), plain_device_ms=device_ms(plain_fn),
     )
 
@@ -877,9 +938,10 @@ class ServedLog:
 def run_gnn(seed, dev, n_vertices=GNN_V):
     """Phase 8: two epochs of cached sampling and the PNA forward + loss,
     a gRW-Tx between them, the consistency gate on every list epoch 2
-    served from the cache, and profile windows of the sampler and the
-    forward. Returns the report, the capture of every ``segment_spmm``
-    call the forwards made, and (config, params, epoch 2's batch)."""
+    served from the cache. Returns the report, the capture of every
+    ``segment_spmm`` call the forwards made, (config, params, epoch 2's
+    batch), and a function that runs the profile windows of the sampler
+    and the forward."""
     import dataclasses
 
     import repro_torch.core.cache as cache_mod
@@ -996,22 +1058,29 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
     # launches millions of small kernels, too many events to trace, so the
     # window holds every 16th neighbors() call of epoch 2, replayed on the
     # same cache (the same hits and misses), and one forward + loss; epoch
-    # 2's share is estimated from their busy time per call. The sampler's
-    # cache_probe calls in the window are kept for check_gnn_kernels
+    # 2's share is estimated from their busy time per call. The window's
+    # calls run once untraced first, their cache_probe calls kept for
+    # check_gnn_kernels, which runs before the traced windows: after a
+    # window this size the profiler drops device events of later windows
     ep = report["epoch2"]
     window = [v for v, _, _ in log.calls[c0:c0 + ep["neighbors_calls"]:16]]
     report["probe_capture"] = CallCapture((cache_mod, "cache_probe"))
     with report["probe_capture"]:
+        for v in window:
+            sampler.neighbors(v)
+
+    def profile_windows():
         s_wall, s_busy = profiled(" gnn sampling", f"{len(window)} neighbors() calls of epoch 2",
                                   lambda: [sampler.neighbors(v) for v in window], host_ops=False)
-    f_wall, f_busy = profiled(" gnn forward", "one PNA forward + loss",
-                              lambda: loss_fn(cfg, params, g2), host_ops=False)
-    if s_busy is not None and f_busy is not None:
-        busy = s_busy / len(window) * ep["neighbors_calls"] + f_busy
-        report["idle_share"] = 1 - busy / (ep["sample_s"] * 1e3 + ep["forward_loss_ms"])
-        print(f"gnn idle share over epoch 2's sample + forward (estimated from the two "
-              f"windows): {report['idle_share']:.4f}", flush=True)
-    return report, capture, (cfg, params, g2)
+        f_wall, f_busy = profiled(" gnn forward", "one PNA forward + loss",
+                                  lambda: loss_fn(cfg, params, g2), host_ops=False)
+        if s_busy is not None and f_busy is not None:
+            busy = s_busy / len(window) * ep["neighbors_calls"] + f_busy
+            report["idle_share"] = 1 - busy / (ep["sample_s"] * 1e3 + ep["forward_loss_ms"])
+            print(f"gnn idle share over epoch 2's sample + forward (estimated from the two "
+                  f"windows): {report['idle_share']:.4f}", flush=True)
+
+    return report, capture, (cfg, params, g2), profile_windows
 
 
 def spmm_bound(x, src, dst, n, mask):
@@ -1113,42 +1182,461 @@ def check_gnn_kernels(capture, probe_capture, launches, model):
                 shape=f"x={tuple(x.shape)},E={src.shape[0]},n={n}")
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        sys.exit(2)
-    dev = "cuda"
-    t_all = time.perf_counter()
-    torch.manual_seed(args.seed)
+# ------------------------------------------------------- two-tower serving
+# Phase 9: the two-tower retrieval model of src/repro/configs/two_tower_retrieval.py
+# at FULL widths, serving its SHAPES (training left out) on tables resident on
+# the card.
+TT_USER_VOCAB = 50_000_000  # reduced from 100M: a 102.4 GB fp32 table does not fit 80 GB
+TT_ZIPF = 1.1  # popularity law of the ids over a seeded permutation of each vocab
+TT_CORPUS_CHUNK = 262_144  # items per item_tower call over the corpus
+TT_TOPK = 100
+BAG_TOL = 1e-5  # fp32, tests/test_kernels.py:120: the same sums in another order
+BAG_BF16_TOL = 5e-2  # the same test's bf16 tolerance, for tables of values ~1
+# bf16 on the path's item table, whose values are ~3e-4 (vocab**-0.5), held
+# relative to them: both sides sum in fp32 and round once to bf16, so they
+# differ by at most one bf16 step (2^-8 relative) where the sums round apart;
+# 1e-2 is above that and far below a wrong or missing row (~1/8 of a bag of 8)
+BAG_BF16_REL = 1e-2
+SERVE_TOL = 1e-5  # scores of the kernel path against the plain path
 
-    # 1. the card
-    card = card_line()
-    print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    # 2. build every kernel from the checkout's sources
-    from repro_torch.kernels import _build
+def rel_norm(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+
+def zipf_ids(gen, perm, shape, a=TT_ZIPF):
+    """int32 ids of ``shape``: Zipf(a) popularity ranks truncated to the
+    vocab (the inverse CDF of the continuous law on [1, V + 1), floored),
+    mapped through ``perm``, a seeded permutation of the vocab. Drawn on
+    the card."""
+    V = perm.shape[0]
+    u = torch.rand(shape, generator=gen, device=perm.device, dtype=torch.float64)
+    r = (1 - u * (1 - (V + 1.0) ** (1 - a))) ** (1 / (1 - a))
+    return perm[(r.floor().long() - 1).clamp_(0, V - 1)].to(torch.int32)
+
+
+def make_bags(gen, perm, n, fields, k):
+    """Bags [n, fields, k]: Zipf ids, lengths uniform in [1, k]."""
+    ids = zipf_ids(gen, perm, (n, fields, k))
+    lengths = torch.randint(1, k + 1, (n, fields, 1), generator=gen, device=perm.device)
+    return ids, torch.arange(k, device=perm.device) < lengths
+
+
+def separated(scores, k, tol):
+    """(ranks < k of each row's descending scores that lie more than
+    ``tol`` from both neighbours, the sorted scores)."""
+    s = torch.sort(scores, dim=-1, descending=True).values
+    gap = (s[..., :-1] - s[..., 1:]) > tol
+    edge = torch.ones_like(gap[..., :1])
+    return (torch.cat([edge, gap], -1) & torch.cat([gap, edge], -1))[..., :k], s
+
+
+def run_twotower(seed, dev):
+    """Phase 9: the corpus embedded by ``item_tower``, then retrieval_cand,
+    serve_p99 and serve_bulk through ``retrieval_step`` / ``serve_step``,
+    with ``embedding_bag`` counted and captured around those calls only;
+    then every captured call against the plain version, one bf16 call, the
+    whole path with the plain version in the kernel's place, latency per
+    shape and the kernel's row."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.configs import two_tower_retrieval as ttc
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.recsys import embedding as emb_mod
+    from repro_torch.recsys import twotower as tt
+
+    cfg = dataclasses.replace(ttc.FULL, user_vocab=TT_USER_VOCAB)
+    print(f"recsys: reduced: user_vocab {ttc.FULL.user_vocab:,} -> {cfg.user_vocab:,} (a "
+          f"{ttc.FULL.user_vocab * cfg.embed_dim * 4 / 1e9:.1f} GB fp32 table does not fit one "
+          f"80 GB card); item_vocab {cfg.item_vocab:,}; training shape left out", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, gen, device=dev)
+    uperm = torch.randperm(cfg.user_vocab, generator=gen, device=dev)
+    iperm = torch.randperm(cfg.item_vocab, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    table_gb = sum(params[t].numel() * 4 for t in ("user_table", "item_table")) / 1e9
+    print(f"recsys world: {table_gb:.1f} GB of tables, {cfg.param_count():,} parameters, "
+          f"made in {time.perf_counter() - t0:.1f}s", flush=True)
+    D, K, S = cfg.embed_dim, cfg.bag_size, ttc.SHAPES
+    n_items = S["retrieval_cand"]["n_candidates"]
+    users = {n: make_bags(gen, uperm, S[n]["batch"], cfg.user_fields, K)
+             for n in ("retrieval_cand", "serve_p99", "serve_bulk")}
+    cands = {n: torch.randint(0, n_items, (S[n]["batch"], S[n]["n_candidates"]),
+                              generator=gen, device=dev) for n in ("serve_p99", "serve_bulk")}
+    item_bags = [make_bags(gen, iperm, min(TT_CORPUS_CHUNK, n_items - s), cfg.item_fields, K)
+                 for s in range(0, n_items, TT_CORPUS_CHUNK)]
+
+    def corpus_of():
+        return torch.cat([tt.item_tower(cfg, params, *b) for b in item_bags])
+
+    def serve(name, corpus):
+        ub, um = users[name]
+        if name == "retrieval_cand":
+            return tt.retrieval_step(cfg, params, ub, um, corpus, k=TT_TOPK)
+        return tt.serve_step(cfg, params, ub, um, corpus[cands[name]])
+
+    # the main path, counted and captured
+    capture = CallCapture((emb_mod, "bag_op"))
+    report = {}
+    eb_ops.launches = 0
+    with capture:
+        t0 = time.perf_counter()
+        corpus = corpus_of()
+        torch.cuda.synchronize()
+        report["corpus_s"] = time.perf_counter() - t0
+        out = {n: serve(n, corpus) for n in users}
+        torch.cuda.synchronize()
+    report["embedding_bag_launches"] = launches = eb_ops.launches
+    print(f"recsys launches: embedding_bag {launches} (corpus of {n_items:,} items in "
+          f"{len(item_bags)} chunks, {report['corpus_s']:.3f}s; then "
+          f"{', '.join(users)})", flush=True)
+    assert launches > 0, "the towers never launched embedding_bag"
+    for n, (a, b) in out.items():
+        assert bool(torch.isfinite(a).all()), f"{n}: non-finite scores"
+
+    # every call the towers made, against the plain version
+    calls = capture.calls["bag_op"]
+    err = 0.0
+    for a, kw in calls:
+        got, want = eb_ops.embedding_bag(*a, **kw), embedding_bag_ref(*a, **kw)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.allclose(got, want, rtol=BAG_TOL, atol=BAG_TOL), \
+            f"embedding_bag disagrees with its plain version at ids {tuple(a[1].shape)}"
+        err = max(err, float((got - want).abs().max()))
+        del got, want
+    (table, ids, mask), kw = max(calls, key=lambda c: c[0][1].shape[0])
+    a0, kw0 = calls[0]  # a corpus chunk, on the item table
+    tb = a0[0].to(torch.bfloat16)
+    gb, wb = eb_ops.embedding_bag(tb, *a0[1:], **kw0), embedding_bag_ref(tb, *a0[1:], **kw0)
+    bf16_rel = rel_norm(gb, wb)
+    bf16_err, scale = float((gb.float() - wb.float()).abs().max()), float(wb.float().abs().max())
+    print(f"kernel embedding_bag calls={len(calls)} (all within rtol=atol={BAG_TOL} of the "
+          f"plain version, max abs err {err:.3e}); bf16 item table at ids "
+          f"{tuple(a0[1].shape)}: relative norm {bf16_rel:.3e}, max abs err {bf16_err:.3e} of "
+          f"max |want| {scale:.3e} (tol {BAG_BF16_REL} of each)", flush=True)
+    assert gb.dtype == torch.bfloat16 and bf16_rel <= BAG_BF16_REL \
+        and bf16_err <= BAG_BF16_REL * scale, "bf16 embedding_bag on the item table"
+    del tb, gb, wb
+
+    # the kernel on shapes the path does not reach (tables of values ~1,
+    # widths off 256, K up to 40, ids past both ends, an empty bag)
+    for dt, tol in ((torch.float32, BAG_TOL), (torch.bfloat16, BAG_BF16_TOL)):
+        worst = 0.0
+        for V, Dc, Bc, Kc in ((1000, 256, 4096, 16), (500, 40, 300, 5), (300, 16, 77, 1),
+                              (200, 264, 50, 40), (100, 8, 10, 33)):
+            t = torch.randn(V, Dc, generator=gen, device=dev).to(dt)
+            ii = torch.randint(-5, V + 5, (Bc, Kc), generator=gen, device=dev, dtype=torch.int32)
+            mm = torch.rand(Bc, Kc, generator=gen, device=dev) < 0.7
+            mm[0] = False
+            for mode in ("sum", "mean"):
+                got, want = (eb_ops.embedding_bag(t, ii, mm, mode=mode),
+                             embedding_bag_ref(t, ii, mm, mode=mode))
+                assert got.dtype == dt and torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol), \
+                    f"embedding_bag {str(dt)[6:]} V{V} D{Dc} B{Bc} K{Kc} {mode}"
+                worst = max(worst, float((got.float() - want.float()).abs().max()))
+        print(f"kernel embedding_bag synthetic {str(dt)[6:]}: 10 cases, max abs err "
+              f"{worst:.3e} (tol {tol})", flush=True)
+
+    # the whole path with the plain version in the kernel's place
+    emb_mod.bag_op = embedding_bag_ref
+    try:
+        plain_corpus = corpus_of()
+        plain = {n: serve(n, corpus) for n in users}
+    finally:
+        emb_mod.bag_op = eb_ops.embedding_bag
+    cdiff = float((plain_corpus - corpus).abs().max())
+    assert torch.allclose(corpus, plain_corpus, rtol=SERVE_TOL, atol=SERVE_TOL), "corpus"
+    del plain_corpus
+    for n in ("serve_p99", "serve_bulk"):
+        (scores, best), (ps, pb) = out[n], plain[n]
+        diff = float((scores - ps).abs().max())
+        assert torch.allclose(scores, ps, rtol=SERVE_TOL, atol=SERVE_TOL), f"{n} scores"
+        sep, _ = separated(ps, 1, SERVE_TOL)
+        sep = sep[:, 0]
+        assert torch.equal(best[sep], pb[sep]), f"{n}: best differs where the top two differ"
+        report[n] = dict(max_abs_diff=diff, best_checked=int(sep.sum()), rows=int(sep.numel()))
+    (vals, idx), (pv, pi) = out["retrieval_cand"], plain["retrieval_cand"]
+    assert torch.allclose(vals, pv, rtol=SERVE_TOL, atol=SERVE_TOL), "retrieval scores"
+    ub, um = users["retrieval_cand"]
+    all_scores = tt.user_tower(cfg, params, ub, um) @ corpus.T
+    sep, s = separated(all_scores, TT_TOPK, SERVE_TOL)
+    assert torch.equal(idx[sep], pi[sep]), "top-100 ids differ at a separated rank"
+    boundary = bool(s[0, TT_TOPK - 1] - s[0, TT_TOPK] > SERVE_TOL)
+    if boundary:
+        assert set(idx[0].tolist()) == set(pi[0].tolist()), "the top-100 sets differ"
+    report["retrieval_cand"] = dict(max_abs_diff=float((vals - pv).abs().max()),
+                                    ranks_checked=int(sep.sum()), set_checked=boundary)
+    del plain, all_scores
+    print(f"recsys vs plain path: corpus max abs diff {cdiff:.3e}; " + json.dumps(
+        {n: report[n] for n in users}) + f" (tol {SERVE_TOL})", flush=True)
+
+    # latency per shape, CUDA events around the entry point, warm
+    for n, reps in (("retrieval_cand", 20), ("serve_p99", 20), ("serve_bulk", 5)):
+        report[n]["ms"] = cuda_ms(lambda: serve(n, corpus), iters=reps, warmup=1)
+    report["corpus_ms"] = cuda_ms(corpus_of, iters=2, warmup=0)
+    print("recsys latency: " + json.dumps({n: report[n]["ms"] for n in users})
+          + f", corpus of {n_items:,} items {report['corpus_ms']:.3f} ms", flush=True)
+
+    # the kernel's row at the largest call, serve_bulk's user tower
+    kern = lambda: eb_ops.embedding_bag(table, ids, mask, **kw)
+    t = timings(kern, lambda: embedding_bag_ref(table, ids, mask, **kw), iters=(20, 5))
+    ids64, w = ids.long(), mask.to(table.dtype)
+    cnt = mask.sum(-1, keepdim=True).clamp(min=1).to(table.dtype)
+    lib = lambda: F.embedding_bag(ids64, table, per_sample_weights=w, mode="sum") / cnt
+    assert torch.allclose(lib(), embedding_bag_ref(table, ids, mask, **kw), rtol=BAG_TOL,
+                          atol=BAG_TOL), "F.embedding_bag computes another function"
+    lib_ms, lib_dev = cuda_ms(lib, iters=20), device_ms(lib)
+    live = mask.sum()
+    rows = int(torch.unique(ids[mask]).numel())
+    B = ids.shape[0]
+    nbytes = rows * D * table.element_size() + B * K * (4 + 1) + B * D * table.element_size()
+    bms, by = bound_ms(nbytes, int(live) * D)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
+    print(f"kernel embedding_bag largest bags={B} K={K} D={D} unmasked={int(live)} "
+          f"distinct_rows={rows} {fmt_us(t)} F.embedding_bag_us={us(lib_ms)} (device "
+          f"{us(lib_dev)}) bound_us={bms * 1e3:.4f} ({by}, {nbytes} B; every lookup's row: "
+          f"{int(live) * D * 4} B)", flush=True)
+    row = dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+               replaces="src/repro/kernels/embedding_bag/kernel.py:34", launches=launches,
+               max_abs_err=err, **t, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               library_device_ms=lib_dev, shape=f"bags={B},K={K},D={D}")
+    return report, row
+
+
+# ---------------------------------------------------------- LM serving
+# Phase 10: Yi-6B (src/repro/configs/yi_6b.py FULL, bf16) prefill + decode.
+LM_BATCH = 8  # reduced from prefill_32k's 32, to fit the time limit
+LM_PROMPT = 4_000  # not a multiple of 64: the kernel's ragged tile runs on the path
+LM_DECODE = 96  # the cache ends at 4,096, Yi-6B's published context
+FLASH_TOL = 2e-2  # bf16, tests/test_kernels.py:51, for inputs of values ~1
+FLASH_F32_TOL = 2e-5  # fp32, the same test
+# The path's outputs are ~0.18 / sqrt(row + 1) (the reference's init gives
+# near-uniform softmaxes), mostly below FLASH_TOL, so each launch is held
+# relative to its own values: the relative norm of the difference over each
+# 64-row band (the kernel's query tile) of each sequence and head. Both
+# sides round the same fp32 values to bf16, so they differ by at most one
+# bf16 step (2^-8 relative, below 8e-3 even were every element to round
+# apart; measured ~1e-3); a dropped, repeated or misweighted 64-key tile
+# moves a band's mean of v by ~1e-1 of its norm.
+FLASH_REL_TOL = 1e-2
+# Prefill with the kernel against prefill with the plain version: each of
+# the 32 layers' attention outputs may round to another bf16 neighbour
+# (2^-9 = 2e-3 relative, from the online softmax's other rounding points),
+# and independent roundings over 32 layers add to about sqrt(32) x 2e-3 =
+# 1.1e-2 of the norm; 5e-2 leaves four times that.
+PREFILL_REL_TOL = 5e-2
+
+
+def band_rel(got, want, rows=64):
+    """The largest relative norm of ``got - want`` over the ``rows``-row
+    bands of each sequence and head of [B, S, H, dh] outputs."""
+    d2 = (got.float() - want.float()).pow(2).sum(-1)  # [B, S, H]
+    w2 = want.float().pow(2).sum(-1)
+    pad = (-d2.shape[1]) % rows
+    d2, w2 = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (d2, w2))
+    B, S, H = d2.shape
+    d2, w2 = (x.view(B, S // rows, rows, H).sum(2) for x in (d2, w2))
+    return float((d2 / w2.clamp(min=1e-30)).sqrt().max())
+
+
+def run_lm(seed, dev):
+    """Phase 10: prefill 8 x 4,000 tokens, copy the KV into a 4,096 cache,
+    decode 96 tokens greedily; ``flash_attention`` counted and captured
+    around the prefill only. Then every captured call against the plain
+    version, the prefill with the plain version in the kernel's place, a
+    profile window over one prefill, the kernel on shapes the path does
+    not reach, and the kernel's row."""
+    import torch.nn.functional as F
+    from repro_torch.configs import yi_6b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.lm import model as lm_model
+
+    cfg = yi_6b.FULL
+    B, S, T = LM_BATCH, LM_PROMPT, LM_DECODE
+    print(f"lm: reduced: prefill_32k's batch 32 x 32,768 -> a prompt of {B} x {S:,} and "
+          f"{T} decode steps (cache {S + T:,}, Yi-6B's published context)", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 53)
+    t0 = time.perf_counter()
+    params = lm_model.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in
+                  [params[k] for k in ("embed", "unembed", "final_norm")]
+                  + list(params["layers"].values()))
+    print(f"lm world: {cfg.name} {cfg.param_count():,} parameters, {n_bytes / 1e9:.2f} GB "
+          f"bf16, made in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    capture = CallCapture((lm_model, "flash_attention"))
+    report = {}
+    fa_ops.launches = 0
+    with capture:
+        t0 = time.perf_counter()
+        logits, kv = lm_model.prefill_logits(cfg, params, tokens)
+        torch.cuda.synchronize()
+        report["prefill_first_s"] = time.perf_counter() - t0
+    report["flash_attention_launches"] = launches = fa_ops.launches
+    assert launches == cfg.n_layers, f"{launches} flash_attention launches in one prefill"
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    cache = lm_model.init_kv_cache(cfg, B, S + T, device=dev)
+    cache.k[:, :, :S], cache.v[:, :, :S] = kv.k, kv.v
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(T):
+        tok, cache = lm_model.decode_step(cfg, params, cache, tok, S + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    out = torch.cat(out, 1)
+    assert out.shape == (B, T) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab, \
+        "decode tokens out of range"
+    assert torch.equal(cache.k[:, :, :S], kv.k) and torch.equal(cache.v[:, :, :S], kv.v), \
+        "decode changed the prompt's cache"
+    written = cache.k[:, :, S:].abs().amax(dim=(0, 1, 3, 4)) > 0
+    assert bool(written.all()) and bool((cache.v[:, :, S:].abs().amax(dim=(0, 1, 3, 4)) > 0).all()), \
+        f"cache positions {S}..{S + T - 1} not all written"
+    report.update(decode_ms_per_step=decode_s * 1e3 / T, decode_tokens_per_s=B * T / decode_s)
+
+    # every launch of the prefill against the plain version
+    calls = capture.calls["flash_attention"]
+    err = whole = band = 0.0
+    for i, (a, kwa) in enumerate(calls):
+        got, want = fa_ops.flash_attention(*a, **kwa), flash_attention_ref(*a, **kwa)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        r, rb = rel_norm(got, want), band_rel(got, want)
+        assert r <= FLASH_REL_TOL and rb <= FLASH_REL_TOL, (
+            f"flash_attention launch {i} disagrees with its plain version at q "
+            f"{tuple(a[0].shape)}: relative norm {r:.3e}, worst 64-row band {rb:.3e}")
+        err, whole, band = (max(err, float((got.float() - want.float()).abs().max())),
+                            max(whole, r), max(band, rb))
+        del got, want
+    print(f"kernel flash_attention calls={len(calls)} (each within a relative norm of "
+          f"{FLASH_REL_TOL} of the plain version, whole and per 64-row band of each sequence "
+          f"and head): worst relative norm {whole:.3e}, worst band {band:.3e}, max abs err "
+          f"{err:.3e}", flush=True)
+    (q, k, v), kw = calls[-1]
+    del calls, capture
+
+    # the prefill with the plain version in the kernel's place
+    lm_model.flash_attention = flash_attention_ref
+    try:
+        p_logits, p_kv = lm_model.prefill_logits(cfg, params, tokens)
+    finally:
+        lm_model.flash_attention = fa_ops.flash_attention
+    diffs = dict(logits=rel_norm(logits, p_logits), k=rel_norm(kv.k, p_kv.k),
+                 v=rel_norm(kv.v, p_kv.v),
+                 logits_max_abs=float((logits - p_logits).abs().max()),
+                 kv_max_abs=max(float((kv.k.float() - p_kv.k.float()).abs().max()),
+                                float((kv.v.float() - p_kv.v.float()).abs().max())),
+                 next_token_equal=float((torch.argmax(logits, -1) == torch.argmax(p_logits, -1))
+                                        .float().mean()))
+    print(f"lm prefill vs plain-attention prefill: " + json.dumps(diffs)
+          + f" (relative-norm tol {PREFILL_REL_TOL})", flush=True)
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    for n in ("logits", "k", "v"):
+        assert diffs[n] <= PREFILL_REL_TOL, f"prefill {n} differs from the plain prefill's"
+    report["vs_plain"] = diffs
+    del p_logits, p_kv
+
+    # a warm prefill, timed, then one under the profiler
+    prefill = lambda: lm_model.prefill_logits(cfg, params, tokens)
+    report["prefill_ms"] = cuda_ms(prefill, iters=1, warmup=0)
+    report["prefill_tokens_per_s"] = B * S / report["prefill_ms"] * 1e3
+    wall, busy = profiled(" lm prefill", f"one {cfg.name} prefill ({B} x {S:,})", prefill,
+                          host_ops=False)
+    if busy is not None:
+        report["prefill_idle_share"] = 1 - busy / wall
+    # one more decode step, at the last position again (the checks are done)
+    last = out[:, -2:-1].contiguous()
+    wall, busy = profiled(" lm decode", f"one decode step ({B} tokens, cache {S + T:,})",
+                          lambda: lm_model.decode_step(cfg, params, cache, last, S + T - 1),
+                          host_ops=False)
+    if busy is not None:
+        report["decode_idle_share"] = 1 - busy / wall
+    print("lm: " + json.dumps(report), flush=True)
+
+    # the kernel on shapes the path does not reach, each against its plain version
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, B, Sq, Sk, H, KV, dh, dtype, causal, window, q_offset
+        ("gemma3 window", 1, 2048, 2048, 8, 4, 256, bf, True, 1024, 0),
+        ("dh 112", 2, 1000, 1000, 8, 2, 112, bf, True, None, 0),
+        ("dh 16", 2, 513, 513, 4, 4, 16, bf, True, None, 0),
+        ("fp32 GQA", 2, 1000, 1000, 32, 4, 128, f32, True, None, 0),
+        ("q_offset 3996", 2, 100, 4096, 32, 4, 128, bf, True, None, 3996),
+        ("q_offset window, empty rows", 1, 100, 64, 4, 2, 32, f32, True, 8, 30),
+    ] + [(name, *shape, dt, *mask) for dt in (bf, f32) for name, shape, mask in (
+        ("non-causal 48x96", (1, 48, 96, 2, 2, 64), (False, None, 0)),
+        ("non-causal window", (1, 100, 96, 4, 2, 32), (False, 20, 0)),
+        ("negative q_offset, empty rows", (1, 70, 64, 2, 1, 32), (True, None, -5)),
+        ("dh 24 window", (1, 65, 65, 2, 1, 24), (True, 7, 0)),
+        ("one tile", (1, 32, 32, 1, 1, 16), (True, None, 0)),
+    )]
+    for name, b, sq, sk, h, nkv, dh, dt, causal, window, off in cases:
+        qq = torch.randn(b, sq, h, dh, generator=gen, device=dev).to(dt)
+        kk = torch.randn(b, sk, nkv, dh, generator=gen, device=dev).to(dt)
+        vv = torch.randn(b, sk, nkv, dh, generator=gen, device=dev).to(dt)
+        kwc = dict(causal=causal, window=window, q_offset=off)
+        got, want = fa_ops.flash_attention(qq, kk, vv, **kwc), flash_attention_ref(qq, kk, vv, **kwc)
+        tol, rel = (FLASH_TOL, FLASH_REL_TOL) if dt == bf else (FLASH_F32_TOL, FLASH_F32_TOL)
+        e, rb = float((got.float() - want.float()).abs().max()), band_rel(got, want)
+        print(f"kernel flash_attention case {name}: q {tuple(qq.shape)} k {tuple(kk.shape)} "
+              f"{str(dt)[6:]} causal={causal} window={window} q_offset={off} max abs err "
+              f"{e:.3e} (tol {tol}), worst 64-row band relative norm {rb:.3e} (tol {rel})",
+              flush=True)
+        assert got.dtype == dt and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol) \
+            and rb <= rel, f"flash_attention disagrees with its plain version: {name}"
+
+    # the kernel's row at the path's call (every layer has this shape)
+    t = timings(lambda: fa_ops.flash_attention(q, k, v, **kw),
+                lambda: flash_attention_ref(q, k, v, **kw), iters=(5, 2))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))  # untimed
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - flash_attention_ref(q, k, v, **kw).float())
+                    .abs().max())
+    lib_ms, lib_dev = cuda_ms(lib, iters=20), device_ms(lib)
+    Bq, Sq, H, dh = q.shape
+    allowed = Sq * (Sq + 1) // 2  # causal, no window, q_offset 0
+    flops = 4 * Bq * H * allowed * dh
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size()
+    tb, to = nbytes / HBM_BYTES_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+    bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+    us = lambda x: "not measured" if x is None else f"{x * 1e3:.3f}"
+    print(f"kernel flash_attention largest q={tuple(q.shape)} k={tuple(k.shape)} {fmt_us(t)} "
+          f"sdpa_us={us(lib_ms)} (device {us(lib_dev)}, max abs diff {lib_err:.3e}) "
+          f"bound_us={bms * 1e3:.4f} ({by}: {flops:.4e} FLOP at the bf16 tensor peak; "
+          f"{nbytes} B)", flush=True)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/kernel.py:68", launches=launches,
+               max_abs_err=err, **t, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+               library_device_ms=lib_dev, shape=f"q={tuple(q.shape)},k={tuple(k.shape)}")
+    return report, row
+
+
+def phase_memory(tag):
+    """Prints the phase's peak device memory and starts the next phase's count."""
+    print(f"peak device memory {tag}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def run_graph(seed, dev):
+    """Phases 3-7, the graph-cache paths; returns their kernel rows. Their
+    worlds are locals, freed when it returns."""
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.block_gather import ops as bg_ops
     from repro_torch.kernels.onehop_gather import ops as og_ops
     from repro_torch.kernels.segment_spmm import ops as ss_ops
 
-    t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f}s -> {_build.build_dir()} "
-          f"(compiled: {_build.BUILD_INFO.get('built')})", flush=True)
-    for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
-        regs = [l.strip() for l in info.splitlines() if "registers" in l]
-        print(f"build {name}: {regs}", flush=True)
-
     # 3. the world
     from repro_torch.core import empty_cache, make_template_table
     from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
 
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     espec, store, ranges, includes, n_edges = build_world(rng, dev, SCALE)
     templates, meta, plans = templates_and_plans()
@@ -1173,42 +1661,115 @@ def main():
     # 4. traffic: the main path, with the kernel counts zeroed around it
     cp_ops.launches = og_ops.launches = bg_ops.launches = ss_ops.launches = 0
     state, report, engines = run_traffic(
-        args.seed, espec, (store, cache), ttable, plans, meta, ranges, includes, dev)
+        seed, espec, (store, cache), ttable, plans, meta, ranges, includes, dev)
     launches = {"cache_probe": cp_ops.launches, "onehop_gather": og_ops.launches,
                 "block_gather": bg_ops.launches, "segment_spmm": ss_ops.launches}
     print(f"launches on the main path: {launches}", flush=True)
     assert launches["cache_probe"] > 0, "the read path never launched cache_probe"
     assert report["R_hat"]["hit_rate"] > 0, "R-hat saw no cache hit"
     assert sum(r["committed"] for r in report.values()) > 0, "CP committed nothing"
-    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    phase_memory("phases 3-4")
 
-    profile_window("", args.seed, plans, ranges,
+    profile_window("", seed, plans, ranges,
                    lambda name, r: engines[name].run(*state, ttable, r))
 
     # 5. each kernel against its plain version at the main path's shapes
-    rows = check_kernels(espec, state, plans, ranges, launches, dev, args.seed)
+    rows = check_kernels(espec, state, plans, ranges, launches, dev, seed)
 
     # 6. consistency of the final state
-    check_consistency(espec, state, ttable, plans, ranges, engines, dev, args.seed)
+    check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed)
 
     # 7. the partitioned tier on the final store, against the single host;
     # then block_gather against its plain version at the inputs it was given
-    p_report, capture = run_partitioned(args.seed, espec, state[0], ttable, plans, meta, ranges,
+    p_report, capture = run_partitioned(seed, espec, state[0], ttable, plans, meta, ranges,
                                         engines, dev)
     rows.append(check_partitioned_kernels(capture, p_report["block_gather_launches"],
                                           espec.max_deg))
+    phase_memory("phases 5-7")
+    return rows
 
-    # 8. GNN serving: cached neighbour sampling + the PNA forward at the
-    # minibatch_lg shape; segment_spmm counted around the forwards only
+
+def run_gnn_phase(seed, dev):
+    """Phase 8: GNN serving, cached neighbour sampling + the PNA forward at
+    the minibatch_lg shape, segment_spmm counted around the forwards only;
+    its kernel row. It runs last: its sampling window traces ~390,000
+    device events, after which the profiler drops device events."""
     from repro_torch.configs.gnn_shapes import GNN_SHAPES
 
     t0 = time.perf_counter()
-    g_report, g_capture, model = run_gnn(args.seed, dev)
+    g_report, g_capture, model, profile_windows = run_gnn(seed, dev)
     lg = GNN_SHAPES["minibatch_lg"]
     assert g_report["epoch1"]["padded"] == (lg["n_nodes"], lg["n_edges"]), g_report["epoch1"]
-    rows.append(check_gnn_kernels(g_capture, g_report.pop("probe_capture"),
-                                  g_report["segment_spmm_launches"], model))
+    row = check_gnn_kernels(g_capture, g_report.pop("probe_capture"),
+                            g_report["segment_spmm_launches"], model)
+    profile_windows()
     print(f"gnn phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 8")
+    return row
+
+
+def free_device():
+    """Returns what the last phase held to the card before the next one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory held between phases: {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    dev = "cuda"
+    t_all = time.perf_counter()
+    torch.manual_seed(args.seed)
+    # fp32 matmuls in full fp32 (the defaults, stated): the plain versions
+    # and the fp32 checks rely on it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. the card
+    card = card_line()
+    print(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+
+    # 2. build every kernel from the checkout's sources
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f}s -> {_build.build_dir()} "
+          f"(compiled: {_build.BUILD_INFO.get('built')})", flush=True)
+    for name, info in _build.BUILD_INFO.get("ptxas", {}).items():
+        regs = [l.strip() for l in info.splitlines() if "registers" in l]
+        print(f"build {name}: {regs}", flush=True)
+
+    # 3-7. the graph-cache paths
+    rows = run_graph(args.seed, dev)
+    free_device()
+
+    # 9. two-tower serving at FULL widths; embedding_bag counted around the
+    # towers only
+    t0 = time.perf_counter()
+    _, row = run_twotower(args.seed, dev)
+    rows.append(row)
+    print(f"recsys phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 9")
+    free_device()
+
+    # 10. Yi-6B prefill + decode; flash_attention counted around the prefill
+    t0 = time.perf_counter()
+    _, row = run_lm(args.seed, dev)
+    rows.append(row)
+    print(f"lm phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 10")
+    free_device()
+
+    # 8. GNN serving, last (see run_gnn_phase)
+    rows.append(run_gnn_phase(args.seed, dev))
 
     print(f"total: {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

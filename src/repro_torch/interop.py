@@ -11,7 +11,8 @@ carry a co-partitioned cache as they carry a single-host one.
 
 Dtypes: ids, labels, properties and counters are int32 on both sides; the
 cache fingerprint is uint32 in the reference and int32 holding the same
-bits in the port.
+bits in the port. Model parameters keep their dtype; numpy has no bf16, so
+a bf16 parameter leaves the port as fp32 holding the same values.
 """
 
 from __future__ import annotations
@@ -32,10 +33,14 @@ def _tensor(a, dev):
     a = np.array(a, copy=True)  # writable, contiguous, 0-d kept 0-d
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    if a.dtype.name == "bfloat16":  # the reference's bf16 leaves: exact via fp32
+        return torch.as_tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
     return torch.as_tensor(a, device=dev)
 
 
 def _numpy(t: torch.Tensor):
+    if t.dtype == torch.bfloat16:  # numpy has no bf16: its values, exactly, as fp32
+        t = t.to(torch.float32)
     return t.detach().cpu().numpy()
 
 
@@ -142,9 +147,11 @@ def plan_from_numpy(d) -> QueryPlan:
     )
 
 
-def gnn_params_from_numpy(tree, device=None):
-    """GNN parameters from the reference's nested layout (dicts and lists
-    of ``(w, b)`` pairs, each array as numpy), with the same nesting."""
+def params_from_numpy(tree, device=None):
+    """Model parameters from the reference's nested layout (dicts, lists and
+    tuples of arrays, each array as numpy), with the same nesting: the GNN's
+    lists of ``(w, b)`` pairs, the two-tower's flat dict, the LM's dict with
+    its ``layers`` dict of stacked [L, ...] arrays."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -157,11 +164,11 @@ def gnn_params_from_numpy(tree, device=None):
     return conv(tree)
 
 
-def gnn_params_to_numpy(tree):
+def params_to_numpy(tree):
     if isinstance(tree, dict):
-        return {k: gnn_params_to_numpy(v) for k, v in tree.items()}
+        return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(gnn_params_to_numpy(v) for v in tree)
+        return type(tree)(params_to_numpy(v) for v in tree)
     return _numpy(tree)
 
 

@@ -1,0 +1,217 @@
+"""LM serving: forward, prefill and KV-cache decode.
+
+PyTorch twin of ``repro.lm.model`` for dense configurations. Parameters
+keep the reference's layout: ``embed``, ``unembed``, ``final_norm`` and a
+``layers`` dict of stacked ``[L, ...]`` tensors, walked by a Python loop
+where the reference scans. Every prefill attention goes through the
+``flash_attention`` kernel on CUDA. The sharding hints (``constrain``,
+``param_spec_rule``, ``abstract_params``) are left out: they have no
+meaning on one card; remat is a training concern. Training and MoE are not
+ported yet and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.lm.attention import decode_attention, flash_attention
+from repro_torch.lm.config import LMConfig
+from repro_torch.lm.layers import moe_ffn, rms_norm, rope, swiglu
+from repro_torch.utils import resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"LM {what} is not ported yet (ROADMAP queue 1, item 12: LM training with optim/)"
+    )
+
+
+def _layer_shapes(cfg: LMConfig) -> dict:
+    D, H, KV, dh, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    L = cfg.n_layers
+    shapes = {
+        "attn_norm": (L, D),
+        "mlp_norm": (L, D),
+        "wq": (L, D, H * dh),
+        "wk": (L, D, KV * dh),
+        "wv": (L, D, KV * dh),
+        "wo": (L, H * dh, D),
+    }
+    if cfg.is_moe:
+        shapes.update(
+            router=(L, D, cfg.n_experts),
+            we1=(L, cfg.n_experts, D, F),
+            we3=(L, cfg.n_experts, D, F),
+            we2=(L, cfg.n_experts, F, D),
+        )
+        if cfg.n_shared_experts:
+            Fs = F * cfg.n_shared_experts
+            shapes.update(ws1=(L, D, Fs), ws3=(L, D, Fs), ws2=(L, Fs, D))
+    else:
+        shapes.update(w1=(L, D, F), w3=(L, D, F), w2=(L, F, D))
+    return shapes
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    return {
+        "embed": (cfg.vocab, cfg.d_model),
+        "unembed": (cfg.d_model, cfg.vocab),
+        "final_norm": (cfg.d_model,),
+        "layers": _layer_shapes(cfg),
+    }
+
+
+def _init_leaf(shape, dt, generator, dev):
+    """The reference's rule: a leaf of rank 1 or with last dim 1 is ones;
+    every other leaf, the stacked [L, D] norms included, is
+    ``normal * shape[-2]**-0.5`` drawn in fp32 and cast to ``dt``. A
+    stacked leaf is drawn one layer at a time, so the fp32 temporary is one
+    layer's."""
+    if len(shape) == 1 or shape[-1] == 1:
+        return torch.ones(shape, dtype=dt, device=dev)
+    scale = shape[-2] ** -0.5
+    out = torch.empty(shape, dtype=dt, device=dev)
+    parts = out.reshape(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for part in parts:
+        x = torch.empty(part.shape, dtype=torch.float32, device=generator.device)
+        part.copy_(x.normal_(generator=generator).mul_(scale))
+    return out
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator, device=None) -> dict:
+    """Parameters drawn from ``generator`` (in place of the reference's
+    key) on the generator's device, on ``device`` (CUDA unless the caller
+    names another) in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    dt = _DTYPES[cfg.dtype]
+    shapes = param_shapes(cfg)
+    out = {k: _init_leaf(s, dt, generator, dev) for k, s in shapes.items() if k != "layers"}
+    out["layers"] = {k: _init_leaf(s, dt, generator, dev) for k, s in shapes["layers"].items()}
+    return out
+
+
+def _layer(params, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _window(cfg: LMConfig, i: int):
+    return cfg.sliding_window if cfg.layer_is_local(i) else None
+
+
+def _ffn(cfg: LMConfig, lp, h):
+    if cfg.is_moe:
+        return moe_ffn(h, lp["router"], lp["we1"], lp["we3"], lp["we2"],
+                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    return swiglu(h, lp["w1"], lp["w3"], lp["w2"])
+
+
+def _attn_block(cfg: LMConfig, x, lp, i: int, positions):
+    """x + attention(rms_norm(x)) for a [B, S, D] prompt; also returns k, v
+    [B, S, KV, dh] (the layer's KV cache)."""
+    B, S, _ = x.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, lp["attn_norm"])
+    q = rope((h @ lp["wq"]).reshape(B, S, H, dh), positions, cfg.rope_theta)
+    k = rope((h @ lp["wk"]).reshape(B, S, KV, dh), positions, cfg.rope_theta)
+    v = (h @ lp["wv"]).reshape(B, S, KV, dh)
+    attn = flash_attention(q, k, v, causal=True, window=_window(cfg, i))
+    return x + attn.reshape(B, S, H * dh) @ lp["wo"], k, v
+
+
+def forward(cfg: LMConfig, params, tokens, positions=None):
+    """tokens [B, S] -> (final hidden states [B, S, D], MoE aux loss 0.0)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = params["embed"][tokens].to(_DTYPES[cfg.dtype])
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        x, _, _ = _attn_block(cfg, x, lp, i, positions)
+        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+    return rms_norm(x, params["final_norm"]), torch.zeros((), dtype=torch.float32)
+
+
+def loss_fn(cfg: LMConfig, params, tokens, labels):
+    raise _not_ported("loss_fn")
+
+
+def train_step(cfg: LMConfig, optimizer):
+    raise _not_ported("train_step")
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [L, B, S, KV, dh]
+    v: torch.Tensor
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> KVCache:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = _DTYPES[cfg.dtype]
+    return KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                   torch.zeros(shape, dtype=dt, device=dev))
+
+
+def _logits(params, x):
+    return (rms_norm(x, params["final_norm"]) @ params["unembed"]).to(torch.float32)
+
+
+def prefill_logits(cfg: LMConfig, params, tokens):
+    """Prefill: the forward over the prompt tokens [B, S]. Returns the
+    last position's logits [B, 1, V] fp32 and the KV cache (built layer by
+    layer, [L, B, S, KV, dh] each)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = params["embed"][tokens].to(_DTYPES[cfg.dtype])
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        x, k, v = _attn_block(cfg, x, lp, i, positions)
+        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+        ks.append(k.to(x.dtype))
+        vs.append(v.to(x.dtype))
+    return _logits(params, x[:, -1:]), KVCache(torch.stack(ks), torch.stack(vs))
+
+
+def prefill_step(cfg: LMConfig, params, tokens):
+    """As the reference: (the last position's argmax [B, 1] int32, KV
+    cache)."""
+    logits, cache = prefill_logits(cfg, params, tokens)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def decode_logits(cfg: LMConfig, params, cache: KVCache, tokens, pos: int):
+    """One token for every sequence: tokens [B, 1] at position ``pos`` (the
+    cache holds [0, pos)). Writes the token's k / v into ``cache`` at
+    ``pos`` in place (the reference returns an updated copy; the port saves
+    the copy of a cache that may hold gigabytes). Returns the logits
+    [B, 1, V] fp32 and the cache. ``pos`` is clamped to the cache as
+    ``dynamic_update_slice`` clamps it."""
+    B = tokens.shape[0]
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    pos = int(pos)
+    slot = min(max(pos, 0), cache.k.shape[2] - 1)
+    x = params["embed"][tokens].to(_DTYPES[cfg.dtype])  # [B, 1, D]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        h = rms_norm(x, lp["attn_norm"])
+        q = rope((h @ lp["wq"]).reshape(B, 1, H, dh), positions, cfg.rope_theta)
+        k = rope((h @ lp["wk"]).reshape(B, 1, KV, dh), positions, cfg.rope_theta)
+        v = (h @ lp["wv"]).reshape(B, 1, KV, dh)
+        cache.k[i, :, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[i, :, slot] = v[:, 0].to(cache.v.dtype)
+        attn = decode_attention(q, cache.k[i], cache.v[i], pos + 1, window=_window(cfg, i))
+        x = x + attn.reshape(B, 1, H * dh) @ lp["wo"]
+        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+    return _logits(params, x), cache
+
+
+def decode_step(cfg: LMConfig, params, cache: KVCache, tokens, pos: int):
+    """As the reference: (next token [B, 1] int32, cache)."""
+    logits, cache = decode_logits(cfg, params, cache, tokens, pos)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache

@@ -65,7 +65,7 @@ def _close(got, want, tol):
 
 def _params(cfg_kw, seed):
     jp = j_init(JConfig(**cfg_kw), jax.random.PRNGKey(seed))
-    return jp, interop.gnn_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return jp, interop.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
 
 
 @pytest.mark.parametrize("D", [1, 9, 40])
@@ -119,8 +119,8 @@ def test_init_params_layout_and_unported_kinds():
     tp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     jp = j_init(JConfig(**NARROW), jax.random.PRNGKey(0))
     shapes = lambda t: [tuple(x.shape) for x in jax.tree_util.tree_leaves(t)]
-    assert shapes(interop.gnn_params_to_numpy(tp)) == shapes(jp)
-    back = interop.gnn_params_from_numpy(interop.gnn_params_to_numpy(tp), "cpu")
+    assert shapes(interop.params_to_numpy(tp)) == shapes(jp)
+    back = interop.params_from_numpy(interop.params_to_numpy(tp), "cpu")
     assert all(torch.equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(back),
                                                   jax.tree_util.tree_leaves(tp)))
     gat = GNNConfig(name="gat", kind="gat", n_layers=2, d_hidden=8, d_in=4)

@@ -77,10 +77,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda **dev: FanoutSampler(graph, (2, 2), **dev).sample(seeds).node_feat,
         lambda **dev: cached(**dev).edge_src,
     ]
-    for call in calls + gnn_calls:
+    # the two-tower and LM serving paths' entry points
+    from repro_torch.configs import two_tower_retrieval, yi_6b
+    from repro_torch.lm.model import init_kv_cache, init_params as lm_init
+    from repro_torch.recsys.twotower import init_params as tt_init
+
+    serve_calls = [
+        lambda **dev: tt_init(two_tower_retrieval.SMOKE, torch.Generator(), **dev)["user_b0"],
+        lambda **dev: lm_init(yi_6b.SMOKE, torch.Generator(), **dev)["layers"]["wq"],
+        lambda **dev: init_kv_cache(yi_6b.SMOKE, 1, 4, **dev).k,
+    ]
+    for call in calls + gnn_calls + serve_calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     # the CPU is there when asked for
     assert empty_store(spec, device="cpu").vlabel.device.type == "cpu"
-    for call in gnn_calls:
+    for call in gnn_calls + serve_calls:
         assert call(device="cpu").device.type == "cpu"
