@@ -35,10 +35,14 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    (one ``cache_probe`` lookup per neighbour list), the PNA forward and loss
    at FULL widths, CP of every miss, a gRW-Tx of 64 new and 64 deleted
    edges, and a second epoch whose cache-served lists must equal the
-   store's. ``segment_spmm`` launches are counted around the forwards only;
-   every call they made is held to the plain version (fp32 allclose), one
-   bf16 call too, and the kernel forward's logits to the plain forward's;
-   times at the largest call beside its bound and ``torch.sparse.mm``.
+   store's. ``segment_spmm`` launches and ``prepare_edges`` calls are
+   counted around the forwards only: one CSR a forward serves its 20
+   sums. Every call they made is held to the per-call plain version over
+   the batch's edges (fp32 allclose), one bf16 call too, and the kernel
+   forward's logits to those of a forward whose sums all take the per-call
+   plain version; times of the
+   CSR-form call at the largest shape beside its bound and
+   ``torch.sparse.mm`` on the same CSR, and the one-time prepare.
 
 9. two-tower serving (``src/repro/configs/two_tower_retrieval.py`` FULL
    widths, user vocab cut to 50M) on 61.4 GB of fp32 tables made on the
@@ -52,11 +56,13 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    times beside its bound and ``F.embedding_bag``;
 10. Yi-6B (``src/repro/configs/yi_6b.py`` FULL, bf16) prefill of 8 x 4,000
    tokens, then 96 greedy decode steps in a 4,096 cache. The 32
-   ``flash_attention`` launches of the prefill are held to the plain
-   version, the prefill to one with plain attention (KV and logits), then
-   synthetic cases the path does not reach (Gemma3's window and dh 256,
-   dh 112 and 16, fp32, non-causal 48 x 96, ``q_offset``); prefill and
-   decode times, and the kernel's times beside its bound and SDPA.
+   ``flash_attention`` launches of the prefill must all take the bf16
+   tensor-core kernel and are held to the plain version, the prefill to
+   one with plain attention (KV and logits), then synthetic cases the path
+   does not reach (Gemma3's window and dh 256, dh 112 and 16, fp32,
+   non-causal 48 x 96, ``q_offset``, the 128-row tiling's edges); prefill
+   and decode times, the kernel's HGMMA / UTMALDG instruction counts, and
+   its times beside its bound and SDPA.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -975,8 +981,9 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
                                     0, pop, GNN_FANOUTS, seed=seed, device=dev)
     log = ServedLog(sampler)
     seeds = rng.choice(n_vertices, GNN_SEEDS, replace=False)
-    capture = CallCapture((graph_mod, "segment_spmm"))
-    report = {"segment_spmm_launches": 0, "cache_probe_launches": 0}
+    capture = CallCapture((graph_mod, "segment_spmm"), (graph_mod, "prepare_edges"))
+    # (batch, its forward's first and last segment_spmm call in the capture)
+    report = {"segment_spmm_launches": 0, "cache_probe_launches": 0, "spmm_batches": []}
 
     def epoch(tag):
         c0, h0 = len(log.calls), sampler.hits
@@ -988,23 +995,29 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
         report["cache_probe_launches"] += cp_ops.launches
         n_calls, hits = len(log.calls) - c0, sampler.hits - h0
         ss_ops.launches = 0
+        lo, prepared = len(capture.calls["segment_spmm"]), len(capture.calls["prepare_edges"])
         with capture:
             t = time.perf_counter()
             loss = loss_fn(cfg, params, g)
             torch.cuda.synchronize()
             fwd_ms = (time.perf_counter() - t) * 1e3
         report["segment_spmm_launches"] += ss_ops.launches
+        report["spmm_batches"].append((g, lo, len(capture.calls["segment_spmm"])))
+        prepared = len(capture.calls["prepare_edges"]) - prepared
+        sums = 5 * cfg.n_layers  # scatter_mean x 2 (sum, count) and degrees, a PNA layer
+        assert prepared == 1 and ss_ops.launches == sums, (
+            f"{tag}: {prepared} prepare_edges calls and {ss_ops.launches} segment_spmm "
+            f"launches in one forward (want 1 and {sums})")
         n_nodes, n_edges = int(g.node_mask.sum()), int(g.edge_mask.sum())
         report[tag] = dict(
             sample_s=sample_s, neighbors_calls=n_calls, s_per_neighbors_call=sample_s / n_calls,
             hits=hits, hit_rate=hits / n_calls, forward_loss_ms=fwd_ms, loss=float(loss),
             nodes=n_nodes, edges=n_edges, padded=(g.node_mask.shape[0], g.edge_mask.shape[0]),
-            segment_spmm_launches=ss_ops.launches)
+            segment_spmm_launches=ss_ops.launches, prepare_edges_calls=prepared)
         print(f"gnn {tag}: " + json.dumps(report[tag]), flush=True)
         assert report[tag]["padded"] == (sampler._cap_nodes(GNN_SEEDS),
                                          sampler._cap_edges(GNN_SEEDS)), report[tag]["padded"]
         assert np.isfinite(float(loss)), f"{tag}: the loss is not finite"
-        assert ss_ops.launches > 0, f"{tag}: the PNA forward never launched segment_spmm"
         return g
 
     # epoch 1: every list misses; then CP drains every queued miss
@@ -1093,14 +1106,17 @@ def spmm_bound(x, src, dst, n, mask):
     return nbytes, int(keep.sum()) * D
 
 
-def check_gnn_kernels(capture, probe_capture, launches, model):
+def check_gnn_kernels(capture, batches, probe_capture, launches, model):
     """The sampler's ``cache_probe`` calls (batch 1) held equal to the plain
     version, with times and bound; every ``segment_spmm`` call of the
-    forwards against its plain version (fp32 allclose), one bf16 call at the
-    largest shape, the logits of the kernel forward against the plain
-    forward's, then times at the largest call with its bound and
-    ``torch.sparse.mm``'s time."""
+    forwards (``batches``: each forward's batch and its span of the
+    capture) against the per-call plain version over the batch's edges
+    (fp32 allclose), one bf16 call at the largest shape, the logits of the
+    kernel forward against the plain forward's, then times of the CSR-form
+    call at the largest shape with its bound and ``torch.sparse.mm``'s time
+    on the same CSR, and the one-time ``prepare_edges``."""
     from repro_torch.gnn import graph as graph_mod
+    from repro_torch.gnn.layers import mlp, pna_layer
     from repro_torch.gnn.models import forward
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.cache_probe.ref import cache_probe_ref
@@ -1122,30 +1138,45 @@ def check_gnn_kernels(capture, probe_capture, launches, model):
           f"cap={a[0].shape[0]} {fmt_us(t)} bound_us={bms * 1e3:.6f} ({by}, {nbytes} B)",
           flush=True)
 
+    # every CSR-form call of the forwards against the per-call plain version
+    # over its batch's edges, which never sees the CSR
     calls = capture.calls["segment_spmm"]
     assert calls, "the PNA forwards made no segment_spmm call"
-    err = 0.0
-    for a, kw in calls:
-        got, want = ss_ops.segment_spmm(*a, **kw), segment_spmm_ref(*a, **kw)
-        assert got.dtype == want.dtype and got.shape == want.shape
-        assert torch.allclose(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL), \
-            f"segment_spmm disagrees with its plain version at x {tuple(a[0].shape)}"
-        err = max(err, float((got - want).abs().max()))
-    (x, src, dst, n, mask), kw = max(calls, key=lambda c: c[0][0].numel())
+    err, plain_args = 0.0, []
+    for g, lo, hi in batches:
+        n, E = g.node_mask.shape[0], g.edge_mask.shape[0]
+        ids = torch.arange(E, dtype=torch.int32, device=g.edge_dst.device)
+        csr = calls[lo][1]["csr"]
+        assert csr.n_nodes == n and all(kw["csr"] is csr for _, kw in calls[lo:hi]), \
+            "a forward's segment sums did not share its one CSR"
+        for a, kw in calls[lo:hi]:
+            got = ss_ops.segment_spmm(*a, **kw)
+            want = segment_spmm_ref(a[0], ids, g.edge_dst, n, g.edge_mask)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.allclose(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL), \
+                f"segment_spmm disagrees with its plain version at x {tuple(a[0].shape)}"
+            err = max(err, float((got - want).abs().max()))
+            plain_args.append(((a[0], ids, g.edge_dst, n, g.edge_mask), csr))
+    (x, src, dst, n, mask), csr = max(plain_args, key=lambda c: c[0][0].numel())
     xb = x.to(torch.bfloat16)
-    gb, wb = ss_ops.segment_spmm(xb, src, dst, n, mask), segment_spmm_ref(xb, src, dst, n, mask)
+    gb, wb = ss_ops.segment_spmm(xb, csr=csr), segment_spmm_ref(xb, src, dst, n, mask)
     assert gb.dtype == torch.bfloat16 and torch.allclose(
         gb.float(), wb.float(), rtol=SPMM_BF16_TOL, atol=SPMM_BF16_TOL), "bf16 segment_spmm"
     bf16_err = float((gb.float() - wb.float()).abs().max())
     print(f"kernel segment_spmm calls={len(calls)} (all within rtol={SPMM_RTOL} "
-          f"atol={SPMM_ATOL} of the plain version, max abs err {err:.3e}); bf16 at x "
+          f"atol={SPMM_ATOL} of the per-call plain version, max abs err {err:.3e}); bf16 at x "
           f"{tuple(x.shape)}: max abs err {bf16_err:.3e} (tol {SPMM_BF16_TOL})", flush=True)
 
+    # the plain forward: every layer's sums through the per-call plain
+    # version (segment_spmm_ref takes no CSR: no sum can reach one)
     cfg, params, g = model
     logits = forward(cfg, params, g)
     graph_mod.segment_spmm = segment_spmm_ref
     try:
-        plain = forward(cfg, params, g)
+        h = g.node_feat
+        for lp in params["layers"]:
+            h = pna_layer(lp, cfg, h, g.edge_src, g.edge_dst, g.edge_mask, g.node_mask)
+        plain = mlp(params["head"], h)
     finally:
         graph_mod.segment_spmm = ss_ops.segment_spmm
     diff = float((logits - plain).abs().max())
@@ -1155,13 +1186,15 @@ def check_gnn_kernels(capture, probe_capture, launches, model):
     assert torch.allclose(logits, plain, rtol=LOGITS_TOL, atol=LOGITS_TOL), \
         "the kernel forward's logits disagree with the plain forward's"
 
-    kern = lambda: ss_ops.segment_spmm(x, src, dst, n, mask)
+    # the CSR-form call at the largest shape; the one-time prepare on its own
+    kern = lambda: ss_ops.segment_spmm(x, csr=csr)
     t = timings(kern, lambda: segment_spmm_ref(x, src, dst, n, mask))
     kernel_only = device_ms(kern, match="segment_spmm_kernel")
-    # cuSPARSE on the same function: a CSR [n, rows of x] built once, untimed
-    src_s, offs = ss_ops.prepare_edges(src, dst, n, x.shape[0], mask)
-    nnz = int(offs[-1])
-    A = torch.sparse_csr_tensor(offs.long(), src_s[:nnz].long(),
+    prep = lambda: ss_ops.prepare_edges(src, dst, n, x.shape[0], mask)
+    prep_ms, prep_dev = cuda_ms(prep), device_ms(prep)
+    # cuSPARSE on the same function over the same CSR
+    nnz = int(csr.offsets[-1])
+    A = torch.sparse_csr_tensor(csr.offsets.long(), csr.src_sorted[:nnz].long(),
                                 torch.ones(nnz, dtype=x.dtype, device=x.device),
                                 size=(n, x.shape[0]), check_invariants=True)
     lib = lambda: torch.sparse.mm(A, x)
@@ -1172,13 +1205,15 @@ def check_gnn_kernels(capture, probe_capture, launches, model):
     bms, by = bound_ms(nbytes, ops)
     us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
     print(f"kernel segment_spmm largest x={tuple(x.shape)} E={src.shape[0]} kept={nnz} n={n} "
-          f"{fmt_us(t)} kernel_only_device_us={us(kernel_only)} "
+          f"(CSR form) {fmt_us(t)} kernel_only_device_us={us(kernel_only)} "
           f"sparse_mm_us={us(lib_ms)} (device {us(lib_dev)}) "
-          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B); prepare_edges once a forward: "
+          f"{us(prep_ms)} us (device {us(prep_dev)})", flush=True)
     return dict(name="segment_spmm", route="cuda", source="src/repro_torch/csrc/segment_spmm.cu",
                 replaces="src/repro/kernels/segment_spmm/kernel.py:49", launches=launches,
                 max_abs_err=err, **t, kernel_only_device_ms=kernel_only, bound_ms=bms,
                 bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev,
+                prepare_ms=prep_ms, prepare_device_ms=prep_dev,
                 shape=f"x={tuple(x.shape)},E={src.shape[0]},n={n}")
 
 
@@ -1417,11 +1452,13 @@ FLASH_F32_TOL = 2e-5  # fp32, the same test
 # The path's outputs are ~0.18 / sqrt(row + 1) (the reference's init gives
 # near-uniform softmaxes), mostly below FLASH_TOL, so each launch is held
 # relative to its own values: the relative norm of the difference over each
-# 64-row band (the kernel's query tile) of each sequence and head. Both
-# sides round the same fp32 values to bf16, so they differ by at most one
-# bf16 step (2^-8 relative, below 8e-3 even were every element to round
-# apart; measured ~1e-3); a dropped, repeated or misweighted 64-key tile
-# moves a band's mean of v by ~1e-1 of its norm.
+# 64-row band (one consumer warpgroup of the bf16 kernel's 128-row CTA; the
+# fp32 kernel's query tile) of each sequence and head. Both sides round the
+# same fp32 values to bf16, so they differ by at most one bf16 step (2^-8
+# relative, below 8e-3 even were every element to round apart; measured
+# ~1e-3); a dropped, repeated or misweighted key tile, or a warpgroup's
+# stale running max, moves a band's mean of v by ~1e-1 of its norm or more
+# (tests/test_torch_chip_checks.py).
 FLASH_REL_TOL = 1e-2
 # Prefill with the kernel against prefill with the plain version: each of
 # the 32 layers' attention outputs may round to another bf16 neighbour
@@ -1473,7 +1510,7 @@ def run_lm(seed, dev):
 
     capture = CallCapture((lm_model, "flash_attention"))
     report = {}
-    fa_ops.launches = 0
+    fa_ops.launches = fa_ops.launches_bf16_tc = fa_ops.launches_f32_simt = 0
     with capture:
         t0 = time.perf_counter()
         logits, kv = lm_model.prefill_logits(cfg, params, tokens)
@@ -1481,6 +1518,12 @@ def run_lm(seed, dev):
         report["prefill_first_s"] = time.perf_counter() - t0
     report["flash_attention_launches"] = launches = fa_ops.launches
     assert launches == cfg.n_layers, f"{launches} flash_attention launches in one prefill"
+    tc_launches = fa_ops.launches_bf16_tc
+    assert tc_launches == launches and fa_ops.launches_f32_simt == 0, (
+        f"prefill launches: {fa_ops.launches_bf16_tc} bf16 tensor-core, "
+        f"{fa_ops.launches_f32_simt} fp32 SIMT; all {launches} must take the tensor cores")
+    print(f"lm flash_attention routes: {tc_launches} of {launches} prefill "
+          f"launches on the bf16 tensor-core kernel", flush=True)
     tok = torch.argmax(logits, -1).to(torch.int32)
     cache = lm_model.init_kv_cache(cfg, B, S + T, device=dev)
     cache.k[:, :, :S], cache.v[:, :, :S] = kv.k, kv.v
@@ -1568,6 +1611,12 @@ def run_lm(seed, dev):
         ("dh 16", 2, 513, 513, 4, 4, 16, bf, True, None, 0),
         ("fp32 GQA", 2, 1000, 1000, 32, 4, 128, f32, True, None, 0),
         ("q_offset 3996", 2, 100, 4096, 32, 4, 128, bf, True, None, 3996),
+        # the bf16 kernel's tiling: 128-row CTAs of two 64-row warpgroups,
+        # 128-key tiles (64 at dh 256)
+        ("GQA G 8", 2, 1000, 1000, 32, 4, 128, bf, True, None, 0),
+        ("129 causal", 2, 129, 129, 8, 2, 128, bf, True, None, 0),
+        ("129 non-causal", 2, 129, 129, 8, 2, 128, bf, False, None, 0),
+        ("q_offset 3996 window, G 8", 1, 100, 4096, 8, 1, 128, bf, True, 1000, 3996),
         ("q_offset window, empty rows", 1, 100, 64, 4, 2, 32, f32, True, 8, 30),
     ] + [(name, *shape, dt, *mask) for dt in (bf, f32) for name, shape, mask in (
         ("non-causal 48x96", (1, 48, 96, 2, 2, 64), (False, None, 0)),
@@ -1599,6 +1648,7 @@ def run_lm(seed, dev):
     lib_err = float((lib().transpose(1, 2).float() - flash_attention_ref(q, k, v, **kw).float())
                     .abs().max())
     lib_ms, lib_dev = cuda_ms(lib, iters=20), device_ms(lib)
+    vs_sdpa = None if t["device_ms"] is None or lib_dev is None else t["device_ms"] / lib_dev
     Bq, Sq, H, dh = q.shape
     allowed = Sq * (Sq + 1) // 2  # causal, no window, q_offset 0
     flops = 4 * Bq * H * allowed * dh
@@ -1607,15 +1657,36 @@ def run_lm(seed, dev):
     bms, by = (tb, "bytes") if tb >= to else (to, "operations")
     us = lambda x: "not measured" if x is None else f"{x * 1e3:.3f}"
     print(f"kernel flash_attention largest q={tuple(q.shape)} k={tuple(k.shape)} {fmt_us(t)} "
-          f"sdpa_us={us(lib_ms)} (device {us(lib_dev)}, max abs diff {lib_err:.3e}) "
+          f"sdpa_us={us(lib_ms)} (device {us(lib_dev)}, max abs diff {lib_err:.3e}; kernel / "
+          f"sdpa device {'not measured' if vs_sdpa is None else f'{vs_sdpa:.3f}'}) "
           f"bound_us={bms * 1e3:.4f} ({by}: {flops:.4e} FLOP at the bf16 tensor peak; "
           f"{nbytes} B)", flush=True)
     row = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention/kernel.py:68", launches=launches,
                max_abs_err=err, **t, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-               library_device_ms=lib_dev, shape=f"q={tuple(q.shape)},k={tuple(k.shape)}")
+               library_device_ms=lib_dev, device_vs_library=vs_sdpa,
+               launches_bf16_tc=tc_launches, sass=flash_sass_counts(),
+               shape=f"q={tuple(q.shape)},k={tuple(k.shape)}")
     return report, row
+
+
+def flash_sass_counts():
+    """The counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+    the built flash_attention library's SASS, or None where the toolkit has
+    no cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = _build.build_dir() / "libflash_attention.so"
+    if not os.path.exists(tool):
+        print("kernel flash_attention sass: not available (no cuobjdump)", flush=True)
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    print(f"kernel flash_attention sass: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG "
+          f"instructions in {lib.name}", flush=True)
+    return counts
 
 
 def phase_memory(tag):
@@ -1700,8 +1771,9 @@ def run_gnn_phase(seed, dev):
     g_report, g_capture, model, profile_windows = run_gnn(seed, dev)
     lg = GNN_SHAPES["minibatch_lg"]
     assert g_report["epoch1"]["padded"] == (lg["n_nodes"], lg["n_edges"]), g_report["epoch1"]
-    row = check_gnn_kernels(g_capture, g_report.pop("probe_capture"),
-                            g_report["segment_spmm_launches"], model)
+    row = check_gnn_kernels(g_capture, g_report.pop("spmm_batches"),
+                            g_report.pop("probe_capture"), g_report["segment_spmm_launches"],
+                            model)
     profile_windows()
     print(f"gnn phase: {time.perf_counter() - t0:.1f}s", flush=True)
     phase_memory("phase 8")

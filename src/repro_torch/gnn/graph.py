@@ -4,9 +4,12 @@ PyTorch twin of ``repro.gnn.graph``. Message passing runs directly over an
 edge-index list; this IS the SpMM/SDDMM layer of the system. Every segment
 *sum* (``scatter_sum``, the sums and counts of ``scatter_mean``,
 ``degrees``) goes through the ``segment_spmm`` op, which launches the
-hand-written kernel on the card. Segment max / min and the edge softmax
-stay plain torch (``scatter_reduce``), as the reference leaves them to
-``jax.ops.segment_max``. All shapes are static (padded with masks).
+hand-written kernel on the card. Each takes an optional ``csr``, the
+edges sorted by destination once (``edge_csr``), so that a forward sorts
+its edges once instead of once a sum. Segment max / min and the edge
+softmax stay plain torch (``scatter_reduce``), as the reference leaves
+them to ``jax.ops.segment_max``. All shapes are static (padded with
+masks).
 
 The reference's ``_npin`` / ``constrain`` are sharding hints for a device
 mesh; on one card they have nothing to do and are left out.
@@ -20,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.segment_spmm.ops import segment_spmm
+from repro_torch.kernels.segment_spmm.ops import SegmentCSR, prepare_edges, segment_spmm
 from repro_torch.utils import jax_index, resolve_device
 
 
@@ -85,18 +88,26 @@ def _segment_ids(dst, n_nodes, edge_mask):
     return torch.where(keep, dst.to(torch.int64), n_nodes)
 
 
-def scatter_sum(messages, dst, n_nodes, edge_mask):
+def edge_csr(dst, n_nodes, edge_mask) -> SegmentCSR:
+    """The CSR of per-edge rows (row ``e`` of a [E, D] message tensor) by
+    destination, for the segment sums below: built once, used by all."""
+    return prepare_edges(_edge_ids(dst), dst, n_nodes, dst.shape[0], edge_mask)
+
+
+def scatter_sum(messages, dst, n_nodes, edge_mask, csr: Optional[SegmentCSR] = None):
+    if csr is not None:
+        return segment_spmm(messages, csr=csr)
     return segment_spmm(messages, _edge_ids(messages), dst, n_nodes, edge_mask)
 
 
-def degrees(dst, n_nodes, edge_mask):
+def degrees(dst, n_nodes, edge_mask, csr: Optional[SegmentCSR] = None):
     ones = torch.ones((dst.shape[0], 1), dtype=torch.float32, device=dst.device)
-    return segment_spmm(ones, _edge_ids(ones), dst, n_nodes, edge_mask)[:, 0]
+    return scatter_sum(ones, dst, n_nodes, edge_mask, csr)[:, 0]
 
 
-def scatter_mean(messages, dst, n_nodes, edge_mask):
-    s = scatter_sum(messages, dst, n_nodes, edge_mask)
-    cnt = degrees(dst, n_nodes, edge_mask).to(messages.dtype)
+def scatter_mean(messages, dst, n_nodes, edge_mask, csr: Optional[SegmentCSR] = None):
+    s = scatter_sum(messages, dst, n_nodes, edge_mask, csr)
+    cnt = degrees(dst, n_nodes, edge_mask, csr).to(messages.dtype)
     return s / cnt.clamp(min=1)[:, None], cnt
 
 
@@ -118,7 +129,7 @@ def scatter_min(messages, dst, n_nodes, edge_mask):
     return -scatter_max(-messages, dst, n_nodes, edge_mask)
 
 
-def segment_softmax(scores, dst, n_nodes, edge_mask):
+def segment_softmax(scores, dst, n_nodes, edge_mask, csr: Optional[SegmentCSR] = None):
     """Edge-softmax normalized over incoming edges of each dst node.
 
     scores: [E, H]. Returns [E, H] weights (masked edges -> 0).
@@ -129,5 +140,5 @@ def segment_softmax(scores, dst, n_nodes, edge_mask):
     mx = torch.where(torch.isfinite(mx), mx, 0)
     at_dst = jax_index(dst, n_nodes)  # jnp's gather rule for mx[dst]
     ex = torch.where(em, torch.exp(s - mx[at_dst]), 0)
-    den = scatter_sum(ex, dst, n_nodes, edge_mask)
+    den = scatter_sum(ex, dst, n_nodes, edge_mask, csr)
     return ex / den[at_dst].clamp(min=1e-16)

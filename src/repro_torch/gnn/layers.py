@@ -47,16 +47,19 @@ def pna_layer_init(generator: torch.Generator, d_in, d, cfg, device):
     }
 
 
-def pna_layer(p, cfg, h, src, dst, emask, nmask):
+def pna_layer(p, cfg, h, src, dst, emask, nmask, csr=None):
+    """One PNA layer; ``csr`` (``graph.edge_csr`` of ``dst``, ``n`` and
+    ``emask``) serves its five segment sums, or each sorts the edges
+    itself when it is None."""
     n = h.shape[0]
     m = mlp(p["msg"], torch.cat([h[src.long()], h[dst.long()]], -1))
-    mean, cnt = scatter_mean(m, dst, n, emask)
+    mean, cnt = scatter_mean(m, dst, n, emask, csr)
     mx = scatter_max(m, dst, n, emask)
     mn = scatter_min(m, dst, n, emask)
-    sq, _ = scatter_mean(torch.square(m), dst, n, emask)
+    sq, _ = scatter_mean(torch.square(m), dst, n, emask, csr)
     std = torch.sqrt(torch.relu(sq - torch.square(mean)) + 1e-8)
     aggs = {"mean": mean, "max": mx, "min": mn, "std": std}
-    deg = degrees(dst, n, emask)
+    deg = degrees(dst, n, emask, csr)
     logd = torch.log1p(deg)[:, None]
     delta = cfg.mean_log_degree
     scal = {

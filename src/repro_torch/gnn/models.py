@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.gnn.config import GNNConfig
-from repro_torch.gnn.graph import GraphBatch
+from repro_torch.gnn.graph import GraphBatch, edge_csr
 from repro_torch.gnn.layers import mlp, mlp_init, pna_layer, pna_layer_init
 from repro_torch.utils import resolve_device
 
@@ -36,12 +36,15 @@ def init_params(cfg: GNNConfig, generator: torch.Generator, device=None):
 
 
 def forward(cfg: GNNConfig, params, g: GraphBatch):
-    """Returns node logits [N, n_classes]."""
+    """Returns node logits [N, n_classes]. The edges are sorted by
+    destination once (``edge_csr``) and that CSR serves every layer's
+    segment sums."""
     src, dst, em, nm = g.edge_src, g.edge_dst, g.edge_mask, g.node_mask
     if cfg.kind == "pna":
         h = g.node_feat
+        csr = edge_csr(dst, h.shape[0], em)
         for lp in params["layers"]:
-            h = pna_layer(lp, cfg, h, src, dst, em, nm)
+            h = pna_layer(lp, cfg, h, src, dst, em, nm, csr)
         return mlp(params["head"], h)
     raise _not_ported(cfg)
 

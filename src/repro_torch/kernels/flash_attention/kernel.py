@@ -1,8 +1,9 @@
-"""ctypes binding of the CUDA flash_attention kernel
-(``csrc/flash_attention.cu``).
+"""ctypes binding of the CUDA flash_attention kernels
+(``csrc/flash_attention.cu``): one entry point, which launches the bf16
+tensor-core kernel for bf16 tensors and the fp32 SIMT kernel for fp32.
 
-The source's header says which TPU kernel it replaces and what bounds it.
-Launches on PyTorch's current stream and allocates only its output.
+The source's header says which TPU kernel they replace and what bounds
+them. Launches on PyTorch's current stream and allocates only its output.
 """
 
 from __future__ import annotations

@@ -1,11 +1,14 @@
 """Public flash_attention wrapper, in the LM layout.
 
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
-the hand-written kernel or raise. There is no fallback between the two.
+a hand-written kernel or raise. The dtype picks the kernel: bf16 runs on the
+tensor cores (wgmma, TMA-staged tiles), fp32 on the SIMT kernel (tensor
+cores would be TF32). There is no fallback between the three.
 ``launches`` counts kernel launches (never the plain version's calls), so a
-run can show that its prefill went through the kernel. The kernel's tiles
-are its own constants: the reference's ``q_chunk`` / ``k_chunk`` have no
-counterpart here.
+run can show that its prefill went through the kernel; ``launches_bf16_tc``
+and ``launches_f32_simt`` split it by route. The kernels' tiles are their own
+constants: the reference's ``q_chunk`` / ``k_chunk`` have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 launches = 0
+launches_bf16_tc = 0
+launches_f32_simt = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _INDEX_LIMIT = 2**31
@@ -28,7 +33,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     dh <= 256, a multiple of 8. Query row i sits at position ``q_offset +
     i``; ``window`` None or <= 0 is none. Returns [B, Sq, H, dh] in q's
     dtype."""
-    global launches
+    global launches, launches_bf16_tc, launches_f32_simt
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
@@ -52,6 +57,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     if max(q.numel(), k.numel()) >= _INDEX_LIMIT or max(H, B) > _GRID_LIMIT:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} / k {tuple(k.shape)} exceed "
                          "the kernel's index range")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        # TMA reads from 16-byte aligned bases only; a contiguous view can
+        # start mid-row
+        raise ValueError("flash_attention: bf16 q, k and v must start on 16-byte boundaries")
     w = 0 if window is None else int(window)
     q_offset = int(q_offset)
     if B == 0 or Sq == 0:
@@ -59,4 +68,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
     out = flash_attention_cuda(q, k, v, causal=bool(causal), window=max(w, 0),
                                q_offset=q_offset)
     launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_bf16_tc += 1
+    else:
+        launches_f32_simt += 1
     return out

@@ -1,5 +1,10 @@
-"""Public segment_spmm wrapper: sorts the edges by destination into a CSR,
-then launches the kernel over it.
+"""Public segment_spmm wrapper: sorts the edges by destination into a CSR
+(``prepare_edges``), then launches the kernel over it.
+
+A caller that sums over the same edges many times builds the CSR once and
+passes it (``segment_spmm(x, csr=csr)``): the PNA forward does so for all
+of its segment sums. The ``(x, src, dst, n_nodes, edge_mask)`` form builds
+one CSR per call.
 
 CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
 the hand-written kernel or raise. There is no fallback between the two.
@@ -9,10 +14,12 @@ run can show that its message passing went through the kernel.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
-from repro_torch.kernels.segment_spmm.ref import segment_spmm_ref
+from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref, segment_spmm_ref
 from repro_torch.utils import jax_index
 
 launches = 0
@@ -21,9 +28,20 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _INDEX_LIMIT = 2**31
 
 
-def prepare_edges(src, dst, n_nodes: int, n_src: int, edge_mask=None):
-    """The CSR by destination the kernel walks: ``(src_sorted int32 [E],
-    offsets int32 [n_nodes + 1])``.
+@dataclass(frozen=True)
+class SegmentCSR:
+    """Edges sorted by destination: row ``v`` sums ``x[src_sorted[e]]`` over
+    ``e`` in ``[offsets[v], offsets[v + 1])``; edges past ``offsets[n_nodes]``
+    are dropped. ``src_sorted`` indexes the rows of an ``n_src``-row x."""
+
+    src_sorted: torch.Tensor  # int32 [E]
+    offsets: torch.Tensor  # int32 [n_nodes + 1]
+    n_nodes: int
+    n_src: int
+
+
+def prepare_edges(src, dst, n_nodes: int, n_src: int, edge_mask=None) -> SegmentCSR:
+    """The CSR by destination the kernel walks.
 
     A stable sort by ``dst`` (as ``jnp.argsort``), so each row keeps its
     edges in their original order. Masked edges and destinations outside
@@ -40,31 +58,54 @@ def prepare_edges(src, dst, n_nodes: int, n_src: int, edge_mask=None):
     src_sorted = jax_index(src, n_src)[order].to(torch.int32)
     bounds = torch.arange(n_nodes + 1, dtype=torch.int32, device=dst.device)
     offsets = torch.searchsorted(key_sorted, bounds, side="left").to(torch.int32)
-    return src_sorted, offsets
+    return SegmentCSR(src_sorted, offsets, int(n_nodes), int(n_src))
 
 
-def segment_spmm(x, src, dst, n_nodes=None, edge_mask=None):
+def segment_spmm(x, src=None, dst=None, n_nodes=None, edge_mask=None, *, csr=None):
     """``out[v] = sum over e with dst[e] == v (and edge_mask[e]) of
     x[src[e]]``: x [N_x, D] fp32 or bf16, src/dst [E] int, edge_mask [E]
     bool or None. Returns [n_nodes, D] (``n_nodes`` defaults to N_x) in
-    ``x.dtype``, summed in fp32. Exact for any degree."""
+    ``x.dtype``, summed in fp32. Exact for any degree.
+
+    With ``csr`` (a ``SegmentCSR`` that ``prepare_edges`` built for x's
+    rows) in place of ``src`` .. ``edge_mask``, the sums run over it and
+    nothing is sorted."""
     global launches
+    if csr is not None:
+        if src is not None or dst is not None or n_nodes is not None or edge_mask is not None:
+            raise ValueError("segment_spmm: pass either csr or src/dst/n_nodes/edge_mask")
+        if x.shape[0] != csr.n_src:
+            raise ValueError(f"segment_spmm: the csr indexes {csr.n_src} rows of x, got "
+                             f"{x.shape[0]}")
+    elif src is None or dst is None:
+        raise ValueError("segment_spmm: src and dst are required without a csr")
     dev = x.device
     if dev.type == "cpu":
+        if csr is not None:
+            return segment_spmm_csr_ref(x, csr.src_sorted, csr.offsets)
         return segment_spmm_ref(x, src, dst, n_nodes, edge_mask)
     if dev.type != "cuda":
         raise ValueError(f"segment_spmm: unsupported device {dev}")
-    n = x.shape[0] if n_nodes is None else int(n_nodes)
-    E = src.shape[0]
     if x.dim() != 2 or x.dtype not in _DTYPES:
         raise ValueError(f"segment_spmm: x must be a 2-d float32 or bfloat16 tensor, "
                          f"got {x.dtype} {tuple(x.shape)}")
-    if src.shape != (E,) or dst.shape != (E,) or src.device != dev or dst.device != dev:
-        raise ValueError(f"segment_spmm: src and dst must be [E] on {dev}, got "
-                         f"{tuple(src.shape)} on {src.device} and {tuple(dst.shape)} on {dst.device}")
-    if edge_mask is not None and (edge_mask.shape != (E,) or edge_mask.dtype != torch.bool
-                                  or edge_mask.device != dev):
-        raise ValueError(f"segment_spmm: edge_mask must be a bool [E] on {dev}")
+    if csr is None:
+        n = x.shape[0] if n_nodes is None else int(n_nodes)
+        E = src.shape[0]
+        if src.shape != (E,) or dst.shape != (E,) or src.device != dev or dst.device != dev:
+            raise ValueError(f"segment_spmm: src and dst must be [E] on {dev}, got "
+                             f"{tuple(src.shape)} on {src.device} and {tuple(dst.shape)} on "
+                             f"{dst.device}")
+        if edge_mask is not None and (edge_mask.shape != (E,) or edge_mask.dtype != torch.bool
+                                      or edge_mask.device != dev):
+            raise ValueError(f"segment_spmm: edge_mask must be a bool [E] on {dev}")
+    else:
+        n, E = csr.n_nodes, csr.src_sorted.shape[0]
+        if (csr.offsets.shape != (n + 1,) or csr.src_sorted.dim() != 1
+                or any(t.dtype != torch.int32 or t.device != dev or not t.is_contiguous()
+                       for t in (csr.src_sorted, csr.offsets))):
+            raise ValueError(f"segment_spmm: csr must hold contiguous int32 src_sorted [E] and "
+                             f"offsets [{n + 1}] on {dev}")
     if E >= _INDEX_LIMIT or n >= _INDEX_LIMIT or x.shape[0] >= _INDEX_LIMIT:
         raise ValueError(f"segment_spmm: E={E}, n_nodes={n} and N_x={x.shape[0]} "
                          "must each be below 2^31 (int32 indices)")
@@ -72,7 +113,8 @@ def segment_spmm(x, src, dst, n_nodes=None, edge_mask=None):
         raise ValueError(f"segment_spmm: n_nodes={n} with x of {x.shape[0]} rows")
     if n == 0 or x.shape[1] == 0:
         return torch.zeros((n, x.shape[1]), dtype=x.dtype, device=dev)
-    src_sorted, offsets = prepare_edges(src, dst, n, x.shape[0], edge_mask)
-    out = segment_spmm_cuda(x.contiguous(), src_sorted, offsets)
+    if csr is None:
+        csr = prepare_edges(src, dst, n, x.shape[0], edge_mask)
+    out = segment_spmm_cuda(x.contiguous(), csr.src_sorted, csr.offsets)
     launches += 1
     return out

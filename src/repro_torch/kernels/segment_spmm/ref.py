@@ -25,3 +25,17 @@ def segment_spmm_ref(x, src, dst, n_nodes=None, edge_mask=None):
     rows = x[jax_index(src[keep], x.shape[0])].to(torch.float32)
     out.index_add_(0, dst[keep].to(torch.int64), rows)
     return out.to(x.dtype)
+
+
+def segment_spmm_csr_ref(x, src_sorted, offsets):
+    """``out[v] = sum of x[src_sorted[e]]`` over ``e`` in ``[offsets[v],
+    offsets[v + 1])``, [len(offsets) - 1, D]: the function the kernel
+    computes over a CSR that ``prepare_edges`` built. Edges past
+    ``offsets[-1]`` are dropped. Accumulates in fp32 and returns
+    ``x.dtype``."""
+    n = offsets.shape[0] - 1
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts)
+    out = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
+    out.index_add_(0, rows, x[src_sorted[: rows.shape[0]].to(torch.int64)].to(torch.float32))
+    return out.to(x.dtype)

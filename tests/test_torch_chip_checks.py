@@ -3,7 +3,9 @@
 each 64-row band of each sequence and head (``band_rel``), at the limit
 ``FLASH_REL_TOL``. Run here on the CPU against the plain version, with
 outputs at the Yi-6B path's value scale (entries ~0.18, near-uniform
-softmaxes, so the outputs are ~1e-2 and below).
+softmaxes, so the outputs are ~1e-2 and below), for the failure modes of
+the kernels' tilings: 64-key tiles (fp32 SIMT), and 128-row CTAs of two
+64-row warpgroups over 128-key tiles (bf16 tensor cores).
 """
 
 import pytest
@@ -54,3 +56,70 @@ def test_band_check_passes_bf16_rounding_and_sees_a_ragged_band():
     got[:, 69] *= 1.5
     assert cs.band_rel(got, want[:, :70].contiguous()) > 10 * cs.FLASH_REL_TOL
     assert cs.rel_norm(got, want[:, :70]) < cs.band_rel(got, want[:, :70])
+
+
+TC_ROWS = TC_KEYS = 128  # the bf16 kernel's query rows per CTA and keys per tile
+S_TC = 3 * TC_ROWS  # three row tiles: every key tile but the last has rows past it
+
+
+def _tc_inputs(seed):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.18 * torch.randn(1, S_TC, n, DH, generator=g)).bfloat16() for n in (H, KV, KV)]
+
+
+def _tc_online(q, k, v, *, drop_tile=None, stale_second_half=False):
+    """Causal attention as the bf16 kernel walks it: each 128-row CTA walks
+    the 128-key tiles up to its diagonal with an online softmax (running
+    max m, sum l, accumulator o; p rounded to bf16 before the product with
+    v). ``drop_tile``: that key tile is never added. ``stale_second_half``:
+    the rows of each CTA's second 64-row warpgroup never store their new
+    running max (it stays at its initial -1e30), so every tile's correction
+    factor wipes what came before."""
+    qs = (q * DH**-0.5).float()[0].view(S_TC, KV, H // KV, DH).permute(1, 2, 0, 3)
+    kk, vv = (x.float()[0].permute(1, 0, 2)[:, None] for x in (k, v))  # [KV, 1, S, DH]
+    rows = torch.arange(S_TC)
+    stale = (rows % TC_ROWS >= 64)[:, None] if stale_second_half else torch.zeros(S_TC, 1, dtype=torch.bool)
+    m = torch.full(qs.shape[:-1] + (1,), -1e30)
+    l, o = torch.zeros_like(m), torch.zeros_like(qs)
+    for t in range(S_TC // TC_KEYS):
+        keys = torch.arange(t * TC_KEYS, (t + 1) * TC_KEYS)
+        walks = (rows // TC_ROWS >= t)[:, None]  # the CTA's key range reaches this tile
+        if t == drop_tile:
+            continue
+        s = torch.einsum("kgqd,kzcd->kgqc", qs, kk[:, :, keys])
+        s = torch.where(keys[None, :] <= rows[:, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = torch.where(walks, l * corr + p.sum(-1, keepdim=True), l)
+        pv = torch.einsum("kgqc,kzcd->kgqd", p.bfloat16().float(), vv[:, :, keys])
+        o = torch.where(walks, o * corr + pv, o)
+        m = torch.where(walks & ~stale, m_new, m)
+    out = o / l.clamp(min=1e-30)
+    return out.permute(2, 0, 1, 3).reshape(1, S_TC, H, DH).bfloat16()
+
+
+def test_tc_tiling_simulation_passes_the_band_check():
+    """The bf16 kernel's walk without a fault is within the limit: the band
+    check leaves room for its other rounding points."""
+    q, k, v = _tc_inputs(3)
+    assert cs.band_rel(_tc_online(q, k, v), flash_attention_ref(q, k, v)) < cs.FLASH_REL_TOL
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_band_check_catches_a_dropped_128_key_tile(tile):
+    q, k, v = _tc_inputs(4)
+    got = _tc_online(q, k, v, drop_tile=tile)
+    assert cs.band_rel(got, flash_attention_ref(q, k, v)) > 10 * cs.FLASH_REL_TOL
+
+
+def test_band_check_catches_a_stale_running_max_in_the_second_warpgroup():
+    q, k, v = _tc_inputs(5)
+    want = flash_attention_ref(q, k, v)
+    got = _tc_online(q, k, v, stale_second_half=True)
+    assert cs.band_rel(got, want) > 10 * cs.FLASH_REL_TOL
+    # only the second warpgroup's rows of CTAs that walk two or more tiles
+    # are wrong: the first 128 rows (one tile) and every first half agree
+    first = torch.cat([got[:, c * TC_ROWS:c * TC_ROWS + 64] for c in range(3)], 1)
+    first_want = torch.cat([want[:, c * TC_ROWS:c * TC_ROWS + 64] for c in range(3)], 1)
+    assert cs.band_rel(first, first_want) < cs.FLASH_REL_TOL
+    assert cs.band_rel(got[:, :TC_ROWS], want[:, :TC_ROWS].contiguous()) < cs.FLASH_REL_TOL

@@ -130,3 +130,14 @@ def test_ref_is_the_wrapper_on_the_cpu_and_other_devices_raise():
     m = torch.zeros((1, 8, 2, 8), device="meta")
     with pytest.raises(ValueError):
         ops.flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_path_counts_no_launch_on_either_route(dtype):
+    """The plain version on the CPU is no launch of either kernel: the three
+    counters (all launches, the bf16 tensor-core route, the fp32 SIMT
+    route) stay as they were."""
+    (_, qt), (_, kt), (_, vt) = _qkv(2, 1, 16, 16, 4, 2, 16, dtype)
+    before = (ops.launches, ops.launches_bf16_tc, ops.launches_f32_simt)
+    ops.flash_attention(qt, kt, vt)
+    assert (ops.launches, ops.launches_bf16_tc, ops.launches_f32_simt) == before

@@ -21,7 +21,7 @@ from repro.gnn.models import forward, init_params as j_init, loss_fn
 from repro_torch import interop
 from repro_torch.configs import pna as pna_cfg
 from repro_torch.gnn import GNNConfig, graph as TG
-from repro_torch.gnn.layers import pna_layer as t_pna_layer
+from repro_torch.gnn.layers import mlp, pna_layer as t_pna_layer
 from repro_torch.gnn.models import forward as t_forward, init_params, loss_fn as t_loss
 from test_torch_cache import assert_cache_same
 from test_torch_engine import to_np
@@ -87,6 +87,56 @@ def test_segment_ops(D):
     _close(cnt, jcnt, 0)
     _close(TG.degrees(*args_t), JG.degrees(*args_j), 0)
     _close(TG.segment_softmax(mt, *args_t), JG.segment_softmax(mj, *args_j), SEG_TOL)
+
+
+@pytest.mark.parametrize("D", [1, 9, 40])
+def test_segment_ops_over_one_csr(D):
+    """The segment sums given one ``edge_csr`` of the batch: the JAX
+    package's values, and bit for bit what each call's own sort gives."""
+    d = _batch(D + 5, 64, 300, D, 4)
+    m = np.random.default_rng(D + 6).normal(size=(300, D)).astype(np.float32)
+    mj, mt = jnp.asarray(m), torch.as_tensor(m)
+    dst, em = d["edge_dst"], d["edge_mask"]
+    args_j, args_t = (jnp.asarray(dst), 64, jnp.asarray(em)), (torch.as_tensor(dst), 64,
+                                                               torch.as_tensor(em))
+    csr = TG.edge_csr(*args_t)
+    got = TG.scatter_sum(mt, *args_t, csr)
+    _close(got, JG.scatter_sum(mj, *args_j), SEG_TOL)
+    assert torch.equal(got, TG.scatter_sum(mt, *args_t))
+    mean, cnt = TG.scatter_mean(mt, *args_t, csr)
+    jmean, jcnt = JG.scatter_mean(mj, *args_j)
+    _close(mean, jmean, SEG_TOL)
+    _close(cnt, jcnt, 0)
+    _close(TG.degrees(*args_t, csr), JG.degrees(*args_j), 0)
+    soft = TG.segment_softmax(mt, *args_t, csr)
+    _close(soft, JG.segment_softmax(mj, *args_j), SEG_TOL)
+    assert torch.equal(soft, TG.segment_softmax(mt, *args_t))
+
+
+def test_forward_sorts_the_edges_once(monkeypatch):
+    """``forward`` (and ``loss_fn`` through it) calls ``prepare_edges`` once
+    and hands that CSR to every segment sum of every layer: five a PNA
+    layer; the logits equal, bit for bit, a forward whose sums each sort
+    the edges themselves."""
+    cfg_kw = NARROW
+    _, tp = _params(cfg_kw, 5)
+    _, tg = _both(_batch(6, 128, 600, cfg_kw["d_in"], cfg_kw["n_classes"]))
+    tc = GNNConfig(**cfg_kw)
+    prepared, sums = [], []
+    inner_prepare, inner_spmm = TG.prepare_edges, TG.segment_spmm
+    monkeypatch.setattr(TG, "prepare_edges",
+                        lambda *a, **k: prepared.append(inner_prepare(*a, **k)) or prepared[-1])
+    monkeypatch.setattr(TG, "segment_spmm",
+                        lambda *a, **k: sums.append(k.get("csr")) or inner_spmm(*a, **k))
+    logits = t_forward(tc, tp, tg)
+    assert len(prepared) == 1, f"{len(prepared)} prepare_edges calls in one forward"
+    assert len(sums) == 5 * cfg_kw["n_layers"] and all(c is prepared[0] for c in sums)
+    t_loss(tc, tp, tg)
+    assert len(prepared) == 2 and len(sums) == 10 * cfg_kw["n_layers"]
+    h = tg.node_feat
+    for lp in tp["layers"]:
+        h = t_pna_layer(lp, tc, h, tg.edge_src, tg.edge_dst, tg.edge_mask, tg.node_mask)
+    assert torch.equal(logits, mlp(tp["head"], h))
 
 
 def test_pna_layer_smoke():
