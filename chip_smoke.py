@@ -32,10 +32,14 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
 8. GNN serving at the ``minibatch_lg`` shape: a graph sized like Reddit
    (232,965 vertices, ~7.4M edges, 602 fp32 features, 41 classes) in the
    store, 1,024 seeds at fanouts (15, 10) through ``CachedNeighborSampler``
-   (one ``cache_probe`` lookup per neighbour list), the PNA forward and loss
+   (one batched lookup a fanout layer: one ``cache_probe`` launch over the
+   frontier, one ``gather_out`` over its misses), the PNA forward and loss
    at FULL widths, CP of every miss, a gRW-Tx of 64 new and 64 deleted
    edges, and a second epoch whose cache-served lists must equal the
-   store's. ``segment_spmm`` launches and ``prepare_edges`` calls are
+   store's. ``cache_probe`` launches are counted around the samplings (at
+   most two a fanout layer) and every call held to its plain version; the
+   idle share is measured over a replay of epoch 2's sampling and a forward.
+   ``segment_spmm`` launches and ``prepare_edges`` calls are
    counted around the forwards only: one CSR a forward serves its 20
    sums. Every call they made is held to the per-call plain version over
    the batch's edges (fp32 allclose), one bf16 call too, and the kernel
@@ -52,8 +56,12 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    launches are counted around the towers only; every call is held to the
    plain version (fp32 allclose), one bf16 call too, and the whole path to
    a run with the plain version in the kernel's place (scores, ``best`` and
-   the top-100 ids under the tie rule); latency per shape, and the kernel's
-   times beside its bound and ``F.embedding_bag``;
+   the top-100 ids under the tie rule); the tie rule itself on a corpus
+   whose first 1,000 rows repeat others (ids equal a stable sort's), timed
+   beside ``torch.topk``; latency per shape, and the kernel's times beside
+   its bound and ``F.embedding_bag``, then at the same shape on three id
+   sets (the path's Zipf ids, the same folded into 16,384 rows, uniform
+   ids), each beside its bound;
 10. Yi-6B (``src/repro/configs/yi_6b.py`` FULL, bf16) prefill of 8 x 4,000
    tokens, then 96 greedy decode steps in a 4,096 cache. The 32
    ``flash_attention`` launches of the prefill must all take the bf16
@@ -66,10 +74,10 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
-10: its sampling window traces ~390,000 device events, after which the
-profiler drops more device events of later windows. Each window opens with
-spin kernels that take that loss and reports any kernel it still dropped; a
-device time is taken only from a window that dropped none. Each phase
+10. Once a process has traced many device events the profiler drops some of
+later windows, so each window opens with spin kernels that take that loss
+and reports any kernel it still dropped; a device time is taken only from a
+window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
 
 Any failure raises (non-zero exit). The last stdout line is the device
@@ -79,6 +87,7 @@ Run:  python3 chip_smoke.py [--seed 0]
 """
 
 import argparse
+import ctypes
 import gc
 import json
 import os
@@ -431,21 +440,17 @@ def profile_window(tag, seed, plans, ranges, run):
 
 
 def probe_inputs(espec, cache, hop, roots, dev):
-    """The read path's kernel inputs for chunk 0 of ``hop`` over ``roots``
-    (the same preparation ``core.cache.cache_lookup_lean`` does)."""
-    from repro_torch.core.cache import _SEED_FP, _SEED_SLOT, _key_cols
-    from repro_torch.utils import hash_rows, u32_bits
+    """The read path's ``cache_probe`` arguments for ``hop`` over ``roots``:
+    every chunk key of every root in one launch, as
+    ``core.cache.cache_lookup_lean`` makes them (captured from it)."""
+    import repro_torch.core.cache as cache_mod
 
-    C = espec.cache.max_chunks
     r = torch.as_tensor(roots, device=dev)
     params = torch.as_tensor(hop.params, device=dev).expand(len(roots), -1)
-    cols = _key_cols(hop.tpl_idx, r, params, 0)
-    return (
-        (cache.tpl * C + cache.chunk).contiguous(), cache.root, cache.fp, cache.valid,
-        (cols[0] * C + cols[-1]).contiguous(), cols[1].contiguous(),
-        u32_bits(hash_rows(cols, _SEED_SLOT)).contiguous(),
-        u32_bits(hash_rows(cols, _SEED_FP)).contiguous(),
-    )
+    with CallCapture((cache_mod, "cache_probe")) as cap:
+        cache_mod.cache_lookup_lean(espec.cache, cache, hop.tpl_idx, r, params)
+    (args_, _), = cap.calls["cache_probe"]
+    return args_
 
 
 def probe_bound(args_, hit, slot, probes):
@@ -518,10 +523,12 @@ def check_kernels(espec, state, plans, ranges, launches, dev, seed):
     P = espec.cache.probes
     rows = []
     # cache_probe at the read path's shapes: hop 1 (512 roots) and a second
-    # hop's flattened frontier (512 x 32 = 16,384 keys), on the populated cache
-    for n_keys in (512, 16384):
-        roots = zipf_pick(rng, *ranges[L_WATCHLIST], n_keys)
+    # hop's flattened frontier (512 x 32 = 16,384 roots), each root's
+    # max_chunks chunk keys in one launch, on the populated cache
+    for n_roots in (512, 16384):
+        roots = zipf_pick(rng, *ranges[L_WATCHLIST], n_roots)
         a = probe_inputs(espec, cache, sq1, roots, dev)
+        n_keys = a[4].shape[0]
         got = cp_ops.cache_probe(*a, probes=P)
         want = cache_probe_ref(*a, probes=P)
         torch.cuda.synchronize()
@@ -927,18 +934,18 @@ def build_gnn_world(rng, device, n_vertices, max_deg=64):
 
 
 class ServedLog:
-    """Records every ``neighbors(v)`` call of a sampler: the vertex, the
-    list it returned and whether the cache served it."""
+    """Records every neighbour list a sampler's batched lookups return: the
+    vertex, the list and whether the cache served it, one entry per
+    occurrence in frontier order."""
 
     def __init__(self, sampler):
-        self.sampler, self.inner, self.calls = sampler, sampler.neighbors, []
-        sampler.neighbors = self.neighbors
+        self.inner, self.calls = sampler.lookup, []
+        sampler.lookup = self.lookup
 
-    def neighbors(self, v):
-        h = self.sampler.hits
-        nb = self.inner(v)
-        self.calls.append((v, nb, self.sampler.hits > h))
-        return nb
+    def lookup(self, vs):
+        out, hit = self.inner(vs)
+        self.calls.extend(zip(np.asarray(vs).tolist(), out, hit.tolist()))
+        return out, hit
 
 
 def run_gnn(seed, dev, n_vertices=GNN_V):
@@ -982,18 +989,24 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
     log = ServedLog(sampler)
     seeds = rng.choice(n_vertices, GNN_SEEDS, replace=False)
     capture = CallCapture((graph_mod, "segment_spmm"), (graph_mod, "prepare_edges"))
+    # every cache_probe call of the samplings (one a fanout layer), for
+    # check_gnn_kernels
+    probe_capture = CallCapture((cache_mod, "cache_probe"))
     # (batch, its forward's first and last segment_spmm call in the capture)
-    report = {"segment_spmm_launches": 0, "cache_probe_launches": 0, "spmm_batches": []}
+    report = {"segment_spmm_launches": 0, "cache_probe_launches": 0, "spmm_batches": [],
+              "probe_capture": probe_capture}
 
     def epoch(tag):
         c0, h0 = len(log.calls), sampler.hits
         cp_ops.launches = 0
-        t = time.perf_counter()
-        g = sampler.sample_store(seeds, feats, labels)
-        torch.cuda.synchronize()
-        sample_s = time.perf_counter() - t
-        report["cache_probe_launches"] += cp_ops.launches
-        n_calls, hits = len(log.calls) - c0, sampler.hits - h0
+        with probe_capture:
+            t = time.perf_counter()
+            g = sampler.sample_store(seeds, feats, labels)
+            torch.cuda.synchronize()
+            sample_s = time.perf_counter() - t
+        lookups = cp_ops.launches
+        report["cache_probe_launches"] += lookups
+        n_lists, hits = len(log.calls) - c0, sampler.hits - h0
         ss_ops.launches = 0
         lo, prepared = len(capture.calls["segment_spmm"]), len(capture.calls["prepare_edges"])
         with capture:
@@ -1010,11 +1023,13 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
             f"launches in one forward (want 1 and {sums})")
         n_nodes, n_edges = int(g.node_mask.sum()), int(g.edge_mask.sum())
         report[tag] = dict(
-            sample_s=sample_s, neighbors_calls=n_calls, s_per_neighbors_call=sample_s / n_calls,
-            hits=hits, hit_rate=hits / n_calls, forward_loss_ms=fwd_ms, loss=float(loss),
+            sample_s=sample_s, neighbor_lists=n_lists, cache_probe_launches=lookups,
+            hits=hits, hit_rate=hits / n_lists, forward_loss_ms=fwd_ms, loss=float(loss),
             nodes=n_nodes, edges=n_edges, padded=(g.node_mask.shape[0], g.edge_mask.shape[0]),
             segment_spmm_launches=ss_ops.launches, prepare_edges_calls=prepared)
         print(f"gnn {tag}: " + json.dumps(report[tag]), flush=True)
+        # one batched lookup a fanout layer: one launch, two at most
+        assert 0 < lookups <= 2 * len(GNN_FANOUTS), f"{tag}: {lookups} cache_probe launches"
         assert report[tag]["padded"] == (sampler._cap_nodes(GNN_SEEDS),
                                          sampler._cap_edges(GNN_SEEDS)), report[tag]["padded"]
         assert np.isfinite(float(loss)), f"{tag}: the loss is not finite"
@@ -1049,6 +1064,7 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
     # epoch 2: the same seeds; every list served from the cache must equal
     # the store's list after the gRW (one batched gather_out)
     c0 = len(log.calls)
+    draws = sampler.rng.bit_generator.state
     g2 = epoch("epoch2")
     served = [(v, nb) for v, nb, hit in log.calls[c0:] if hit]
     assert served, "epoch 2 had no cache hit"
@@ -1067,31 +1083,26 @@ def run_gnn(seed, dev, n_vertices=GNN_V):
           flush=True)
     assert report["cache_probe_launches"] > 0, "the sampler never launched cache_probe"
 
-    # the device's idle share over a sample and a forward. A whole sample
-    # launches millions of small kernels, too many events to trace, so the
-    # window holds every 16th neighbors() call of epoch 2, replayed on the
-    # same cache (the same hits and misses), and one forward + loss; epoch
-    # 2's share is estimated from their busy time per call. The window's
-    # calls run once untraced first, their cache_probe calls kept for
-    # check_gnn_kernels, which runs before the traced windows: after a
-    # window this size the profiler drops device events of later windows
+    # the device's idle share over epoch 2's sample + forward, measured: the
+    # window replays epoch 2's whole sampling from the same draws on the same
+    # cache and store (so the same lists and hits), then one forward + loss
     ep = report["epoch2"]
-    window = [v for v, _, _ in log.calls[c0:c0 + ep["neighbors_calls"]:16]]
-    report["probe_capture"] = CallCapture((cache_mod, "cache_probe"))
-    with report["probe_capture"]:
-        for v in window:
-            sampler.neighbors(v)
+
+    def replay():
+        sampler.rng.bit_generator.state = draws
+        h = sampler.hits
+        sampler.sample_store(seeds, feats, labels)
+        assert sampler.hits - h == ep["hits"], "the replayed sampling hit another set"
 
     def profile_windows():
-        s_wall, s_busy = profiled(" gnn sampling", f"{len(window)} neighbors() calls of epoch 2",
-                                  lambda: [sampler.neighbors(v) for v in window], host_ops=False)
+        s_wall, s_busy = profiled(" gnn sampling", "epoch 2's batched sampling, replayed",
+                                  replay, host_ops=False)
         f_wall, f_busy = profiled(" gnn forward", "one PNA forward + loss",
                                   lambda: loss_fn(cfg, params, g2), host_ops=False)
         if s_busy is not None and f_busy is not None:
-            busy = s_busy / len(window) * ep["neighbors_calls"] + f_busy
-            report["idle_share"] = 1 - busy / (ep["sample_s"] * 1e3 + ep["forward_loss_ms"])
-            print(f"gnn idle share over epoch 2's sample + forward (estimated from the two "
-                  f"windows): {report['idle_share']:.4f}", flush=True)
+            report["idle_share"] = 1 - (s_busy + f_busy) / (s_wall + f_wall)
+            print(f"gnn idle share over epoch 2's sample + forward (the two windows): "
+                  f"{report['idle_share']:.4f}", flush=True)
 
     return report, capture, (cfg, params, g2), profile_windows
 
@@ -1107,14 +1118,15 @@ def spmm_bound(x, src, dst, n, mask):
 
 
 def check_gnn_kernels(capture, batches, probe_capture, launches, model):
-    """The sampler's ``cache_probe`` calls (batch 1) held equal to the plain
-    version, with times and bound; every ``segment_spmm`` call of the
-    forwards (``batches``: each forward's batch and its span of the
-    capture) against the per-call plain version over the batch's edges
-    (fp32 allclose), one bf16 call at the largest shape, the logits of the
-    kernel forward against the plain forward's, then times of the CSR-form
-    call at the largest shape with its bound and ``torch.sparse.mm``'s time
-    on the same CSR, and the one-time ``prepare_edges``."""
+    """The samplings' ``cache_probe`` calls (one a fanout layer) held equal
+    to the plain version, the largest timed beside its bound; every
+    ``segment_spmm`` call of the forwards (``batches``: each forward's batch
+    and its span of the capture) against the per-call plain version over
+    the batch's edges (fp32 allclose), one bf16 call at the largest shape,
+    the logits of the kernel forward against the plain forward's, then
+    times of the CSR-form call at the largest shape with its bound and
+    ``torch.sparse.mm``'s time on the same CSR, and the one-time
+    ``prepare_edges``."""
     from repro_torch.gnn import graph as graph_mod
     from repro_torch.gnn.layers import mlp, pna_layer
     from repro_torch.gnn.models import forward
@@ -1125,18 +1137,21 @@ def check_gnn_kernels(capture, batches, probe_capture, launches, model):
 
     probes = probe_capture.calls["cache_probe"]
     assert probes, "the sampler made no cache_probe call"
+    hits = []
     for a, kw in probes:
         got, want = cp_ops.cache_probe(*a, **kw), cache_probe_ref(*a, **kw)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
             "cache_probe disagrees with its plain version on a sampler lookup"
-    a, kw = probes[0]
+        hits.append(int(want[0].sum()))
+    # timed: the largest call on the populated cache (epoch 2's last layer)
+    a, kw = max((c for c, n in zip(probes, hits) if n), key=lambda c: c[0][4].shape[0])
     hit, slot = cache_probe_ref(*a, **kw)
     t = timings(lambda: cp_ops.cache_probe(*a, **kw), lambda: cache_probe_ref(*a, **kw))
     nbytes, ops = probe_bound(a, hit, slot, kw["probes"])
     bms, by = bound_ms(nbytes, ops)
-    print(f"kernel cache_probe gnn calls={len(probes)} (all equal) keys={a[4].shape[0]} "
-          f"cap={a[0].shape[0]} {fmt_us(t)} bound_us={bms * 1e3:.6f} ({by}, {nbytes} B)",
-          flush=True)
+    print(f"kernel cache_probe gnn calls={len(probes)} (all equal) largest keys="
+          f"{a[4].shape[0]} cap={a[0].shape[0]} hits={int(hit.sum())} {fmt_us(t)} "
+          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
 
     # every CSR-form call of the forwards against the per-call plain version
     # over its batch's edges, which never sees the CSR
@@ -1277,6 +1292,7 @@ def run_twotower(seed, dev):
 
     import torch.nn.functional as F
     from repro_torch.configs import two_tower_retrieval as ttc
+    from repro_torch.kernels import _build
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.recsys import embedding as emb_mod
@@ -1357,11 +1373,13 @@ def run_twotower(seed, dev):
     del tb, gb, wb
 
     # the kernel on shapes the path does not reach (tables of values ~1,
-    # widths off 256, K up to 40, ids past both ends, an empty bag)
+    # widths off 256 and one off 8, the scalar kernel's, K up to 40, ids
+    # past both ends, an empty bag)
+    shapes = ((1000, 256, 4096, 16), (500, 40, 300, 5), (300, 16, 77, 1), (200, 264, 50, 40),
+              (100, 8, 10, 33), (60, 20, 30, 7))
     for dt, tol in ((torch.float32, BAG_TOL), (torch.bfloat16, BAG_BF16_TOL)):
         worst = 0.0
-        for V, Dc, Bc, Kc in ((1000, 256, 4096, 16), (500, 40, 300, 5), (300, 16, 77, 1),
-                              (200, 264, 50, 40), (100, 8, 10, 33)):
+        for V, Dc, Bc, Kc in shapes:
             t = torch.randn(V, Dc, generator=gen, device=dev).to(dt)
             ii = torch.randint(-5, V + 5, (Bc, Kc), generator=gen, device=dev, dtype=torch.int32)
             mm = torch.rand(Bc, Kc, generator=gen, device=dev) < 0.7
@@ -1373,8 +1391,8 @@ def run_twotower(seed, dev):
                     got.float(), want.float(), rtol=tol, atol=tol), \
                     f"embedding_bag {str(dt)[6:]} V{V} D{Dc} B{Bc} K{Kc} {mode}"
                 worst = max(worst, float((got.float() - want.float()).abs().max()))
-        print(f"kernel embedding_bag synthetic {str(dt)[6:]}: 10 cases, max abs err "
-              f"{worst:.3e} (tol {tol})", flush=True)
+        print(f"kernel embedding_bag synthetic {str(dt)[6:]}: {2 * len(shapes)} cases, max abs "
+              f"err {worst:.3e} (tol {tol})", flush=True)
 
     # the whole path with the plain version in the kernel's place
     emb_mod.bag_op = embedding_bag_ref
@@ -1409,6 +1427,39 @@ def run_twotower(seed, dev):
     print(f"recsys vs plain path: corpus max abs diff {cdiff:.3e}; " + json.dumps(
         {n: report[n] for n in users}) + f" (tol {SERVE_TOL})", flush=True)
 
+    # the tie rule on the card: the first 1,000 corpus rows repeat the 2nd
+    # to 1,001st best other rows for this user, so every score but the best
+    # comes twice and a pair straddles rank 100; the ids must be a stable
+    # descending sort's (the lower index first among equal scores)
+    u = tt.user_tower(cfg, params, ub, um)
+    n_dup = 1_000
+    best = n_dup + torch.topk((u @ corpus[n_dup:].T)[0], n_dup + 1).indices[1:]
+    dup = corpus.clone()
+    dup[:n_dup] = corpus[best]
+    vals, idx = tt.retrieval_step(cfg, params, ub, um, dup, k=TT_TOPK)
+    scores = u @ dup.T
+    sv, si = torch.sort(scores, dim=-1, descending=True, stable=True)
+    ties = int((sv[0, :TT_TOPK] == sv[0, 1:TT_TOPK + 1]).sum())
+    straddle = bool(sv[0, TT_TOPK - 1] == sv[0, TT_TOPK])
+    topk_equal = torch.equal(torch.topk(scores, TT_TOPK).indices, si[:, :TT_TOPK])
+    assert torch.equal(idx, si[:, :TT_TOPK]) and torch.equal(vals, sv[:, :TT_TOPK]), \
+        "retrieval_step's top-100 is not the stable sort's on tied scores"
+    assert ties > 0 and straddle, f"the repeated rows gave no tie at rank 100 ({ties} ties)"
+    topk_ms = {
+        "top_k": cuda_ms(lambda: tt.top_k(scores, TT_TOPK)),
+        "torch.topk": cuda_ms(lambda: torch.topk(scores, TT_TOPK)),
+        "stable_sort": cuda_ms(lambda: torch.sort(scores, dim=-1, descending=True, stable=True)),
+    }
+    report["top_k"] = dict(ties_in_top=ties, straddles_rank_k=straddle,
+                           torch_topk_ids_equal=topk_equal, **topk_ms)
+    print(f"recsys top_k ties: {n_dup} repeated rows, {ties} equal neighbours in the top "
+          f"{TT_TOPK} (one pair across rank {TT_TOPK}: {straddle}): ids equal a stable "
+          f"sort's; torch.topk's ids equal: {topk_equal}", flush=True)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
+    print(f"recsys top_k over {scores.shape[1]:,} items, k={TT_TOPK}: "
+          + ", ".join(f"{n} {us(v)} us" for n, v in topk_ms.items()), flush=True)
+    del dup, scores, sv, si
+
     # latency per shape, CUDA events around the entry point, warm
     for n, reps in (("retrieval_cand", 20), ("serve_p99", 20), ("serve_bulk", 5)):
         report[n]["ms"] = cuda_ms(lambda: serve(n, corpus), iters=reps, warmup=1)
@@ -1430,11 +1481,40 @@ def run_twotower(seed, dev):
     B = ids.shape[0]
     nbytes = rows * D * table.element_size() + B * K * (4 + 1) + B * D * table.element_size()
     bms, by = bound_ms(nbytes, int(live) * D)
-    us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
     print(f"kernel embedding_bag largest bags={B} K={K} D={D} unmasked={int(live)} "
           f"distinct_rows={rows} {fmt_us(t)} F.embedding_bag_us={us(lib_ms)} (device "
           f"{us(lib_dev)}) bound_us={bms * 1e3:.4f} ({by}, {nbytes} B; every lookup's row: "
           f"{int(live) * D * 4} B)", flush=True)
+    # what bounds it: the same masks over three id sets, each beside its
+    # bound (distinct rows once): the path's Zipf ids, the same ids folded
+    # into 16,384 rows (16 MiB, L2-resident), uniform ids over the table
+    # (every lookup from DRAM). If Zipf ~ uniform the hot rows are not
+    # reused from L2; folded against Zipf separates latency from DRAM rate;
+    # all three alike point at neither. Then the Zipf ids in sum mode (the
+    # path's mode is mean), which leaves out the epilogue's division
+    ub_ids = {"zipf": ids, "folded_16384": ids % 16_384,
+              "uniform": torch.randint(0, table.shape[0], ids.shape, generator=gen,
+                                       device=dev, dtype=torch.int32)}
+    runs = [(n, ii, kw["mode"]) for n, ii in ub_ids.items()] + [("zipf", ids, "sum")]
+    for name, ii, mode in runs:
+        dev_ms = device_ms(lambda: eb_ops.embedding_bag(table, ii, mask, mode=mode))
+        n_rows = int(torch.unique(ii[mask]).numel())
+        nb = n_rows * D * table.element_size() + B * K * (4 + 1) + B * D * table.element_size()
+        b_ms, _ = bound_ms(nb, int(live) * D)
+        report.setdefault("bag_ids", {})[f"{name}_{mode}"] = dict(
+            device_ms=dev_ms, bound_ms=b_ms, distinct_rows=n_rows)
+        print(f"kernel embedding_bag ids={name} mode={mode} bags={B} K={K} D={D} "
+              f"device_us={us(dev_ms)} bound_us={b_ms * 1e3:.4f} (distinct_rows={n_rows}, "
+              f"{nb} B)", flush=True)
+    del ub_ids
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    occ = _build.load("embedding_bag").embedding_bag_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    for is_bf16, dt in ((0, "fp32"), (1, "bf16")):
+        _build.check("embedding_bag occupancy", occ(is_bf16, ctypes.byref(regs),
+                                                      ctypes.byref(blocks)))
+        print(f"kernel embedding_bag occupancy {dt}: {regs.value} registers a thread, "
+              f"{blocks.value} blocks of 256 threads an SM", flush=True)
     row = dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
                replaces="src/repro/kernels/embedding_bag/kernel.py:34", launches=launches,
                max_abs_err=err, **t, bound_ms=bms, bound_by=by, library_ms=lib_ms,
@@ -1763,8 +1843,7 @@ def run_graph(seed, dev):
 def run_gnn_phase(seed, dev):
     """Phase 8: GNN serving, cached neighbour sampling + the PNA forward at
     the minibatch_lg shape, segment_spmm counted around the forwards only;
-    its kernel row. It runs last: its sampling window traces ~390,000
-    device events, after which the profiler drops device events."""
+    its kernel row."""
     from repro_torch.configs.gnn_shapes import GNN_SHAPES
 
     t0 = time.perf_counter()
@@ -1840,7 +1919,7 @@ def main():
     phase_memory("phase 10")
     free_device()
 
-    # 8. GNN serving, last (see run_gnn_phase)
+    # 8. GNN serving, last
     rows.append(run_gnn_phase(args.seed, dev))
 
     print(f"total: {time.perf_counter() - t_all:.1f}s", flush=True)

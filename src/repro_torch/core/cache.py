@@ -164,14 +164,16 @@ def cache_lookup_lean(spec: CacheSpec, cache: CacheState, tpl_id, root, params):
     would cost a host read per lookup, and the counted prefix, the hit mask
     and the version are the same either way.
 
-    Each chunk's probe runs through the ``cache_probe`` kernel, with
-    (found, slot) equal to ``_probe``'s. The kernel matches on (valid, tpl,
-    root, fp), so the chunk is folded into the tpl channel
-    (``tpl * max_chunks + chunk``, with ``tpl_eff`` the cache side of the
-    fold); never-used slots carry tpl = -1, whose folded value is negative
-    and matches no real key. The slot hash and the fingerprint go to the
-    kernel as int32 bits: it needs only the hash's low bits and an equality
-    test on the fingerprint.
+    All ``max_chunks`` chunk keys of every row go through one launch of
+    the ``cache_probe`` kernel, as ``B * max_chunks`` keys in row-major
+    (row, chunk) order; each (found, slot) equals ``_probe``'s for that
+    chunk, since the probes are independent reads of one cache. The kernel
+    matches on (valid, tpl, root, fp), so the chunk is folded into the tpl
+    channel (``tpl * max_chunks + chunk``, with ``tpl_eff`` the cache side
+    of the fold); never-used slots carry tpl = -1, whose folded value is
+    negative and matches no real key. The slot hash and the fingerprint go
+    to the kernel as int32 bits: it needs only the hash's low bits and an
+    equality test on the fingerprint.
     """
     L, C = spec.max_leaves, spec.max_chunks
     tpl_eff = (cache.tpl * C + cache.chunk).contiguous()
@@ -180,29 +182,23 @@ def cache_lookup_lean(spec: CacheSpec, cache: CacheState, tpl_id, root, params):
     tpl = torch.broadcast_to(torch.as_tensor(tpl_id, dtype=torch.int32, device=root.device),
                              shape)
     h, fp = _chunk_hashes(tpl, root, params, C)
+    chunks = torch.arange(C, dtype=torch.int32, device=root.device)
     flat = lambda t: t.reshape(-1).contiguous()
-
-    def probe(c):
-        found, slot = cache_probe(
-            tpl_eff, cache.root, cache.fp, cache.valid, flat(tpl * C + c), flat(root),
-            flat(h[..., c]), flat(fp[..., c]), probes=spec.probes,
-        )
-        return found.reshape(shape), slot.reshape(shape)
-
-    found0, slot0 = probe(0)
-    s0 = slot0.clamp(min=0).long()
-    tlen = torch.where(found0, cache.total_len[s0], 0)
+    found, slot = cache_probe(
+        tpl_eff, cache.root, cache.fp, cache.valid, flat(tpl[..., None] * C + chunks),
+        flat(root[..., None].expand(*shape, C)), flat(h), flat(fp), probes=spec.probes,
+    )
+    found, slot = found.reshape(*shape, C), slot.reshape(*shape, C).clamp(min=0).long()
+    s0 = slot[..., 0]
+    tlen = torch.where(found[..., 0], cache.total_len[s0], 0)
     need = ((tlen + L - 1) // L).clamp(1, C)
-    ok = found0
-    parts = [cache.vals[s0]]
+    ok = found[..., 0]
     for c in range(1, C):
-        f, s = probe(c)
-        sc = s.clamp(min=0).long()
-        parts.append(cache.vals[sc])
-        ok = ok & ((need <= c) | f)
+        sc = slot[..., c]
+        ok = ok & ((need <= c) | found[..., c])
         # chain consistency: continuation chunks carry the same total_len
         ok = ok & ((need <= c) | (cache.total_len[sc] == tlen))
-    leaves_raw = torch.cat(parts, dim=-1)
+    leaves_raw = cache.vals[slot].reshape(*shape, C * L)
     version = torch.where(ok, cache.version[s0], -1)
     count = torch.where(ok, tlen, 0)
     return ok, leaves_raw, count, version

@@ -9,11 +9,17 @@ served on hits without touching the storage CSR, populated asynchronously
 on misses, and write-around-invalidated when gRW-Txs mutate the graph,
 giving a *consistent* sampling cache over a dynamic graph.
 
-As in the reference, each ``neighbors(v)`` call is one batch-1 cache
-lookup (the ``cache_probe`` kernel on the card); a miss reads the store's
-list with ``gather_out`` and queues a CP record. The sampled batch is built
-on the host with the reference's numpy draws, so both packages sample the
-same batch from the same seed, and is returned on the sampler's device.
+Where the reference makes one batch-1 cache lookup per frontier vertex,
+``sample`` here looks up a whole fanout layer's frontier at once
+(``neighbors_batch``): one ``cache_lookup`` over the frontier, duplicates
+and order kept (one ``cache_probe`` launch on the card), one ``gather_out``
+over the layer's misses, and one host copy of each result. Neither cache
+nor store changes inside one ``sample``, so every row's answer is the one
+its batch-1 lookup would give; hits, misses and the CP records of the
+misses are counted and queued per occurrence in frontier order, as the
+reference's loop does. The sampled batch is built on the host with the
+reference's numpy draws, so both packages sample the same batch from the
+same seed, and is returned on the sampler's device.
 """
 
 from __future__ import annotations
@@ -62,7 +68,12 @@ class FanoutSampler:
         self.rng = np.random.default_rng(seed)
 
     def neighbors(self, v: int) -> np.ndarray:
-        return self.g.indices[self.g.indptr[v] : self.g.indptr[v + 1]]
+        return self.neighbors_batch([v])[0]
+
+    def neighbors_batch(self, vs) -> list:
+        """The neighbour list of each vertex of ``vs``, in order."""
+        ip, ix = self.g.indptr, self.g.indices
+        return [ix[ip[v] : ip[v + 1]] for v in vs]
 
     def sample(self, seeds: np.ndarray) -> GraphBatch:
         """Returns a padded subgraph: nodes = seeds + sampled frontier(s);
@@ -75,8 +86,7 @@ class FanoutSampler:
         cap_edges = self._cap_edges(len(seeds))
         for f in self.fanouts:
             nxt = []
-            for v in frontier:
-                nb = self.neighbors(v)
+            for v, nb in zip(frontier, self.neighbors_batch(frontier)):
                 if len(nb) == 0:
                     continue
                 take = self.rng.choice(nb, size=min(f, len(nb)), replace=False)
@@ -150,26 +160,44 @@ class CachedNeighborSampler(FanoutSampler):
         self.rng = np.random.default_rng(seed)
         self.hits = 0
         self.misses = 0
-        self._params = np.full((1, PARAM_LEN), int(PROP_MISSING), np.int32)
-        self._key = tuple(
-            torch.as_tensor(a, device=self.device)
-            for a in (np.full(1, tpl_idx, np.int32), self._params)
-        )
+        self._params = np.full(PARAM_LEN, int(PROP_MISSING), np.int32)
 
     # the CSRGraph-facing bits are replaced by cache-backed lookups
-    def neighbors(self, v: int) -> np.ndarray:
-        tpl, params = self._key
-        root = torch.full((1,), v, dtype=torch.int32, device=self.device)
-        hit, vals, lmask, _ = cache_lookup(self.espec.cache, self.cache, tpl, root, params)
-        if bool(hit[0]):
-            self.hits += 1
-            return vals[0][lmask[0]].cpu().numpy()
-        self.misses += 1
-        _, other, mask, _ = gather_out(self.espec.store, self.store, root, self.espec.max_deg)
-        self.pop.queue.push(
-            [MissRecord(self.tpl_idx, v, self._params[0], int(self.store.version))]
-        )
-        return np.unique(other[0][mask[0]].cpu().numpy())
+    def neighbors_batch(self, vs) -> list:
+        return self.lookup(vs)[0]
+
+    def lookup(self, vs):
+        """(the neighbour list of each vertex of ``vs``, the bool hit mask):
+        hits are the cached list in cache order, misses ``np.unique`` of the
+        store's list, each miss also queued for CP. Each occurrence counts
+        one hit or one miss."""
+        vs = np.asarray(vs, np.int32)
+        B, dev = len(vs), self.device
+        root = torch.as_tensor(vs, device=dev)
+        tpl = torch.full((B,), self.tpl_idx, dtype=torch.int32, device=dev)
+        params = torch.as_tensor(self._params, device=dev).expand(B, -1)
+        hit_t, vals, lmask, _ = cache_lookup(self.espec.cache, self.cache, tpl, root, params)
+        hit = hit_t.cpu().numpy()
+        miss = np.flatnonzero(~hit)
+        if len(miss):
+            _, other, mask, _ = gather_out(self.espec.store, self.store,
+                                           root[torch.as_tensor(miss, device=dev)],
+                                           self.espec.max_deg)
+            other, mask = other.cpu().numpy(), mask.cpu().numpy()
+            version = int(self.store.version)
+        vals, lmask = vals.cpu().numpy(), lmask.cpu().numpy()
+        out, recs = [], []
+        for i, v in enumerate(vs.tolist()):
+            if hit[i]:
+                out.append(vals[i][lmask[i]])
+            else:
+                j = len(recs)  # this row's place among the misses
+                out.append(np.unique(other[j][mask[j]]))
+                recs.append(MissRecord(self.tpl_idx, v, self._params, version))
+        self.hits += len(vs) - len(recs)
+        self.misses += len(recs)
+        self.pop.queue.push(recs)
+        return out, hit
 
     def populate(self):
         self.cache = self.pop.drain(self.store, self.store, self.cache, self.ttable)

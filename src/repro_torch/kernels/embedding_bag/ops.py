@@ -30,6 +30,21 @@ def embedding_bag(table, ids, mask, *, mode="sum"):
         return embedding_bag_ref(table, ids, mask, mode=mode)
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag: unsupported device {dev}")
+    check_args(table, ids, mask, mode)
+    (V, D), (B, K) = table.shape, ids.shape
+    if B == 0 or D == 0:
+        return torch.zeros((B, D), dtype=table.dtype, device=dev)
+    out = embedding_bag_cuda(table, ids, mask, mean=mode == "mean")
+    launches += 1
+    return out
+
+
+def check_args(table, ids, mask, mode):
+    """Raises ValueError on what the kernel does not take: another mode, a
+    table that is not a contiguous 2-d fp32 / bf16 tensor, ids or a mask
+    that are not contiguous int32 / bool [B, K] on the table's device, or a
+    size past the kernel's int32 arguments (V must be at least 1)."""
+    dev = table.device
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got {mode!r}")
     if table.dim() != 2 or table.dtype not in _DTYPES or not table.is_contiguous():
@@ -46,8 +61,3 @@ def embedding_bag(table, ids, mask, *, mode="sum"):
     if max(V, D, B, K) >= _INDEX_LIMIT or V == 0:
         raise ValueError(f"embedding_bag: V={V}, D={D}, B={B}, K={K} must each be in "
                          "[1, 2^31) (V) or [0, 2^31)")
-    if B == 0 or D == 0:
-        return torch.zeros((B, D), dtype=table.dtype, device=dev)
-    out = embedding_bag_cuda(table, ids, mask, mean=mode == "mean")
-    launches += 1
-    return out

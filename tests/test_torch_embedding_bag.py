@@ -112,3 +112,98 @@ def test_wrapper_refuses_other_devices_and_bad_modes():
     with pytest.raises(ValueError):
         embedding_bag_ref(torch.zeros((3, 2)), torch.zeros((4, 2), dtype=torch.int32),
                           torch.ones((4, 2), dtype=torch.bool), mode="max")
+
+
+def _good_args(V=6, D=8, B=5, K=3):
+    return (torch.zeros((V, D)), torch.zeros((B, K), dtype=torch.int32),
+            torch.ones((B, K), dtype=torch.bool))
+
+
+@pytest.mark.parametrize("bad", [
+    "mode", "table_dtype", "table_dim", "table_strided", "ids_dtype", "ids_strided",
+    "ids_dim", "mask_dtype", "mask_shape", "mask_strided", "empty_table", "ids_device",
+])
+def test_check_args_refuses_what_the_kernel_does_not_take(bad):
+    """The checks a CUDA call passes before its launch, run here on CPU
+    tensors: each malformed argument raises ValueError."""
+    table, ids, mask = _good_args()
+    mode = "sum"
+    if bad == "mode":
+        mode = "max"
+    elif bad == "table_dtype":
+        table = table.to(torch.float16)
+    elif bad == "table_dim":
+        table = table.reshape(-1)
+    elif bad == "table_strided":
+        table = torch.zeros((8, 6)).T
+    elif bad == "ids_dtype":
+        ids = ids.long()
+    elif bad == "ids_strided":
+        ids = torch.zeros((3, 5), dtype=torch.int32).T
+    elif bad == "ids_dim":
+        ids = ids.reshape(-1)
+    elif bad == "mask_dtype":
+        mask = mask.to(torch.uint8)
+    elif bad == "mask_shape":
+        mask = mask[:, :2]
+    elif bad == "mask_strided":
+        mask = torch.ones((3, 5), dtype=torch.bool).T
+    elif bad == "empty_table":
+        table = torch.zeros((0, 8))
+    elif bad == "ids_device":
+        ids = ids.to("meta")
+    with pytest.raises(ValueError):
+        ops.check_args(table, ids, mask, mode)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_args_accepts_the_kernels_inputs(dtype):
+    table, ids, mask = _good_args()
+    for mode in ("sum", "mean"):
+        ops.check_args(table.to(dtype), ids, mask, mode)
+    ops.check_args(table, torch.zeros((0, 3), dtype=torch.int32),
+                   torch.zeros((0, 3), dtype=torch.bool), "sum")
+
+
+@pytest.mark.parametrize("B,K,D", [(0, 4, 8), (5, 0, 8), (5, 4, 0)])
+def test_empty_shapes_on_the_cpu_path(B, K, D):
+    """No bags, empty bags and zero-width rows: the CPU path gives the
+    reference's [B, D] (zeros), and counts no launch."""
+    tj, tt, ids, mask = _inputs(2, 7, D, B, K, "float32")
+    before = ops.launches
+    for mode in ("sum", "mean"):
+        got = ops.embedding_bag(tt, torch.as_tensor(ids), torch.as_tensor(mask), mode=mode)
+        assert got.shape == (B, D) and got.dtype == torch.float32
+        _close(got, j_bag(tj, jnp.asarray(ids), jnp.asarray(mask), mode=mode), "float32")
+    assert ops.launches == before
+
+
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "sum"), (torch.bfloat16, "mean")])
+def test_kernel_binding_passes_the_c_arguments(monkeypatch, dtype, mode):
+    """``embedding_bag_cuda`` hands the C entry point the four pointers,
+    then V, B, K, D, the mean flag and the bf16 flag, then the stream, and
+    raises when the launch reports an error. The C call is a stand-in: no
+    kernel runs here."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.embedding_bag import kernel
+
+    seen, err = [], [0]
+
+    def fake_bind(name, symbol, n_pointers, n_ints):
+        assert (name, symbol, n_pointers, n_ints) == ("embedding_bag", "embedding_bag_launch",
+                                                      4, 6)
+        return lambda *a: seen.append(a) or err[0]
+
+    monkeypatch.setattr(_build, "bind", fake_bind)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 1234})())
+    table, ids, mask = _good_args(V=9, D=16, B=4, K=5)
+    table = table.to(dtype)
+    out = kernel.embedding_bag_cuda(table, ids, mask, mean=mode == "mean")
+    assert out.shape == (4, 16) and out.dtype == dtype
+    (a,) = seen
+    assert a == (table.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                 9, 4, 5, 16, int(mode == "mean"), int(dtype == torch.bfloat16), 1234)
+    err[0] = 9
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        kernel.embedding_bag_cuda(table, ids, mask, mean=False)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import repro.gnn.graph as JG
+import repro_torch.core.cache as T_cache
 from repro.gnn import GNNConfig as JConfig
 from repro.gnn.layers import pna_layer
 from repro.gnn.models import forward, init_params as j_init, loss_fn
@@ -275,3 +276,142 @@ def test_cached_sampler_loop_matches_reference(monkeypatch):
         assert tm["impacted_keys"] == jm["impacted_keys"], epoch
         assert_cache_same(tspec.cache, ts.cache, jspec.cache, js.cache, f"gRW {epoch}")
     assert ts.hits > 0, "later epochs should hit the neighbour-list cache"
+
+
+def _queue(pop):
+    """A populator's queued miss records, in order, with their attempts."""
+    return [(int(r.tpl_idx), int(r.root), tuple(np.asarray(r.params).tolist()),
+             int(r.read_version), a) for r, a in pop.queue.q]
+
+
+def test_batched_sampler_mixed_layer_matches_reference(monkeypatch):
+    """One sampling whose frontiers repeat vertices and mix hits with misses
+    in one layer (a CP drain of only part of the queue before it): the same
+    batch, hits and misses as the reference's batch-1 loop, and the same
+    miss records queued in the same order, before ``populate()``."""
+    import repro.core.cache as j_cache
+    import repro.graphstore.store as j_store
+
+    monkeypatch.setattr(j_cache, "cache_lookup", jax.jit(j_cache.cache_lookup, static_argnums=0))
+    monkeypatch.setattr(j_store, "gather_out", jax.jit(j_store.gather_out, static_argnums=(0, 3)))
+    _, _, js = _example_world("jax")
+    _, _, ts = _example_world("torch")
+    layers = []
+    inner = ts.lookup
+
+    def logged(vs):
+        out, hit = inner(vs)
+        layers.append((np.asarray(vs).tolist(), hit.tolist()))
+        return out, hit
+
+    ts.lookup = logged
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(N, D_FEAT)).astype(np.float32)
+    labels = rng.integers(0, 4, N).astype(np.int32)
+    first = rng.choice(N, size=12, replace=False)
+    for s in (js, ts):
+        s.sample_store(first, feats, labels)
+        s.cache = s.pop.drain(s.store, s.store, s.cache, s.ttable, 20)
+    assert _queue(ts.pop) == _queue(js.pop)
+    seeds = np.concatenate([first[:6], first[:3], rng.choice(N, size=6, replace=False)])
+    layers.clear()
+    jg, tg = js.sample_store(seeds, feats, labels), ts.sample_store(seeds, feats, labels)
+    for f in ("node_feat", "edge_src", "edge_dst", "node_mask", "edge_mask", "labels"):
+        np.testing.assert_array_equal(getattr(tg, f).numpy(), np.asarray(getattr(jg, f)),
+                                      err_msg=f)
+    assert (ts.hits, ts.misses) == (js.hits, js.misses)
+    assert _queue(ts.pop) == _queue(js.pop)
+    assert ts.pop.queue._seen_inflight == js.pop.queue._seen_inflight
+    assert len(layers) == len(ts.fanouts)
+    assert any(any(hit) and not all(hit) and len(set(vs)) < len(vs) for vs, hit in layers), \
+        "no layer repeated a vertex and mixed hits with misses"
+
+
+def test_sampler_looks_up_once_per_layer(monkeypatch):
+    """Each ``sample_store`` makes one ``cache_lookup`` (one probe launch on
+    the card) per fanout layer over the whole frontier, and at most one
+    ``gather_out`` per layer over its misses."""
+    import repro_torch.core.cache as t_cache
+    import repro_torch.gnn.sampler as t_sampler
+
+    _, _, ts = _example_world("torch")
+    counts = {"cache_lookup": 0, "gather_out": 0, "cache_probe": 0}
+
+    def counting(mod, name):
+        inner = getattr(mod, name)
+
+        def f(*a, **kw):
+            counts[name] += 1
+            return inner(*a, **kw)
+
+        monkeypatch.setattr(mod, name, f)
+
+    counting(t_sampler, "cache_lookup")
+    counting(t_sampler, "gather_out")
+    counting(t_cache, "cache_probe")
+    rng = np.random.default_rng(4)
+    feats = rng.normal(size=(N, D_FEAT)).astype(np.float32)
+    labels = rng.integers(0, 4, N).astype(np.int32)
+    L = len(ts.fanouts)
+    for epoch in range(3):
+        counts.update(dict.fromkeys(counts, 0))
+        ts.sample_store(rng.choice(N, size=16, replace=False), feats, labels)
+        assert counts["cache_lookup"] == counts["cache_probe"] == L, (epoch, counts)
+        assert counts["gather_out"] <= L, (epoch, counts)
+        ts.populate()
+    assert ts.hits > 0 and ts.misses > 0
+
+
+def _lean_per_chunk(spec, cache, tpl_id, root, params):
+    """``cache_lookup_lean`` with one ``cache_probe`` call per chunk: the
+    loop the folded launch replaced, kept as its reference."""
+    from repro_torch.kernels.cache_probe.ref import cache_probe_ref
+
+    L, C = spec.max_leaves, spec.max_chunks
+    tpl_eff = cache.tpl * C + cache.chunk
+    tpl = torch.full_like(root, tpl_id)
+    h, fp = T_cache._chunk_hashes(tpl, root, params, C)
+
+    def probe(c):
+        return cache_probe_ref(tpl_eff, cache.root, cache.fp, cache.valid, tpl * C + c, root,
+                               h[:, c].contiguous(), fp[:, c].contiguous(), probes=spec.probes)
+
+    found0, slot0 = probe(0)
+    s0 = slot0.clamp(min=0).long()
+    tlen = torch.where(found0, cache.total_len[s0], 0)
+    need = ((tlen + L - 1) // L).clamp(1, C)
+    ok, parts = found0, [cache.vals[s0]]
+    for c in range(1, C):
+        f, s = probe(c)
+        sc = s.clamp(min=0).long()
+        parts.append(cache.vals[sc])
+        ok = ok & ((need <= c) | f) & ((need <= c) | (cache.total_len[sc] == tlen))
+    version = torch.where(ok, cache.version[s0], -1)
+    return ok, torch.cat(parts, -1), torch.where(ok, tlen, 0), version
+
+
+@pytest.mark.parametrize("cap,probes,L,C", [(64, 8, 4, 3), (16, 4, 4, 2), (1024, 8, 8, 2)])
+def test_folded_probe_matches_per_chunk_probe(cap, probes, L, C):
+    """``cache_lookup_lean``'s one launch over every chunk key gives the
+    per-chunk probes' (hit, leaves_raw, count, version) bit for bit, on a
+    cache whose entries spill into continuation chunks (and, in the tiny
+    table, lose some of them to evictions)."""
+    from test_torch_cache import _batch
+
+    rng = np.random.default_rng(cap + C)
+    spec = T_cache.CacheSpec(capacity=cap, probes=probes, max_leaves=L, max_chunks=C)
+    cache = T_cache.empty_cache(spec, device="cpu")
+    for _ in range(2):
+        cache = T_cache.cache_insert(spec, cache, *map(torch.as_tensor, _batch(rng, 40, L, C)))
+    assert bool((cache.valid & (cache.chunk > 0)).any()), "no continuation chunk cached"
+    tpl, root, params = _batch(rng, 40, L, C)[:3]
+    roots = torch.as_tensor(np.concatenate([root, np.arange(8, dtype=np.int32)]))
+    ps = torch.as_tensor(np.concatenate([params, params[:8]]))
+    chained = 0
+    for t in range(3):
+        got = T_cache.cache_lookup_lean(spec, cache, t, roots, ps)
+        want = _lean_per_chunk(spec, cache, t, roots, ps)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), t
+        chained += int((got[2] > L).sum())
+    assert chained > 0, "no hit read a continuation chunk"

@@ -118,3 +118,58 @@ def test_params_round_trip_through_numpy():
     assert back.keys() == jp.keys()
     for k, v in jp.items():
         np.testing.assert_array_equal(back[k], np.asarray(v))
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_top_k_breaks_ties_as_lax_top_k(k):
+    """Exact ties planted among the top scores, in every row across rank k
+    and in one row filling it: ``top_k`` gives ``jax.lax.top_k``'s ids and
+    values exactly (the lower index first among equal scores), which
+    ``torch.topk`` does not promise."""
+    rng = np.random.default_rng(k)
+    s = rng.normal(size=(4, 5000)).astype(np.float32)
+    for r in range(3):
+        kth = np.sort(s[r])[::-1][k - 1]
+        s[r, rng.choice(5000, size=60 * (r + 1), replace=False)] = kth
+    s[3, rng.choice(5000, size=2 * k, replace=False)] = s[3].max() + 1
+    vals, ids = TT.top_k(torch.as_tensor(s), k)
+    j_vals, j_ids = jax.lax.top_k(jnp.asarray(s), k)
+    assert ids.dtype == torch.int64
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(j_vals))
+
+
+def test_top_k_orders_signed_zeros_and_nans_as_lax_top_k():
+    s = np.array([[0.0, -0.0, 1.0, -0.0, 0.0, np.nan, -1.0, np.inf, -np.nan, -np.inf]],
+                 np.float32)
+    vals, ids = TT.top_k(torch.as_tensor(s), s.shape[1])
+    j_vals, j_ids = jax.lax.top_k(jnp.asarray(s), s.shape[1])
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+    np.testing.assert_array_equal(np.signbit(vals.numpy()), np.signbit(np.asarray(j_vals)))
+    with pytest.raises(ValueError):
+        TT.top_k(torch.as_tensor(s), s.shape[1] + 1)
+
+
+def test_retrieval_step_ids_on_repeated_corpus_rows():
+    """A corpus of 20 distinct rows, each repeated, whose scores for the
+    users lie 0.01 apart: both packages score repeats exactly equal, so
+    the top-k ids must be equal in full, ties and rank k included."""
+    jp, tp = _params()
+    rng = np.random.default_rng(5)
+    ub, um = _bags(rng, 2, CFG.user_fields, CFG.bag_size, CFG.user_vocab)
+    u = np.asarray(JT.user_tower(j_cfgs.SMOKE, jp, jnp.asarray(ub), jnp.asarray(um)))[0]
+    # distinct rows: score c_i along u for user 0, plus noise orthogonal to u
+    noise = rng.normal(size=(20, u.shape[0]))
+    noise -= np.outer(noise @ u, u) / (u @ u)
+    base = (np.linspace(-0.1, 0.1, 20)[:, None] * u / (u @ u) + 0.01 * noise).astype(np.float32)
+    corpus = base[rng.integers(0, 20, 64)]
+    k = 8
+    s = np.sort(u @ corpus.T)[::-1]
+    assert s[k - 1] == s[k], "no tie across rank k"
+    vals, idx = TT.retrieval_step(CFG, tp, torch.as_tensor(ub[:1]), torch.as_tensor(um[:1]),
+                                  torch.as_tensor(corpus), k=k)
+    j_vals, j_idx = JT.retrieval_step(j_cfgs.SMOKE, jp, jnp.asarray(ub[:1]),
+                                      jnp.asarray(um[:1]), jnp.asarray(corpus), k=k)
+    _close(vals, j_vals)
+    j_vals, j_idx = np.asarray(j_vals), np.asarray(j_idx)
+    np.testing.assert_array_equal(idx.numpy(), j_idx)
