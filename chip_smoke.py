@@ -15,7 +15,8 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    before and read just after; ``cache_probe`` must have launched;
 5. each kernel against its plain PyTorch version on the main path's inputs
    and shapes, ``torch.equal`` on every output, with kernel / plain / bound
-   times;
+   times (``cache_probe`` also beside one fill kernel's time, and on
+   windows that wrap at C);
 6. consistency of the final state: cached results against a numpy one-hop
    reference, and against the engine with the cache off;
 7. the partitioned tier: the final store split over 4 owner shards in one
@@ -28,7 +29,12 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    partitioned calls only); then ``cache_probe`` and ``block_gather`` against
    their plain versions on every input the partitioned path gave them
    (``block_gather``'s recent-region lanes must have scanned edges in both
-   orientations), with times for the largest;
+   orientations), with times for the largest; then what binds
+   ``block_gather``: the largest call as made, with ``rmask`` all false,
+   with ``rvalid`` / ``cvalid`` all false and with no predicates, each on
+   the kernel and on the per-lane design it replaced, beside its bound and
+   ``zero_`` over the same outputs; then synthetic shapes the path does
+   not reach;
 8. GNN serving at the ``minibatch_lg`` shape: a graph sized like Reddit
    (232,965 vertices, ~7.4M edges, 602 fp32 features, 41 classes) in the
    store, 1,024 seeds at fanouts (15, 10) through ``CachedNeighborSampler``
@@ -511,6 +517,56 @@ def fmt_us(t) -> str:
             f"plain_us={us(t['plain_ms'])} (device {us(t['plain_device_ms'])})")
 
 
+def check_probe_calls(calls, where):
+    """Every ``cache_probe`` call a path made (captured by ``CallCapture``),
+    held ``torch.equal`` to the plain version on the same inputs."""
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.cache_probe.ref import cache_probe_ref
+
+    assert calls, f"{where} made no cache_probe call"
+    for a, kw in calls:
+        got, want = cp_ops.cache_probe(*a, **kw), cache_probe_ref(*a, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"cache_probe disagrees with its plain version at {a[4].shape[0]} keys ({where})"
+
+
+def one_fill_us(like) -> str:
+    """Device µs of one fill of a tensor like ``cache_probe``'s slot output:
+    the least a kernel launch costs on the device, beside which its time
+    is read."""
+    fill = torch.empty_like(like)
+    ms = device_ms(lambda: fill.fill_(-1))
+    return f"one_fill_device_us={'not measured' if ms is None else f'{ms * 1e3:.3f}'}"
+
+
+def check_probe_wrap(a, probes):
+    """``cache_probe`` on windows that wrap at C, on a copy of the cache's
+    slots and the path's keys: every key's window starts in the last 8
+    slots. Key 0 is planted at slot C-1 (probe 0) and at slot 0 (probe 1,
+    the lower index): the first match in probe order, C-1, must win. Key 1
+    matches past the wrap alone (slot 2, probe 4); key 2 nowhere."""
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.cache_probe.ref import cache_probe_ref
+
+    c_tpl, c_root, c_fp, c_valid = (t.clone() for t in a[:4])
+    tpl, root, h, fp = (t.clone() for t in a[4:])
+    C, B = c_tpl.shape[0], tpl.shape[0]
+    h.copy_(C - 1 - torch.arange(B, device=h.device, dtype=torch.int32) % 8)
+    tpl[:3], root[:3], fp[:3] = 1, torch.tensor([-10, -11, -12]), 77  # no real root is negative
+    h[:3] = torch.tensor([C - 1, C - 2, C - 3])
+    c_valid[[C - 2, 1]] = False
+    for i, slots in ((0, [C - 1, 0]), (1, [2])):
+        c_tpl[slots], c_root[slots], c_fp[slots], c_valid[slots] = tpl[i], root[i], fp[i], True
+    args_ = (c_tpl, c_root, c_fp, c_valid, tpl, root, h, fp)
+    got, want = cp_ops.cache_probe(*args_, probes=probes), cache_probe_ref(*args_, probes=probes)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        "cache_probe disagrees with its plain version on windows that wrap"
+    assert got[1][:3].tolist() == [C - 1, 2, -1], f"wrapped windows: {got[1][:3].tolist()}"
+    print(f"kernel cache_probe wrap keys={B} cap={C} hits={int(got[0].sum())} (equal; first match "
+          f"in probe order: slots {got[1][:3].tolist()})", flush=True)
+
+
 def check_kernels(espec, state, plans, ranges, launches, dev, seed):
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.cache_probe.ref import cache_probe_ref
@@ -542,12 +598,14 @@ def check_kernels(espec, state, plans, ranges, launches, dev, seed):
         bms, by = bound_ms(nbytes, ops)
         print(f"kernel cache_probe keys={n_keys} cap={espec.cache.capacity} probes={P} "
               f"hits={int(got[0].sum())} {fmt_us(t)} bound_us={bms * 1e3:.4f} "
-              f"({by}, {nbytes} B)", flush=True)
+              f"({by}, {nbytes} B) {one_fill_us(want[1])}",
+              flush=True)
         row = dict(name="cache_probe", route="cuda", source="src/repro_torch/csrc/cache_probe.cu",
                    replaces="src/repro/kernels/cache_probe/kernel.py:44",
                    launches=launches["cache_probe"], max_abs_err=err, **t,
                    bound_ms=bms, bound_by=by, library_ms=None, shape=f"keys={n_keys}")
     rows.append(row)  # the JSON row carries the larger (hop-2) shape
+    check_probe_wrap(a, P)
 
     # onehop_gather over the store's CSR: 512 watch-list roots + -1 padding
     s = store
@@ -782,6 +840,11 @@ def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, engines, de
     return report, capture
 
 
+BG_ARGS = ("indptr", "key", "other", "label", "alive", "props", "vlabel", "valive", "vprops",
+           "csr_len", "blk_len", "roots", "lroot", "rvalid", "cvalid", "rmask", "r_ok",
+           "pe_bound", "pl_bound")  # block_gather's positional arguments
+
+
 def block_gather_bound(args_, kw, out):
     """Least bytes: each output once, each per-row input once, and the block
     and vertex records the run's data needs, each once: the leaf id of every
@@ -829,11 +892,7 @@ def check_partitioned_kernels(capture, launches, max_deg):
     from repro_torch.kernels.cache_probe.ref import cache_probe_ref
 
     calls = capture.calls["cache_probe"]
-    assert calls, "the partitioned path made no cache_probe call"
-    for a, kw in calls:
-        got, want = cp_ops.cache_probe(*a, **kw), cache_probe_ref(*a, **kw)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
-            f"cache_probe disagrees with its plain version at {a[4].shape[0]} keys"
+    check_probe_calls(calls, "the partitioned path")
     a, kw = max(calls, key=lambda c: c[0][4].shape[0])
     hit, slot = cache_probe_ref(*a, **kw)
     t = timings(lambda: cp_ops.cache_probe(*a, **kw), lambda: cache_probe_ref(*a, **kw))
@@ -841,7 +900,8 @@ def check_partitioned_kernels(capture, launches, max_deg):
     bms, by = bound_ms(nbytes, ops)
     print(f"kernel cache_probe partitioned calls={len(calls)} (all equal) largest keys="
           f"{a[4].shape[0]} cap={a[0].shape[0]} hits={int(hit.sum())} {fmt_us(t)} "
-          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B) {one_fill_us(slot)}",
+          flush=True)
 
     largest, recent, n_calls, err = {}, {False: 0, True: 0}, {False: 0, True: 0}, 0
     for a, kw in capture.calls["block_gather"]:
@@ -880,7 +940,105 @@ def check_partitioned_kernels(capture, launches, max_deg):
             replaces="src/repro/kernels/block_gather/kernel.py:106", launches=launches,
             max_abs_err=err, **t, bound_ms=bms, bound_by=by, library_ms=None,
             shape=f"{side}:rows={B},lanes={W}")))
-    return max(rows, key=lambda r: r[0])[1]
+    row = max(rows, key=lambda r: r[0])[1]
+    row["diagnosis"] = diagnose_block_gather(*max(largest.values(), key=lambda c: c[0][11].shape[0]))
+    check_block_gather_shapes(a[0].device)
+    return row
+
+
+def synthetic_block(rng, B, max_deg, R, EB, csr_len, blk_len, dev, v_loc=4096, v_cap=1 << 14):
+    """One orientation's operands, made from ``rng``: CSR windows of 0-12
+    edges and some over max_deg, a recent region [csr_len, blk_len) whose
+    keys hit the batch's roots, lroot values that wrap, clamp and overflow,
+    literal and wildcard predicates over random properties."""
+    deg = rng.integers(0, 13, v_loc)
+    deg[rng.random(v_loc) < 0.02] = max_deg + 3
+    indptr = np.minimum(np.concatenate([[0], np.cumsum(deg)]), csr_len).astype(np.int32)
+    roots = rng.integers(0, v_cap, B).astype(np.int32)
+    key = rng.integers(0, v_cap, EB).astype(np.int32)
+    lo, hi = max(csr_len, 0), min(blk_len, EB)
+    key[lo:hi] = roots[rng.integers(0, B, max(hi - lo, 0))]
+    lroot = rng.integers(0, v_loc, B).astype(np.int32)
+    lroot[:4] = [-1, -(v_loc + 3), v_loc, 2**31 - 1][:B]
+    arrs = [indptr, key, rng.integers(-2, v_cap + 3, EB).astype(np.int32),
+            rng.integers(0, 2, EB).astype(np.int32), rng.random(EB) < 0.9,
+            rng.integers(0, 4, (EB, 2)).astype(np.int32), rng.integers(0, 2, v_cap).astype(np.int32),
+            rng.random(v_cap) < 0.9, rng.integers(0, 4, (v_cap, 3)).astype(np.int32),
+            np.array(csr_len, np.int32), np.array(blk_len, np.int32), roots, lroot,
+            rng.random(B) < 0.9, rng.random(B) < 0.8, rng.random(B) < 0.9, rng.random(B) < 0.8,
+            rng.integers(0, 4, (B, 3)).astype(np.int32), rng.integers(0, 4, (B, 3)).astype(np.int32)]
+    kw = dict(max_deg=max_deg, recent_cap=R, e_blk_cap=EB, edge_label=0,
+              pe=(-1, ((0, 0, 3, 2, False),)), pl=(1, ((0, 1, 0, 0, True),)))
+    return [torch.as_tensor(x).to(dev) for x in arrs], kw
+
+
+def check_block_gather_shapes(dev):
+    """``block_gather`` on shapes the path does not give it, each held
+    equal to the plain version: W off the 4-lane chunk (the lane-by-lane
+    stores), ``max_deg`` off it (a chunk straddles the regions), a clamped
+    window (``csr_len > EB - R``), a region shorter than the window, B = 1
+    and B off the 16-row tile, a window that fits 48 KB of shared memory
+    only without the kernel's static arrays (R = 5,820), and one wider than
+    48 KB."""
+    from repro_torch.kernels.block_gather.kernel import block_gather_cuda
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+
+    rng = np.random.default_rng(17)
+    cases = [(1000, 60, 1001, 1 << 20, 500_000, 500_900), (333, 62, 1026, 1 << 20, 400_000, 401_100),
+             (17, 64, 1024, 1 << 16, (1 << 16) - 300, 1 << 16), (1, 20, 40, 4096, 2000, 2030),
+             (4099, 64, 1024, 1 << 20, 300_000, 300_500), (40, 16, 8192, 1 << 20, 200_000, 205_000),
+             (50, 64, 5820, 1 << 20, 100_000, 104_000)]
+    scanned = 0
+    for B, max_deg, R, EB, cl, bl in cases:
+        x, kw = synthetic_block(rng, B, max_deg, R, EB, cl, bl, dev)
+        got, want = block_gather_cuda(x[:11], x[11:], **kw), block_gather_filter_ref(*x, **kw)
+        for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+            assert torch.equal(g, w), f"block_gather {name} disagrees at B={B} max_deg={max_deg} R={R}"
+        scanned += int(want[1].sum())
+    print(f"block_gather synthetic shapes: {len(cases)} equal (scanned lanes {scanned})", flush=True)
+
+
+def diagnose_block_gather(a, kw):
+    """What binds ``block_gather``: the path's largest call (a) as it was
+    made, (b) with ``rmask`` all false (no filter work: liveness and writes
+    alone), (c) with ``rvalid`` and ``cvalid`` all false (the leaf ids and
+    zero masks alone), (d) as made but with no edge label and empty edge and
+    leaf predicates (the executed rows' liveness without their filters).
+    Each input is held equal to the plain version on the kernel and on the
+    per-lane design it replaced (the yardstick), and both are timed on the
+    device beside the input's bound and beside ``zero_`` over the same five
+    outputs (the card's rate for writing those bytes)."""
+    from repro_torch.kernels.block_gather.kernel import LANE_LAUNCH, block_gather_cuda
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+
+    us = lambda ms: None if ms is None else ms * 1e3
+    no_preds = dict(kw, edge_label=-1, pe=(-1, ()), pl=(-1, ()))
+    variants = (("a", (), kw, "as made"), ("b", ("rmask",), kw, "rmask false"),
+                ("c", ("rvalid", "cvalid"), kw, "rvalid, cvalid false"),
+                ("d", (), no_preds, "no predicates"))
+    out = {}
+    for tag, zeroed, kwv, what in variants:
+        x = list(a)
+        for name in zeroed:
+            i = BG_ARGS.index(name)
+            x[i] = torch.zeros_like(x[i])
+        want = block_gather_filter_ref(*x, **kwv)
+        kernel = lambda: block_gather_cuda(x[:11], x[11:], **kwv)
+        lane = lambda: block_gather_cuda(x[:11], x[11:], symbol=LANE_LAUNCH, **kwv)
+        for fn in (kernel, lane):
+            got = fn()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                f"block_gather diagnosis ({tag}) disagrees with the plain version"
+        fill = [torch.empty_like(w) for w in want]
+        d = dict(device_us=us(device_ms(kernel)), lane_device_us=us(device_ms(lane)),
+                 zero_fill_us=us(device_ms(lambda: [f.zero_() for f in fill])),
+                 bound_us=bound_ms(*block_gather_bound(x, kwv, want))[0] * 1e3,
+                 executed_rows=int(x[BG_ARGS.index("rmask")].sum()), scanned=int(want[1].sum()))
+        print(f"block_gather diagnosis ({tag}) rows={want[0].shape[0]} {what}: "
+              + " ".join(f"{k}={'not measured' if v is None else round(v, 3)}" for k, v in d.items()),
+              flush=True)
+        out[tag] = d
+    return out
 
 
 # ------------------------------------------------------------ GNN serving
@@ -1151,7 +1309,8 @@ def check_gnn_kernels(capture, batches, probe_capture, launches, model):
     bms, by = bound_ms(nbytes, ops)
     print(f"kernel cache_probe gnn calls={len(probes)} (all equal) largest keys="
           f"{a[4].shape[0]} cap={a[0].shape[0]} hits={int(hit.sum())} {fmt_us(t)} "
-          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+          f"bound_us={bms * 1e3:.4f} ({by}, {nbytes} B) {one_fill_us(slot)}",
+          flush=True)
 
     # every CSR-form call of the forwards against the per-call plain version
     # over its batch's edges, which never sees the CSR
@@ -1778,6 +1937,7 @@ def phase_memory(tag):
 def run_graph(seed, dev):
     """Phases 3-7, the graph-cache paths; returns their kernel rows. Their
     worlds are locals, freed when it returns."""
+    import repro_torch.core.cache as cache_mod
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.block_gather import ops as bg_ops
     from repro_torch.kernels.onehop_gather import ops as og_ops
@@ -1809,10 +1969,14 @@ def run_graph(seed, dev):
           f"cache {tensor_bytes(cache) / 2**20:.1f} MiB ({espec.cache.capacity} slots); "
           f"built in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 4. traffic: the main path, with the kernel counts zeroed around it
+    # 4. traffic: the main path, with the kernel counts zeroed around it and
+    # every cache_probe call kept (the cache is never written in place, so
+    # each call's arguments stay as they were)
+    probes = CallCapture((cache_mod, "cache_probe"))
     cp_ops.launches = og_ops.launches = bg_ops.launches = ss_ops.launches = 0
-    state, report, engines = run_traffic(
-        seed, espec, (store, cache), ttable, plans, meta, ranges, includes, dev)
+    with probes:
+        state, report, engines = run_traffic(
+            seed, espec, (store, cache), ttable, plans, meta, ranges, includes, dev)
     launches = {"cache_probe": cp_ops.launches, "onehop_gather": og_ops.launches,
                 "block_gather": bg_ops.launches, "segment_spmm": ss_ops.launches}
     print(f"launches on the main path: {launches}", flush=True)
@@ -1827,8 +1991,13 @@ def run_graph(seed, dev):
     # 5. each kernel against its plain version at the main path's shapes
     rows = check_kernels(espec, state, plans, ranges, launches, dev, seed)
 
-    # 6. consistency of the final state
-    check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed)
+    # 6. consistency of the final state; then every cache_probe call of
+    # phases 4 and 6 against its plain version
+    with probes:
+        check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed)
+    check_probe_calls(probes.calls["cache_probe"], "phases 4 and 6")
+    print(f"kernel cache_probe phases 4 and 6: calls={len(probes.calls['cache_probe'])} "
+          f"(all equal)", flush=True)
 
     # 7. the partitioned tier on the final store, against the single host;
     # then block_gather against its plain version at the inputs it was given

@@ -13,6 +13,10 @@ from repro_torch.kernels import _build
 
 _N_POINTERS = 24  # 19 operands + 5 outputs
 _N_INTS = 9 + 2 * (2 + 5 * MAX_CONDS)
+LAUNCH = "block_gather_launch"
+# the per-lane design before it, launched only as the yardstick of
+# chip_smoke.py's diagnosis
+LANE_LAUNCH = "block_gather_lane_launch"
 
 
 def pred_ints(stat: tuple) -> list:
@@ -25,7 +29,8 @@ def pred_ints(stat: tuple) -> list:
     return out
 
 
-def block_gather_cuda(operands, rows, *, max_deg, recent_cap, e_blk_cap, edge_label, pe, pl):
+def block_gather_cuda(operands, rows, *, max_deg, recent_cap, e_blk_cap, edge_label, pe, pl,
+                      symbol=LAUNCH):
     """``operands``: the 11 block tensors; ``rows``: the 8 per-row tensors."""
     roots = rows[0]
     B, dev = roots.shape[0], roots.device
@@ -36,7 +41,7 @@ def block_gather_cuda(operands, rows, *, max_deg, recent_cap, e_blk_cap, edge_la
     indptr, vprops, props, valive = operands[0], operands[8], operands[5], operands[7]
     ints = [B, indptr.shape[0], e_blk_cap, valive.shape[0], props.shape[1], vprops.shape[1],
             max_deg, recent_cap, edge_label] + pred_ints(pe) + pred_ints(pl)
-    fn = _build.bind("block_gather", "block_gather_launch", _N_POINTERS, _N_INTS)
+    fn = _build.bind("block_gather", symbol, _N_POINTERS, _N_INTS)
     err = fn(*(t.data_ptr() for t in (*operands, *rows, leaf, scan, emask, qual, trunc)),
              *ints, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("block_gather", err)

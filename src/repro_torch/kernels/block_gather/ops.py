@@ -27,7 +27,6 @@ from repro_torch.kernels.block_gather.ref import block_gather_filter_ref, pred_s
 from repro_torch.utils import INT32_MAX, compact_masked, first_occurrence, take_along0
 
 launches = 0
-BLOCK_B = 128  # rows per block of the padded batch, the reference's default
 
 _OPERANDS = (("indptr", torch.int32, 1), ("key", torch.int32, 1), ("other", torch.int32, 1),
              ("label", torch.int32, 1), ("alive", torch.bool, 1), ("props", torch.int32, 2),
@@ -51,9 +50,8 @@ def block_gather(
     *, max_deg, recent_cap, e_blk_cap, edge_label, pe, pl,
 ):
     """One orientation's fused scan + filter (see ``ref`` for the operand
-    and output contract). On the card, rows are padded up to whole blocks
-    of ``BLOCK_B`` (invalid, fully masked) as the reference's wrapper pads
-    them, and the outputs cut back to B rows."""
+    and output contract). On the card the kernel's grid covers any B: no
+    row is padded."""
     global launches
     operands = (indptr, key, other, label, alive, props, vlabel, valive, vprops, csr_len, blk_len)
     rows = (roots, lroot, rvalid, cvalid, rmask, r_ok, pe_bound, pl_bound)
@@ -81,12 +79,9 @@ def block_gather(
         empty = lambda dt: torch.zeros((0, W), dtype=dt, device=dev)
         return (empty(torch.int32), empty(torch.bool), empty(torch.bool), empty(torch.bool),
                 torch.zeros(0, dtype=torch.bool, device=dev))
-    Bp = B if B <= BLOCK_B else -(-B // BLOCK_B) * BLOCK_B
-    if Bp != B:
-        rows = tuple(torch.cat([t, t.new_zeros((Bp - B,) + tuple(t.shape[1:]))]) for t in rows)
     out = block_gather_cuda(operands, rows, **statics)
     launches += 1
-    return tuple(t[:B] for t in out)
+    return out
 
 
 def first_occurrence_mask(vals, mask):

@@ -116,3 +116,115 @@ def test_wrappers_refuse_other_devices():
         t_gather_ops.onehop_gather(z, z, z, z, z, z, max_deg=2, edge_val=1, leaf_val=0)
     with pytest.raises(ValueError):
         t_probe_ops.cache_probe(z, z, z, z, z, z, z, z)
+
+
+GROUP = 8  # csrc/cache_probe.cu's kGroup: threads a key, one probe slot each
+
+
+def simulate_cache_probe(c_tpl, c_root, c_fp, c_valid, tpl, root, h, fp, *, probes):
+    """``cache_probe_kernel`` step by step: each key's group of GROUP threads
+    takes the key's four words from its first four threads, loads one probe
+    slot a thread a round (no short-circuit), ballots the matches, and takes
+    the lowest set bit, the first match in probe order."""
+    C, B = len(c_tpl), len(tpl)
+    hit, slot = np.zeros(B, bool), np.full(B, -7, np.int32)
+    for i in range(B):
+        words = [int(w[i]) for w in (tpl, root, h, fp)]  # threads 0-3, shuffled
+        t, r, base, f = words[0], words[1], words[2] & (C - 1), words[3]
+        first = -1
+        for p0 in range(0, probes, GROUP):
+            ballot = 0
+            for g in range(GROUP):
+                p = p0 + g
+                if p < probes:
+                    s = (base + p) & (C - 1)
+                    ok = (bool(c_valid[s]) & (int(c_tpl[s]) == t) & (int(c_root[s]) == r)
+                          & (int(c_fp[s]) == f))
+                    ballot |= int(ok) << g
+            if ballot:
+                low = (ballot & -ballot).bit_length() - 1
+                first = (base + p0 + low) & (C - 1)
+                break
+        hit[i], slot[i] = first >= 0, first
+    return hit, slot
+
+
+def _wrap_world(C=64, B=24, seed=6):
+    """Keys whose windows wrap at C. Key 0 matches at slot C-1 (probe 0)
+    and at slot 0 (probe 1, wrapped, the lower index): probe order must
+    win. Key 1 matches only past the wrap (slot 2, probe 4). Key 2 matches
+    nowhere. Key 3's window is its last probe (slot 4, probe 7). The rest
+    are random over a half-full cache."""
+    rng = np.random.default_rng(seed)
+    c_tpl = rng.integers(0, 3, C).astype(np.int32)
+    c_root = rng.integers(0, 8, C).astype(np.int32)
+    c_fp = rng.integers(0, 2**32, C, dtype=np.uint32)
+    c_valid = rng.random(C) < 0.5
+    tpl = rng.integers(0, 3, B).astype(np.int32)
+    root = rng.integers(0, 8, B).astype(np.int32)
+    fp = rng.integers(0, 2**32, B, dtype=np.uint32)
+    h = rng.integers(0, 2**32, B, dtype=np.uint32)
+    h[:4] = [C - 1, C - 2, C - 3, C - 3]
+    c_valid[[C - 3, C - 2, 1, 3]] = False  # clear key 1's earlier probes' slots
+    for i, slots in ((0, (C - 1, 0)), (1, (2,)), (3, (4,))):
+        for s in slots:
+            c_tpl[s], c_root[s], c_fp[s], c_valid[s] = tpl[i], root[i], fp[i], True
+    # keys 2 and 3 share a window; key 2 differs in its fingerprint alone
+    fp[2] = fp[3] ^ np.uint32(1)
+    root[2], tpl[2] = root[3], tpl[3]
+    # random keys planted at random slots of their windows, some past the wrap
+    for i in range(4, B, 2):
+        s = int((h[i] + rng.integers(0, 8)) % C)
+        if s in (C - 3, C - 2, C - 1, 0, 1, 2, 3, 4):
+            continue  # the four keys' windows stay as planted
+        c_tpl[s], c_root[s], c_fp[s], c_valid[s] = tpl[i], root[i], fp[i], True
+    return c_tpl, c_root, c_fp, c_valid, tpl, root, h, fp
+
+
+@pytest.mark.parametrize("probes", [8, 5, 12, 1])
+def test_cache_probe_group_simulation_matches_pallas_and_ref(probes):
+    arrays = _wrap_world()
+    C = len(arrays[0])
+    targs = tuple(torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a)
+                  for a in arrays)
+    got_hit, got_slot = simulate_cache_probe(*(a.numpy() for a in targs), probes=probes)
+    plain_hit, plain_slot = cache_probe_ref(*targs, probes=probes)
+    jargs = tuple(map(jnp.asarray, arrays))
+    pallas = j_cache_probe(*jargs, probes=probes, block_b=8)
+    ref = j_cache_probe_ref(*jargs, probes=probes)
+    for hit, slot in ((plain_hit, plain_slot), pallas, ref):
+        np.testing.assert_array_equal(got_hit, np.asarray(hit))
+        np.testing.assert_array_equal(got_slot, np.asarray(slot))
+    if probes == 8:
+        # probe order, not slot order; a match past the wrap; a miss
+        assert got_slot[:4].tolist() == [C - 1, 2, -1, 4]
+        assert got_hit[4:].any() and not got_hit[4:].all()
+    if probes == 5:  # key 3's only match is its 8th probe, out of reach
+        assert got_slot[:4].tolist() == [C - 1, 2, -1, -1]
+
+
+def test_cache_probe_binding_passes_the_c_arguments(monkeypatch):
+    """``cache_probe_cuda`` hands the C entry point the ten pointers, then
+    B, C and probes, then the stream, and raises when the launch reports an
+    error. The C call is a stand-in: no kernel runs here."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cache_probe import kernel
+
+    seen, err = [], [0]
+
+    def fake_bind(name, symbol, n_pointers, n_ints):
+        assert (name, symbol, n_pointers, n_ints) == ("cache_probe", "cache_probe_launch", 10, 3)
+        return lambda *a: seen.append(a) or err[0]
+
+    monkeypatch.setattr(_build, "bind", fake_bind)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 99})())
+    arrays = _probe_world(256, 13, 8)
+    t = [torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a) for a in arrays]
+    hit, slot = kernel.cache_probe_cuda(*t, probes=5)
+    (a,) = seen
+    assert a == (*(x.data_ptr() for x in t), hit.data_ptr(), slot.data_ptr(), 13, 256, 5, 99)
+    assert hit.shape == slot.shape == (13,) and hit.dtype == torch.bool and slot.dtype == torch.int32
+    err[0] = 700
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        kernel.cache_probe_cuda(*t, probes=8)
