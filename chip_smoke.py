@@ -34,7 +34,25 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    with ``rvalid`` / ``cvalid`` all false and with no predicates, each on
    the kernel and on the per-lane design it replaced, beside its bound and
    ``zero_`` over the same outputs; then synthetic shapes the path does
-   not reach;
+   not reach. Between the reads and those checks, the gRW rounds: 64
+   commits of the W-hat write mix per policy (write-around, then
+   write-through, each round opened by an untimed commit) through
+   ``run_grw_tx`` on both tiers, each followed by a read batch with CP on
+   both; every commit held equal across the tiers (``impacted_keys``, the
+   stores every 4th commit and the last, cache entries and reads while
+   neither cache evicted), overflows 0, the recent regions within their
+   windows, write-through's value edits taken on both tiers (from each
+   commit's pre- and post-cache) and its hits no fewer than those of a
+   write-around fork of the same commit on the same reads (run outside the
+   launch counts), every ``block_gather`` / ``cache_probe`` call of the
+   rounds equal to its plain version (with lanes a commit appended, and
+   lanes whose edge a commit deleted, among those scanned), the launches
+   counted per tier and stage, the single host's write-through cache held
+   entry by entry to fresh executions and then to phase 6's check (a
+   multi-hop result may differ from the cache-off engine only through an
+   entry whose leaves write-through reordered); gRW p25 / p50 / p75 / p90
+   / max per tier and policy, a profile window of one commit of each, and
+   the rounds' largest kernel calls timed;
 8. GNN serving at the ``minibatch_lg`` shape: a graph sized like Reddit
    (232,965 vertices, ~7.4M edges, 602 fp32 features, 41 classes) in the
    store, 1,024 seeds at fanouts (15, 10) through ``CachedNeighborSampler``
@@ -638,7 +656,13 @@ def check_kernels(espec, state, plans, ranges, launches, dev, seed):
     return rows
 
 
-def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed):
+def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed, explain=None):
+    """Phase 6's check of ``state``. ``explain``, where given, is the same
+    cache with the entries a write-through edit reordered put back in a
+    fresh execution's order: a multi-hop result that differs from the
+    cache-off engine must then equal it on ``explain``, so the difference
+    goes through such an entry (the frontier truncated to F leaves keeps
+    others). Without it every result must equal the cache-off engine's."""
     from repro_torch.core import GraphEngine
 
     store, cache = state
@@ -676,20 +700,28 @@ def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed):
               f"(hits={m['hits']})", flush=True)
 
     # (b) multi-hop plans: cached engine == engine with the cache off
+    as_set = lambda r: set(r[r >= 0].tolist())
     for name in ("q_common", "q_sellers"):
         plan, label = byname[name]
         plain = GraphEngine(espec, plan, use_cache=False, device=dev)
-        hits = 0
+        hits = explained = 0
         for _ in range(8):
             roots = zipf_pick(rng, *ranges[label], 512)
             a, _, m = engines[name].run(store, cache, ttable, roots)
             b, _, _ = plain.run(store, cache, ttable, roots)
-            for i in range(len(roots)):
-                assert set(a[i][a[i] >= 0].tolist()) == set(b[i][b[i] >= 0].tolist()), \
-                    f"{name} root {roots[i]}: cached result differs from uncached"
+            differ = [i for i in range(len(roots)) if as_set(a[i]) != as_set(b[i])]
+            if differ:
+                assert explain is not None, \
+                    f"{name} root {roots[differ[0]]}: cached result differs from uncached"
+                c, _, _ = engines[name].run(store, explain, ttable, roots)
+                for i in differ:
+                    assert as_set(c[i]) == as_set(b[i]), f"{name} root {roots[i]}: cached " \
+                        "result differs from uncached, and not through a reordered entry"
+                explained += len(differ)
             hits += m["hits"]
         print(f"consistency {name}: 8 batches of 512 equal the uncached engine "
-              f"(hits={hits})", flush=True)
+              f"(hits={hits}; {explained} results differ only through entries a write-through "
+              f"edit reordered)", flush=True)
 
 
 # ---------------------------------------------------- partitioned tier
@@ -699,6 +731,13 @@ P_ROUNDS = 2  # rounds over the six read plans in phase 7
 # on both sides (the first by key), few enough that a 2^18-slot cache is
 # unlikely to evict, which the entry comparison needs
 P_CP_PER_BATCH = 512
+# gRW-Txs of each policy's round in phase 7: what the time limit allows
+# (each costs ~3 s of the script with its reads and checks); the recent
+# regions would take hundreds
+P_GRW_COMMITS = 64
+# the watch-lists whose includes edges the rounds' del_edges draw from: the
+# Zipf-hottest, which the read batches visit (upserts draw Zipf endpoints too)
+P_HOT_WATCHLISTS = 64
 SHARDED_ONLY = ("route_overflow", "locality_routed", "route_cap_retries",
                 "locality_retry_rows", "host_syncs")
 
@@ -737,13 +776,15 @@ class CallCapture:
             setattr(mod, name, inner)
 
 
-def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, engines, dev):
+def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, includes, engines, dev):
     """Phase 7: the partitioned gR-Tx tier over N_OWNERS owner shards, with
     CP through ``ShardedMissDrain``, against the single-host engine on the
     same store and batches (both caches start empty; after every batch both
-    populate the same ``P_CP_PER_BATCH`` miss records)."""
+    populate the same ``P_CP_PER_BATCH`` miss records); then the gRW rounds
+    (``run_partitioned_grw``) and phase 6's consistency check on the single
+    host after them."""
     import repro_torch.core.cache as cache_mod
-    from repro_torch.core import CachePopulator, cache_entries, empty_cache
+    from repro_torch.core import CachePopulator, empty_cache
     from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_mesh
     from repro_torch.graphstore.partition import local_shard
     from repro_torch.kernels.block_gather import ops as bg_ops
@@ -814,7 +855,7 @@ def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, engines, de
     assert (drain.committed, drain.aborted) == (hpop.committed, hpop.aborted), "CP outcomes differ"
     entries_equal = None
     if n_evict == (0, 0):
-        entries_equal = cache_entries(espec.cache, hcache) == cache_entries(espec.cache, pcache)
+        entries_equal = entries_equal_on_card(espec, hcache, pcache)
         assert entries_equal, "partitioned cache entries differ from the single-host cache"
     report = dict(
         batches=len(lat_p), p50_ms=pct(lat_p, 50), p95_ms=pct(lat_p, 95), p99_ms=pct(lat_p, 99),
@@ -834,10 +875,451 @@ def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, engines, de
     print("partitioned: " + json.dumps(report), flush=True)
     assert bg["block_gather"] > 0, "the partitioned path never launched block_gather"
     assert bg["cache_probe"] > 0, "the partitioned path never launched cache_probe"
+
+    # the gRW rounds, then the single host's state against the numpy one-hop
+    # reference and the cache-off engine
+    t0 = time.perf_counter()
+    (hstore, hcache, pstore, pcache), report["grw"], gcheck, report["grw_launches"] = \
+        run_partitioned_grw(seed, espec, rt, [store, hcache, pstore, pcache], ttable, plans,
+                            ranges, includes, engines, (hpop, drain), dev)
+    fresh_order, checked, reordered = hold_write_through_entries(espec, hstore, hcache, plans, dev)
+    print(f"consistency write-through: {checked} entries equal a fresh execution of their key; "
+          f"{reordered} of them list their leaves in another order", flush=True)
+    check_consistency(espec, (hstore, hcache), ttable, plans, ranges, engines, dev, seed + 1,
+                      explain=fresh_order if reordered else None)
+    del fresh_order
+    print(f"partitioned grw rounds: {time.perf_counter() - t0:.1f}s; peak device memory of "
+          f"phase 7: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     profile_window(" partitioned", seed, plans, ranges,
                    lambda name, r: rt.run_gr_tx_batch(pstore, pcache, ttable,
                                                       dict((n, p) for n, p, _, _ in plans)[name], r))
-    return report, capture
+    return report, capture, gcheck
+
+
+def entries_equal_on_card(espec, a, b) -> bool:
+    """``cache_entries(a) == cache_entries(b)``, made on the card: one row
+    per valid slot (tpl, root, fp, chunk, total_len, version, then the
+    chunk's leaves with the lanes past its occupied prefix set to -2),
+    sorted, then compared."""
+    L = espec.cache.max_leaves
+
+    def rows(cache):
+        v = cache.valid
+        seg = (cache.total_len[v] - cache.chunk[v] * L).clamp(0, L)
+        vals = torch.where(torch.arange(L, device=v.device)[None, :] < seg[:, None],
+                           cache.vals[v], -2)
+        r = torch.cat([torch.stack([cache.tpl[v], cache.root[v], cache.fp[v], cache.chunk[v],
+                                    cache.total_len[v], cache.version[v]], dim=1), vals], dim=1)
+        r = r.cpu().numpy().astype(np.int64)
+        return r[np.lexsort(r.T[::-1])]
+
+    return np.array_equal(rows(a), rows(b))
+
+
+def lane_slots(a, kw):
+    """The block slot each lane of a ``block_gather`` call reads, and
+    whether the call visits it (its row executes and the lane lies in the
+    row's CSR window, or is a recent-region lane keyed by the root), made
+    from the call's inputs as the plain version makes them."""
+    from repro_torch.utils import jax_index
+
+    indptr, key, csr_len, blk_len = a[0], a[1], a[9], a[10]
+    roots, lroot, rvalid, cvalid, rmask = a[11:16]
+    EB, R, D = kw["e_blk_cap"], kw["recent_cap"], kw["max_deg"]
+    dev, B, Vp = roots.device, roots.shape[0], indptr.shape[0]
+    start = indptr[jax_index(lroot, Vp)]
+    deg = indptr[jax_index(lroot + 1, Vp)] - start
+    lane = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
+    sid = csr_len.clamp(0, EB - R) + torch.arange(R, dtype=torch.int32, device=dev)
+    rec = ((key[sid.long()][None, :] == roots[:, None])
+           & ((sid >= csr_len) & (sid < blk_len))[None, :] & rvalid[:, None])
+    slots = torch.cat([(start[:, None] + lane).clamp(0, EB - 1), sid[None, :].expand(B, R)], 1)
+    visit = torch.cat([(lane < deg[:, None]) & cvalid[:, None], rec], 1) & rmask[:, None]
+    return slots.long(), visit
+
+
+class GrwKernelCheck:
+    """Holds every ``block_gather`` and ``cache_probe`` call of phase 7's gRW
+    rounds to its plain version, batch by batch (so no committed store
+    outlives its batch, but for the largest call of each kernel, kept for
+    timing), and counts from each ``block_gather`` call's inputs the
+    recent-region lanes it scanned that a partitioned commit appended (slot
+    past the block's length before the rounds) and the lanes it visited
+    whose edge a partitioned delete cleared (alive before the rounds, dead
+    now). The comparison launches are taken back off the kernels' counts."""
+
+    def __init__(self, pspec, pstore0, max_deg):
+        from repro_torch.graphstore.partition import local_shard
+
+        self.pspec, self.max_deg = pspec, max_deg
+        shards = [local_shard(pspec, pstore0, s) for s in range(pspec.n_shards)]
+        self.blocks0 = {(inc, s): (blk.alive, int(blk.blk_len[0]))
+                        for s, ps in enumerate(shards)
+                        for inc, blk in ((False, ps.out), (True, ps.inc))}
+        self.block_of = {}
+        self.calls = {"cache_probe": 0, "block_gather": {False: 0, True: 0}}
+        self.appended = self.deleted = 0
+        self.largest = {}
+
+    def map_store(self, pstore):
+        """Learns which (orientation, shard) block each key tensor of a
+        committed store is, by address."""
+        from repro_torch.graphstore.partition import local_shard
+
+        for s in range(self.pspec.n_shards):
+            ps = local_shard(self.pspec, pstore, s)
+            self.block_of[ps.out.key.data_ptr()] = (False, s)
+            self.block_of[ps.inc.key.data_ptr()] = (True, s)
+
+    def check(self, capture):
+        from repro_torch.kernels.block_gather import ops as bg_ops
+        from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+        from repro_torch.kernels.cache_probe import ops as cp_ops
+
+        counts = (bg_ops.launches, cp_ops.launches)
+        probes = capture.calls["cache_probe"]
+        if probes:
+            check_probe_calls(probes, "the gRW rounds")
+        for a, kw in probes:
+            self.calls["cache_probe"] += 1
+            key = ("cache_probe", a[0].shape[0])  # the largest call per cache size
+            if key not in self.largest or a[4].shape[0] > self.largest[key][0][4].shape[0]:
+                self.largest[key] = (a, kw)
+        D = self.max_deg
+        for a, kw in capture.calls["block_gather"]:
+            got, want = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+            for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+                assert torch.equal(g, w), \
+                    f"block_gather {name} disagrees with its plain version after a commit"
+            incoming, s = self.block_of[a[1].data_ptr()]
+            alive0, len0 = self.blocks0[(incoming, s)]
+            slots, visit = lane_slots(a, kw)
+            self.appended += int((want[1][:, D:] & (slots[:, D:] >= len0)).sum())
+            self.deleted += int((visit & ~a[4][slots] & alive0[slots]).sum())
+            self.calls["block_gather"][incoming] += 1
+            big = self.largest.get(incoming)
+            if big is None or a[11].shape[0] > big[0][11].shape[0]:
+                self.largest[incoming] = (a, kw)
+        for calls in capture.calls.values():
+            calls.clear()
+        bg_ops.launches, cp_ops.launches = counts
+
+
+def value_edits(before, after):
+    """The value-add and value-remove edits a write-through commit took:
+    chunk-0 slots valid before and after it whose ``total_len`` rose, and
+    those where it fell (a commit inserts nothing, so a slot valid in both
+    holds the same key)."""
+    both = before.valid & after.valid & (before.chunk == 0)
+    d = after.total_len - before.total_len
+    return int((both & (d > 0)).sum()), int((both & (d < 0)).sum())
+
+
+def op_rounds(calls):
+    """The rounds the captured ``apply_op_stream_segmented`` calls ran: per
+    call, the most valid ops any one key has."""
+    n = 0
+    for a, _ in calls:
+        ops = a[2]
+        keys = torch.cat([ops.tpl[:, None], ops.root[:, None], ops.params], dim=1)[ops.ok]
+        if keys.shape[0]:
+            n += int(torch.unique(keys, dim=0, return_counts=True)[1].max())
+    return n
+
+
+def hold_write_through_entries(espec, store, cache, plans, dev):
+    """Every cache entry after the write-through round against a fresh
+    execution of its key on the store: the same leaf set, never truncated
+    (the property of ``tests/test_write_through_convergence.py``, on every
+    entry). Write-through appends a leaf at the end of its entry, where a
+    fresh execution lists it in edge order; a multi-hop frontier truncated
+    to F distinct leaves then keeps other leaves than the cache-off engine.
+    Returns a copy of the cache whose entries hold their leaves in the fresh
+    order, the order a write-around repopulation gives (phase 6's check
+    holds a result that differs from the cache-off engine to it), the
+    entries checked, and those whose order differed."""
+    from repro_torch.core import cache_lookup, onehop_exec
+    from repro_torch.utils import INT32_MAX
+
+    hops = {}
+    for _, plan, _, _ in plans:
+        for hop in plan.hops:
+            if hop.tpl_idx >= 0:
+                assert hops.setdefault(hop.tpl_idx, hop).params.tolist() == hop.params.tolist()
+    L = espec.cache.max_leaves
+    head = cache.valid & (cache.chunk == 0)
+    vals = cache.vals.clone()
+    checked = reordered = 0
+    for t, hop in sorted(hops.items()):
+        slots = torch.nonzero(head & (cache.tpl == t)).reshape(-1)
+        if not slots.numel():
+            continue
+        roots = cache.root[slots]
+        params = torch.as_tensor(hop.params, device=dev).expand(len(roots), -1)
+        hit, leaves, lmask, _ = cache_lookup(espec.cache, cache, t, roots, params)
+        assert bool(hit.all()), f"template {t}: an entry's chain or key does not resolve"
+        fresh, fmask, n_true, trunc, _ = onehop_exec(
+            espec, store, hop.direction, hop.edge_label, hop.pr, hop.pe, hop.pl, roots, params,
+            torch.ones_like(hit))
+        assert not bool((trunc | (n_true > espec.result_width)).any()), \
+            f"template {t}: a kept entry's key no longer has a cacheable result"
+        sort = lambda x, m: torch.where(m, x, INT32_MAX).sort(dim=1).values
+        assert torch.equal(sort(leaves, lmask), sort(fresh, fmask)), \
+            f"template {t}: a kept entry differs from a fresh execution of its key"
+        moved = ((leaves != fresh) & lmask).any(dim=1)
+        assert bool((lmask[moved].sum(dim=1) <= L).all()), "a multi-chunk entry was edited"
+        vals[slots[moved]] = fresh[moved, :L]
+        checked += len(roots)
+        reordered += int(moved.sum())
+    return cache._replace(vals=vals), checked, reordered
+
+
+def stores_equal(rt, pstore, hstore):
+    """The partitioned store against ``partition_store`` of the single
+    host's, field by field, ``gperm`` included."""
+    from repro_torch.graphstore.partition import EdgeBlock
+
+    want = rt.partition_store(hstore)
+    for f in want._fields:
+        a, b = getattr(pstore, f), getattr(want, f)
+        for name, x, y in (zip(EdgeBlock._fields, a, b) if isinstance(b, EdgeBlock)
+                           else [(f, a, b)]):
+            assert torch.equal(x, y), f"partitioned store {f}.{name} differs from the " \
+                "partition of the single host's"
+
+
+def run_partitioned_grw(seed, espec, rt, tiers, ttable, plans, ranges, includes, engines,
+                        pops, dev):
+    """Phase 7's gRW rounds: one round of P_GRW_COMMITS commits per policy,
+    write-around first, each opened by one untimed commit a tier whose
+    result is dropped. Each commit is one ``make_write`` batch of WRITE_MIX
+    through ``run_grw_tx`` on the single host and on the partitioned tier,
+    followed by a 512-root read batch of the next plan through both tiers
+    with CP on both. The kernels' launches are counted per tier and stage
+    (commit, read, CP); write-through's write-around fork runs outside the
+    count. ``tiers`` = [hstore, hcache, pstore, pcache]; ``pops`` =
+    (single-host populator, ShardedMissDrain)."""
+    import repro_torch.core.cache as cache_mod
+    import repro_torch.core.invalidation as inv_mod
+    import repro_torch.distributed.graph_serve as gs_mod
+    from repro_torch.core import run_grw_tx
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+
+    hstore, hcache, pstore, pcache = tiers
+    hpop, drain = pops
+    rng = np.random.default_rng(seed + 31)
+    kinds, wweights = zip(*WRITE_MIX)
+    wweights = np.array(wweights) / sum(wweights)
+    wl0 = ranges[L_WATCHLIST][0]
+    hot = torch.as_tensor(includes, device=dev)
+    hot = hot[hstore.esrc[hot] < wl0 + P_HOT_WATCHLISTS].cpu().numpy()
+    gcheck = GrwKernelCheck(rt.pspec, pstore, espec.max_deg)
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    # the segmented applies of both tiers (for their round counts)
+    seg = CallCapture((inv_mod, "apply_op_stream_segmented"),
+                      (gs_mod, "apply_op_stream_segmented"))
+    plan_cycle = [(n, p, label) for n, p, label, _ in plans]
+    tally = {}  # (tier, stage) -> [block_gather, cache_probe] launches
+
+    def counted(tier, stage, fn):
+        c0 = (bg_ops.launches, cp_ops.launches)
+        out = fn()
+        t = tally.setdefault(f"{tier} {stage}", [0, 0])
+        t[0] += bg_ops.launches - c0[0]
+        t[1] += cp_ops.launches - c0[1]
+        return out
+
+    def write_batch():
+        while True:
+            kind = kinds[int(rng.choice(len(kinds), p=wweights))]
+            mb = make_write(rng, espec, ranges, hot, kind, dev)
+            if mb is not None:
+                return mb
+
+    commit = {"single": lambda mb, pol, hs, hc: run_grw_tx(espec, hs, hc, ttable, mb, pol,
+                                                           device=dev),
+              "partitioned": lambda mb, pol, ps, pc: rt.run_grw_tx(ps, pc, ttable, mb, pol)}
+    reports, last = {}, {}
+    cp_ops.launches = bg_ops.launches = 0
+    for policy in ("write-around", "write-through"):
+        through = policy == "write-through"
+        lat = {"single": [], "partitioned": []}
+        syncs = {"single": [], "partitioned": []}
+        edits = {"single": [0, 0], "partitioned": [0, 0]}  # adds, removes
+        rounds = {"single": 0, "partitioned": 0}
+        hits = {"kept": 0, "write_around_fork": 0}
+        impacted = equal_entries = equal_reads = 0
+        warm = write_batch()  # first-call costs stay out of the percentiles
+        commit["single"](warm, policy, hstore, hcache)
+        commit["partitioned"](warm, policy, pstore, pcache)
+        for i in range(P_GRW_COMMITS):
+            mb = write_batch()
+            name, plan, label = plan_cycle[i % len(plan_cycle)]
+            roots = zipf_pick(rng, *ranges[label], BATCH)
+            pre = (hstore, hcache, pstore, pcache)
+            last[policy] = mb
+            with seg:
+                t = time.perf_counter()
+                hstore, hcache, mh = counted("single", "commit",
+                                             lambda: commit["single"](mb, policy, hstore, hcache))
+                lat["single"].append((time.perf_counter() - t) * 1e3)
+            rounds["single"] += op_rounds(seg.calls["apply_op_stream_segmented"])
+            seg.calls["apply_op_stream_segmented"].clear()
+            with seg:
+                t = time.perf_counter()
+                pstore, pcache, mp = counted(
+                    "partitioned", "commit",
+                    lambda: commit["partitioned"](mb, policy, pstore, pcache))
+                lat["partitioned"].append((time.perf_counter() - t) * 1e3)
+            rounds["partitioned"] += op_rounds(seg.calls["apply_op_stream_segmented"])
+            seg.calls["apply_op_stream_segmented"].clear()
+            gcheck.map_store(pstore)
+            syncs["single"].append(mh["host_syncs"])
+            syncs["partitioned"].append(mp["host_syncs"])
+            assert mp["impacted_keys"] == mh["impacted_keys"], \
+                f"{policy} commit {i}: impacted {mp['impacted_keys']} != {mh['impacted_keys']}"
+            assert mh["op_overflow"] == mp["op_overflow"] == mp["store_append_overflow"] == 0, \
+                f"{policy} commit {i}: overflow {mh} {mp}"
+            impacted += mh["impacted_keys"]
+            if through:
+                for tier, before, after in (("single", pre[1], hcache),
+                                            ("partitioned", pre[3], pcache)):
+                    adds, removes = value_edits(before, after)
+                    edits[tier][0] += adds
+                    edits[tier][1] += removes
+            if i % 4 == 3 or i == P_GRW_COMMITS - 1:
+                stores_equal(rt, pstore, hstore)
+            evicted = int(hcache.n_evict) or int(pcache.n_evict)
+            if not evicted:
+                assert entries_equal_on_card(espec, hcache, pcache), \
+                    f"{policy} commit {i}: cache entries differ between the tiers"
+                equal_entries += 1
+
+            # the read batch after the commit, with CP on both tiers
+            with capture:
+                rh, ms_h, meth = counted(
+                    "single", "read", lambda: engines[name].run(hstore, hcache, ttable, roots))
+                rp, ms_p, metp = counted(
+                    "partitioned", "read",
+                    lambda: rt.run_gr_tx_batch(pstore, pcache, ttable, plan, roots))
+                assert metp["route_overflow"] == 0, f"{policy} read {i}: route_overflow"
+                assert np.array_equal(rh, rp), f"{policy} read {i} ({name}): result differs"
+                hpop.queue.push(sorted(ms_h, key=lambda m: miss_key([m]))[:P_CP_PER_BATCH])
+                hcache2 = counted("single", "CP",
+                                  lambda: hpop.drain(hstore, hstore, hcache, ttable, 1 << 30))
+                drain.push(sorted(ms_p, key=lambda m: miss_key([m]))[:P_CP_PER_BATCH])
+                pcache2 = counted("partitioned", "CP",
+                                  lambda: drain.drain(pstore, pstore, pcache, ttable, k=1 << 30))
+            gcheck.check(capture)
+            if through:
+                # the same commit under write-around from the same state, and
+                # the same reads: write-through keeps a superset of its
+                # entries, so they hit at least as often. Outside the count.
+                saved = (bg_ops.launches, cp_ops.launches)
+                _, fh, _ = commit["single"](mb, "write-around", pre[0], pre[1])
+                _, _, fm_h = engines[name].run(hstore, fh, ttable, roots)
+                _, fp, _ = commit["partitioned"](mb, "write-around", pre[2], pre[3])
+                _, _, fm_p = rt.run_gr_tx_batch(pstore, fp, ttable, plan, roots)
+                bg_ops.launches, cp_ops.launches = saved
+                assert meth["hits"] >= fm_h["hits"] and metp["hits"] >= fm_p["hits"], \
+                    f"write-through commit {i} kept fewer hits than write-around"
+                hits["kept"] += meth["hits"] + metp["hits"]
+                hits["write_around_fork"] += fm_h["hits"] + fm_p["hits"]
+                del fh, fp
+            del pre
+            hcache, pcache = hcache2, pcache2
+            if not evicted:
+                meth.pop("host_syncs")
+                for k in SHARDED_ONLY:
+                    metp.pop(k)
+                assert metp == meth, f"{policy} read {i} ({name}): metrics {metp} != {meth}"
+                assert miss_key(ms_p) == miss_key(ms_h), f"{policy} read {i}: misses differ"
+                equal_reads += 1
+        torch.cuda.synchronize()
+        fill_p = torch.cat([pstore.out.blk_len - pstore.out.csr_len,
+                            pstore.inc.blk_len - pstore.inc.csr_len]).tolist()
+        fill_h = int(hstore.e_len) - int(hstore.csr_len)
+        rep = dict(commits=P_GRW_COMMITS, impacted_keys=impacted)
+        for tier in ("single", "partitioned"):
+            for q in (25, 50, 75, 90):
+                rep[f"{tier}_p{q}_ms"] = pct(lat[tier], q)
+            rep[f"{tier}_max_ms"] = max(lat[tier])
+        rep.update(
+            single_host_reads_per_commit=float(np.mean(syncs["single"])),
+            partitioned_host_reads_per_commit=float(np.mean(syncs["partitioned"])),
+            commits_entries_equal=equal_entries, reads_metrics_equal=equal_reads,
+            recent_fill_partitioned_out_in=fill_p, recent_blk_cap=rt.pspec.recent_blk_cap,
+            recent_fill_single=fill_h, recent_cap=espec.store.recent_cap,
+            n_evict_single=int(hcache.n_evict), n_evict_partitioned=int(pcache.n_evict),
+        )
+        if through:
+            for tier in ("single", "partitioned"):
+                rep[f"{tier}_value_adds"], rep[f"{tier}_value_removes"] = edits[tier]
+                rep[f"{tier}_op_rounds_per_commit"] = rounds[tier] / P_GRW_COMMITS
+                assert min(edits[tier]) > 0, \
+                    f"write-through took no value-add or no value-remove edit on the {tier} tier"
+            rep["hits_write_through"] = hits["kept"]
+            rep["hits_write_around_same_reads"] = hits["write_around_fork"]
+        print(f"partitioned grw {policy}: " + json.dumps(rep), flush=True)
+        assert max(fill_p) <= rt.pspec.recent_blk_cap, f"a block's recent region overflowed: {fill_p}"
+        assert fill_h <= espec.store.recent_cap, f"the single host's recent region overflowed"
+        reports[policy] = rep
+    launches = {tier: {"block_gather": sum(v[0] for k, v in tally.items() if k.startswith(tier)),
+                       "cache_probe": sum(v[1] for k, v in tally.items() if k.startswith(tier))}
+                for tier in ("single", "partitioned")}
+    print(f"launches on the gRW rounds by tier and stage [block_gather, cache_probe]: {tally}",
+          flush=True)
+    # the device's share of a commit: each round's last batch again, on the
+    # final state (commits are functional, so the results are dropped)
+    for tier, (store, cache) in (("single", (hstore, hcache)), ("partitioned", (pstore, pcache))):
+        profiled(f" grw {tier}", "one commit of each policy",
+                 lambda: [commit[tier](mb, pol, store, cache) for pol, mb in last.items()])
+    assert launches["partitioned"]["block_gather"] > 0, \
+        "the gRW rounds' partitioned reads launched no block_gather"
+    assert launches["single"]["cache_probe"] > 0 and launches["partitioned"]["cache_probe"] > 0, \
+        "the gRW rounds' reads launched no cache_probe on a tier"
+    calls = gcheck.calls
+    print(f"kernel block_gather grw calls out={calls['block_gather'][False]} "
+          f"in={calls['block_gather'][True]} (all equal); appended recent lanes scanned="
+          f"{gcheck.appended}; lanes visited whose edge a partitioned delete cleared="
+          f"{gcheck.deleted}", flush=True)
+    print(f"kernel cache_probe grw calls={calls['cache_probe']} (all equal)", flush=True)
+    assert gcheck.appended > 0, "no block_gather call scanned a lane a partitioned commit appended"
+    assert gcheck.deleted > 0, "no block_gather call visited a lane a partitioned delete cleared"
+    return (hstore, hcache, pstore, pcache), reports, gcheck, launches
+
+
+def time_grw_kernels(gcheck):
+    """The largest ``cache_probe`` and ``block_gather`` calls of the gRW
+    rounds (over blocks the commits changed), timed beside their bounds."""
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.cache_probe.ref import cache_probe_ref
+
+    out = {}
+    # the partitioned tier's (the owner blocks are the smaller caches)
+    a, kw = gcheck.largest[min(k for k in gcheck.largest if isinstance(k, tuple))]
+    hit, slot = cache_probe_ref(*a, **kw)
+    t = timings(lambda: cp_ops.cache_probe(*a, **kw), lambda: cache_probe_ref(*a, **kw))
+    bms, by = bound_ms(*probe_bound(a, hit, slot, kw["probes"]))
+    print(f"kernel cache_probe grw largest keys={a[4].shape[0]} cap={a[0].shape[0]} "
+          f"hits={int(hit.sum())} {fmt_us(t)} bound_us={bms * 1e3:.4f} ({by})", flush=True)
+    out["cache_probe"] = dict(t, bound_ms=bms, shape=f"keys={a[4].shape[0]},cap={a[0].shape[0]}")
+    for incoming in (False, True):
+        a, kw = gcheck.largest[incoming]
+        want = block_gather_filter_ref(*a, **kw)
+        t = timings(lambda: bg_ops.block_gather(*a, **kw),
+                    lambda: block_gather_filter_ref(*a, **kw))
+        bms, by = bound_ms(*block_gather_bound(a, kw, want))
+        side = "in" if incoming else "out"
+        B, W = want[0].shape
+        print(f"kernel block_gather grw {side} rows={B} lanes={W} scanned={int(want[1].sum())} "
+              f"recent_scanned={int(want[1][:, gcheck.max_deg:].sum())} {fmt_us(t)} "
+              f"bound_us={bms * 1e3:.4f} ({by})", flush=True)
+        out[f"block_gather_{side}"] = dict(t, bound_ms=bms, shape=f"{side}:rows={B},lanes={W}")
+    return out
 
 
 BG_ARGS = ("indptr", "key", "other", "label", "alive", "props", "vlabel", "valive", "vprops",
@@ -2001,10 +2483,23 @@ def run_graph(seed, dev):
 
     # 7. the partitioned tier on the final store, against the single host;
     # then block_gather against its plain version at the inputs it was given
-    p_report, capture = run_partitioned(seed, espec, state[0], ttable, plans, meta, ranges,
-                                        engines, dev)
+    p_report, capture, gcheck = run_partitioned(seed, espec, state[0], ttable, plans, meta,
+                                                ranges, includes, engines, dev)
     rows.append(check_partitioned_kernels(capture, p_report["block_gather_launches"],
                                           espec.max_deg))
+    # both kernels' launches on each path that ran them, and their times at
+    # the gRW rounds' largest calls (over blocks the commits changed)
+    after = time_grw_kernels(gcheck)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            grw = p_report["grw_launches"]
+            row["launches_by_path"] = {
+                **({"phase 4": launches["cache_probe"]} if row["name"] == "cache_probe" else {}),
+                "phase 7 reads": p_report[f"{row['name']}_launches"],
+                "phase 7 gRW rounds, single host": grw["single"][row["name"]],
+                "phase 7 gRW rounds, partitioned": grw["partitioned"][row["name"]],
+            }
+            row["after_commits"] = {k: v for k, v in after.items() if k.startswith(row["name"])}
     phase_memory("phases 5-7")
     return rows
 

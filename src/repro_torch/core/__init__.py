@@ -8,7 +8,8 @@ Modules map 1:1 onto the paper and onto ``repro.core``:
                     chunked values, sweep-deletes standing in for clearRange).
 - ``runtime`` / ``engine`` — §3.1: gR-Tx processing — per-hop cache probe,
                     miss execution, miss enqueue, final clause.
-- ``invalidation``— §3.2 + Appendix A: write-around maintenance.
+- ``invalidation``— §3.2 + Appendix A: write-around and write-through
+                    maintenance.
 - ``population``  — §4: asynchronous transactional cache population.
 - ``lifecycle``   — §4.1: the Service Coordinator's two-phase workflow.
 - ``rewrite``     — §4.2: query re-writing rules (Q+).
@@ -77,7 +78,7 @@ from repro_torch.core.engine import (
     run_gr_tx_batch,
     run_grw_tx,
 )
-from repro_torch.core.invalidation import invalidate_write_around
+from repro_torch.core.invalidation import invalidate_write_around, write_through_update
 from repro_torch.core.population import CachePopulator, MissQueue, populate_step
 from repro_torch.core.lifecycle import ServiceCoordinator, TemplateState
 from repro_torch.core.rewrite import rewrite_plan

@@ -280,9 +280,10 @@ def run_gr_tx_batch(espec: EngineSpec, store: GraphStore, cache: CacheState,
 
 def build_grw_step(espec: EngineSpec, policy: str = "write-around", *,
                    device=None, **caps):
-    """The gRW-Tx commit: apply mutations + maintain the cache.
-    ``step(store, cache, ttable, batch) -> (store', cache', impacted,
-    op_overflow)``. See ``repro_torch.core.runtime.get_grw_step``."""
+    """The gRW-Tx commit: apply mutations + maintain the cache under
+    ``policy`` (write-around or write-through). ``step(store, cache,
+    ttable, batch, syncs=None) -> (store', cache', impacted, op_overflow)``.
+    See ``repro_torch.core.runtime.get_grw_step``."""
     resolve_device(device)
     return get_grw_step(espec, policy, **caps)
 
@@ -290,7 +291,12 @@ def build_grw_step(espec: EngineSpec, policy: str = "write-around", *,
 def run_grw_tx(espec: EngineSpec, store: GraphStore, cache: CacheState,
                ttable: TemplateTable, batch: MutationBatch,
                policy: str = "write-around", device=None):
-    """One-shot gRW-Tx (tests / examples). Returns (store', cache', metrics)."""
+    """One-shot gRW-Tx (tests / examples). Returns (store', cache', metrics);
+    ``metrics["host_syncs"]`` counts the write-through round read and the
+    one copy of the other metrics."""
     step = build_grw_step(espec, policy, device=device)
-    store2, cache2, impacted, overflow = step(store, cache, ttable, batch)
-    return store2, cache2, {"impacted_keys": int(impacted), "op_overflow": int(overflow)}
+    syncs = SyncCount()
+    store2, cache2, impacted, overflow = step(store, cache, ttable, batch, syncs)
+    impacted, overflow = torch.stack([impacted, overflow]).tolist()
+    return store2, cache2, {"impacted_keys": impacted, "op_overflow": overflow,
+                            "host_syncs": syncs.n + 1}

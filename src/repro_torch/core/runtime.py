@@ -25,13 +25,15 @@ single-host ``GraphEngine`` (core/engine.py) and the sharded serve tier
                              the valid rows a full peer bucket dropped.
 - bucketing / padding      — ``BUCKETS`` / ``bucket_for`` / ``pad_roots``.
 - ``get_grw_step``         — the gRW-Tx commit (apply mutations + cache
-                             maintenance in one functional state transition).
+                             maintenance in one functional state transition),
+                             write-around or write-through.
 
 **Host syncs.** The reference's ``lax.cond`` / ``lax.while_loop`` have no
 eager twin, so the port decides on the host: each hop reads its miss count
 once (the all-hit short circuit stays a real branch, so an all-hit hop does
 no storage work, which is the cache's whole benefit) and each frontier merge
-reads its round condition once per round. Every such read is counted in the
+reads its round condition once per round; a write-through commit reads its
+op-stream round count once. Every such read is counted in the
 ``SyncCount`` the caller passes, and the engines report the total in
 ``metrics["host_syncs"]``, the one metric the port's parity tests skip. On
 a mesh each rank reads its own miss count.
@@ -103,6 +105,10 @@ def unpack_result_frame(frame):
 # batch buckets: gR-Tx batches are padded to the next bucket so the set of
 # batch shapes stays small. ``CachePopulator`` uses the prefix ``BUCKETS[:4]``.
 BUCKETS = (8, 32, 128, 512, 2048, 8192)
+
+# a gRW-Tx's caps on the real maintenance ops and sweeps it derives (the
+# partitioned tier routes up to ``OPS_CAP`` ops to each peer)
+OPS_CAP, SWEEP_CAP = 4096, 512
 
 
 def bucket_for(k: int, buckets=BUCKETS, clamp: bool = False) -> int:
@@ -564,38 +570,42 @@ def host_compact_dedup(vals: np.ndarray, mask: np.ndarray, width: int):
 
 
 # ---------------------------------------------------------------- gRW step
-def get_grw_step(espec, policy: str = "write-around", *, ops_cap: int = 4096,
-                 sweep_cap: int = 512):
+def get_grw_step(espec, policy: str = "write-around", *, ops_cap: int = OPS_CAP,
+                 sweep_cap: int = SWEEP_CAP):
     """The gRW-Tx commit: apply mutations + maintain the cache in one
     functional state transition (graph writes and cache maintenance land in
     one commit, as FDB buffers both in one transaction).
 
     The maintenance phase derives the impacted keys as tensor streams,
     compacts the mostly-masked stream to ``ops_cap`` real ops (and sweeps to
-    ``sweep_cap``), and applies sweeps first, then the exact-key deletes.
+    ``sweep_cap``), and applies sweeps first, then the exact-key ops:
+    write-around's deletes in one batch, write-through's value edits with
+    ``apply_op_stream_segmented`` (one round per op of the busiest key).
 
-    Returns ``step(store, cache, ttable, batch) -> (store', cache',
-    impacted, op_overflow)``; ``impacted`` counts distinct logical entries
-    removed (chunk-0 occupancy delta); a nonzero ``op_overflow`` means real
-    maintenance ops were dropped by the caps. Only write-around is in this
-    slice: ``policy="write-through"`` raises ``NotImplementedError``.
+    Returns ``step(store, cache, ttable, batch, syncs=None) -> (store',
+    cache', impacted, op_overflow)``; ``impacted`` counts distinct logical
+    entries removed (chunk-0 occupancy delta); a nonzero ``op_overflow``
+    means real maintenance ops were dropped by the caps. Write-through reads
+    its round count on the host, counted in ``syncs``.
     """
-    if policy != "write-around":
-        raise NotImplementedError(f"gRW policy {policy!r} is not ported yet")
+    if policy not in ("write-around", "write-through"):
+        raise ValueError(f"unknown gRW policy {policy!r}")
     from repro_torch.core.invalidation import (
         CacheOpStream,
         SweepStream,
         apply_op_stream_batched,
+        apply_op_stream_segmented,
         apply_sweeps,
         derive_cache_ops,
     )
     from repro_torch.graphstore.mutations import apply_mutations
 
+    through = policy == "write-through"
     cspec = espec.cache
 
-    def step(store, cache, ttable, batch):
+    def step(store, cache, ttable, batch, syncs=None):
         store2, applied = apply_mutations(espec.store, store, batch)
-        ops, sweeps = derive_cache_ops(espec, store, store2, ttable, applied, through=False)
+        ops, sweeps = derive_cache_ops(espec, store, store2, ttable, applied, through=through)
         dev = store.vlabel.device
         (okind, otpl, oroot, oparams, ovid, oorder), n_ops, ovf_o = compact_rows(
             ops.ok, ops_cap,
@@ -613,7 +623,11 @@ def get_grw_step(espec, policy: str = "write-around", *, ops_cap: int = 4096,
         head = lambda c: (c.valid & (c.chunk == 0)).sum(dtype=torch.int32)
         occ0 = head(cache)
         cache2 = apply_sweeps(cspec, cache, gsw)
-        cache2 = apply_op_stream_batched(cspec, cache2, cops)
+        if through:
+            # value edits are order-sensitive per key; distinct keys commute
+            cache2 = apply_op_stream_segmented(cspec, cache2, cops, syncs)
+        else:
+            cache2 = apply_op_stream_batched(cspec, cache2, cops)
         impacted = occ0 - head(cache2)
         cache2 = cache2._replace(n_delete=cache.n_delete + impacted)
         return store2, cache2, impacted, ovf_o + ovf_s

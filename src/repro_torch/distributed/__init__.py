@@ -2,6 +2,8 @@
 routing table of the partitioned tier, and ``ShardedTxnRuntime``."""
 
 from repro_torch.distributed.sharding import (
+    ALL_GATHER,
+    ALL_REDUCE_MAX,
     ALL_REDUCE_SUM,
     ALL_TO_ALL,
     LocalMesh,
@@ -17,6 +19,8 @@ from repro_torch.distributed.routing import (
 )
 
 __all__ = [
+    "ALL_GATHER",
+    "ALL_REDUCE_MAX",
     "ALL_REDUCE_SUM",
     "ALL_TO_ALL",
     "LocalMesh",

@@ -1,9 +1,10 @@
 """The partitioned gR-Tx serving tier: owner shards over a mesh.
 
-PyTorch twin of ``repro.distributed.graph_serve`` (the partitioned tier's
-read path and CP population; gRW on the partitioned tier, the overlapped
-schedule, telemetry, degraded mode, routing overlays, maintenance and the
-replicated tier are not ported yet). Vertex ownership is interleaved
+PyTorch twin of ``repro.distributed.graph_serve`` on the partitioned
+tier: the read path, CP population and the gRW-Tx commit under both
+policies (the overlapped schedule, telemetry, degraded mode, routing
+overlays, the maintenance gate, the journal and the replicated tier are not
+ported yet). Vertex ownership is interleaved
 (shard ``v mod n`` owns ``v``) and the one-hop result cache is
 co-partitioned with it: the global cache of ``C`` slots is ``n`` blocks of
 ``C // n`` slots, and a key's block is its root's owner, so a probe is
@@ -28,6 +29,14 @@ After the hops, one all-reduce globalizes the additive metrics and the
 per-hop miss counts, so every metric equals the single-host engine's except
 ``route_overflow`` and ``locality_routed`` (sharded-only, both 0 with
 no-drop caps and the identity routing table) and ``host_syncs``.
+
+A gRW-Tx commit is one per-rank program too (``grw_step``): each rank
+applies the batch to its own blocks (``apply_mutations_partitioned``), runs
+the ownership-gated listener over its pre- and post-state blocks, compacts
+the derived ops, routes each to its root's cache owner in one all_to_all,
+all-gathers the sweeps, and applies both to its cache block. Its post-store
+equals ``partition_store`` of the single host's post-store, and its cache
+the single host's entries.
 """
 
 from __future__ import annotations
@@ -39,10 +48,21 @@ import torch
 
 from repro_torch.core.cache import _SLOT_FIELDS, CacheState, cache_shard, empty_cache
 from repro_torch.core.keys import PARAM_LEN
+from repro_torch.core.invalidation import (
+    CacheOpStream,
+    SweepStream,
+    apply_op_stream_batched,
+    apply_op_stream_segmented,
+    apply_sweeps,
+    derive_cache_ops_views,
+)
 from repro_torch.core.runtime import (
+    OPS_CAP,
+    SWEEP_CAP,
     WIRE_FLAG_VALID,
     bucket_for,
     bucketize,
+    compact_rows,
     decode_miss_records,
     make_plan_fn,
     pack_query_frame,
@@ -57,10 +77,18 @@ from repro_torch.distributed.routing import (
     identity_table,
     storage_owner_of,
 )
-from repro_torch.distributed.sharding import ALL_REDUCE_SUM, ALL_TO_ALL, LocalMesh
+from repro_torch.distributed.sharding import (
+    ALL_GATHER,
+    ALL_REDUCE_MAX,
+    ALL_REDUCE_SUM,
+    ALL_TO_ALL,
+    LocalMesh,
+)
 from repro_torch.graphstore.partition import (
     BlockStoreView,
+    apply_mutations_partitioned,
     default_pspec,
+    join_shards,
     local_shard,
     owner_of,
     partition_store,
@@ -183,6 +211,10 @@ class ShardedTxnRuntime:
     (hop ``i`` uses entry ``min(i, last)``), and ``None`` sizes them for the
     worst case, so nothing can drop (the parity tests' configuration).
 
+    The maintenance ops and sweeps each rank derives per commit, and the
+    ops it routes to each peer, are bounded by the single host's caps
+    (``OPS_CAP`` / ``SWEEP_CAP``); ops they drop count in ``op_overflow``.
+
     Entry points run on CUDA unless ``device`` names another device, and
     raise if it is absent. The identity routing table is threaded through
     every step, as the reference does by default.
@@ -279,6 +311,113 @@ class ShardedTxnRuntime:
         metrics["locality_retry_rows"] = 0  # no routing overlays yet
         misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
         return result[:B], misses, metrics
+
+    # -------------------------------------------------------- gRW-Tx path
+    def _route_and_apply_ops(self, cache, ops, sweeps, through: bool, syncs):
+        """One rank's maintenance apply, a per-rank program: compact the
+        derived ops to ``OPS_CAP`` rows and route each, as one frame
+        ``[flags | kind | tpl | root | params | vid | order]``, to the shard
+        holding its root's cache entries (``cache_owner_of``) in one
+        all_to_all; all-gather the sweeps, which every rank applies whole (a
+        sweep of another shard's root matches nothing here); then apply
+        sweeps, then ops, to the rank's cache block. Returns (cache',
+        occupancy delta, overflow)."""
+        n, cap, lcspec = self.n, OPS_CAP, self.lspec.cache
+        (okind, otpl, oroot, oparams, ovid, oorder), _, ovf_c = compact_rows(
+            ops.ok, OPS_CAP, (ops.kind, ops.tpl, ops.root, ops.params, ops.vid, ops.order),
+            (0, -1, NULL_ID, 0, NULL_ID, 0),
+        )
+        dest = torch.where(oroot != NULL_ID, cache_owner_of(self.rtable, oroot, n), -1)
+        flags = torch.full_like(oroot, WIRE_FLAG_VALID)
+        col = lambda x: x[:, None]
+        frame = torch.cat([col(flags), col(okind), col(otpl), col(oroot), oparams, col(ovid),
+                           col(oorder)], dim=1)
+        send, _, _, ovf_r = bucketize(frame, dest, n, cap, fill=0)  # padding: flags 0
+        recv = (yield (ALL_TO_ALL, send)).reshape(n * cap, -1)
+        P = PARAM_LEN
+        rops = CacheOpStream(
+            kind=recv[:, 1], tpl=recv[:, 2], root=recv[:, 3], params=recv[:, 4:4 + P],
+            vid=recv[:, 4 + P], order=recv[:, 5 + P],
+            ok=(recv[:, 0] & WIRE_FLAG_VALID) == WIRE_FLAG_VALID,
+        )
+        (stpl, sroot), _, ovf_s = compact_rows(sweeps.ok, SWEEP_CAP,
+                                               (sweeps.tpl, sweeps.root), (-1, NULL_ID))
+        g = yield (ALL_GATHER, torch.stack([stpl, sroot], dim=1))
+        gsw = SweepStream(tpl=g[:, 0], root=g[:, 1], ok=g[:, 1] != NULL_ID)
+        # impacted = distinct logical keys removed: the chunk-0 occupancy
+        # delta (raw ops would count a key hit by several ops more than once)
+        head = lambda c: (c.valid & (c.chunk == 0)).sum(dtype=torch.int32)
+        occ0 = head(cache)
+        cache2 = apply_sweeps(lcspec, cache, gsw)
+        if through:
+            cache2 = apply_op_stream_segmented(lcspec, cache2, rops, syncs)
+        else:
+            cache2 = apply_op_stream_batched(lcspec, cache2, rops)
+        occ = occ0 - head(cache2)
+        return cache2._replace(n_delete=cache.n_delete + occ), occ, ovf_c + ovf_r + ovf_s
+
+    def _grw_fn(self, through: bool, store, cache, ttable, batch, me: int, syncs):
+        """Rank ``me``'s gRW-Tx commit, a per-rank program: apply the batch to
+        its blocks, derive the ops its storage owns, route and apply them,
+        then one all-reduce sum of (impacted, overflow) and one all-reduce
+        max of (largest block, largest recent fill). Returns (the rank's
+        store, its cache block, impacted, op_overflow, store_overflow,
+        blk_max, rec_max)."""
+        pspec, rtable = self.pspec, self.rtable
+        local = local_shard(pspec, store, me)
+        store2, applied, store_ovf = yield from apply_mutations_partitioned(
+            pspec, local, batch, me, rtable)
+        ops, sweeps = derive_cache_ops_views(
+            self.lspec, BlockStoreView(pspec, local, me, rtable),
+            BlockStoreView(pspec, store2, me, rtable), ttable, applied, through=through)
+        cache2, occ, ovf = yield from self._route_and_apply_ops(
+            cache_shard(cache, self.n, me), ops, sweeps, through, syncs)
+        sums = yield (ALL_REDUCE_SUM, torch.stack([occ, ovf]))
+        out, inc = store2.out, store2.inc
+        fill = torch.stack([torch.maximum(out.blk_len[0], inc.blk_len[0]),
+                            torch.maximum(out.blk_len[0] - out.csr_len[0],
+                                          inc.blk_len[0] - inc.csr_len[0])])
+        maxes = yield (ALL_REDUCE_MAX, fill)
+        return store2, cache2, sums[0], sums[1], store_ovf, maxes[0], maxes[1]
+
+    def grw_step(self, policy: str = "write-around"):
+        """The partitioned gRW-Tx commit under ``policy`` (write-around or
+        write-through): ``step(store, cache, ttable, batch, syncs=None) ->
+        (store', cache', impacted, op_overflow, store_append_overflow,
+        max_blk_len, max_recent_fill)``, the last five device scalars. Runs
+        every rank's ``_grw_fn`` on the mesh and joins their blocks in rank
+        order; write-through's round reads are counted in ``syncs``."""
+        if policy not in ("write-around", "write-through"):
+            raise ValueError(f"unknown gRW policy {policy!r}")
+        through = policy == "write-through"
+
+        def step(store, cache, ttable, batch, syncs=None):
+            syncs = syncs if syncs is not None else SyncCount()
+            outs = self.mesh.run([self._grw_fn(through, store, cache, ttable, batch, me, syncs)
+                                  for me in range(self.n)])
+            store2 = join_shards([o[0] for o in outs])
+            cache2 = _replicate_stats(cache, [o[1] for o in outs])
+            return (store2, cache2) + tuple(outs[0][2:])
+
+        return step
+
+    def run_grw_tx(self, store, cache, ttable, batch, policy: str = "write-around"):
+        """One gRW-Tx on the partitioned tier, mirroring
+        ``core.engine.run_grw_tx``: (store', cache', metrics). Metrics:
+        ``impacted_keys``, ``op_overflow``, ``store_append_overflow``,
+        ``store_occupancy_max`` (largest block fill over ``e_blk_cap``),
+        ``store_recent_fill_max`` (largest ``blk_len - csr_len``) and
+        ``host_syncs`` (write-through's round reads and the one copy of the
+        rest)."""
+        syncs = SyncCount()
+        store2, cache2, *scalars = self.grw_step(policy)(store, cache, ttable, batch, syncs)
+        impacted, ovf, store_ovf, blk_max, rec_max = torch.stack(
+            [x.to(torch.int64) for x in scalars]).tolist()
+        return store2, cache2, {
+            "impacted_keys": impacted, "op_overflow": ovf, "store_append_overflow": store_ovf,
+            "store_occupancy_max": round(blk_max / self.pspec.e_blk_cap, 4),
+            "store_recent_fill_max": rec_max, "host_syncs": syncs.n + 1,
+        }
 
     # ------------------------------------------------------ CP population
     def populator(self, templates_meta, owner: int, max_retries: int = 3):

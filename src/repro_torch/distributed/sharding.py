@@ -9,11 +9,15 @@ the ``yield``:
 - ``(ALL_TO_ALL, send)`` with ``send`` of shape ``[n, ...]``: row ``d`` goes
   to rank ``d``; every rank receives ``recv[s] = send_from_rank_s[d]``
   (the reference's tiled ``all_to_all`` with split and concat axis 0);
-- ``(ALL_REDUCE_SUM, x)``: every rank receives the sum of all ranks' ``x``.
+- ``(ALL_REDUCE_SUM, x)``: every rank receives the sum of all ranks' ``x``;
+- ``(ALL_REDUCE_MAX, x)``: every rank receives the elementwise maximum
+  (the reference's ``pmax``);
+- ``(ALL_GATHER, x)``: every rank receives the concatenation of all ranks'
+  ``x`` along axis 0, in rank order (the tiled ``all_gather`` on axis 0).
 
 ``LocalMesh.run`` advances every rank to its next request, checks that all
 of them asked for the same collective on tensors of one shape, performs it
-as an exact permutation or sum, and resumes each rank with its part. Unlike
+exactly (a permutation, a concatenation, a sum or a maximum), and resumes each rank with its part. Unlike
 threads at a barrier, this cannot deadlock: a rank that raises stops the
 run at once, and a rank that finishes or asks for another collective than
 its peers raises ``MeshError``. Running one rank per card replaces only
@@ -26,6 +30,8 @@ import torch
 
 ALL_TO_ALL = "all_to_all"
 ALL_REDUCE_SUM = "all_reduce_sum"
+ALL_REDUCE_MAX = "all_reduce_max"
+ALL_GATHER = "all_gather"
 
 
 class MeshError(RuntimeError):
@@ -40,7 +46,7 @@ class LocalMesh:
         if n < 1:
             raise ValueError(f"a mesh needs at least one rank, got {n}")
         self.n = n
-        self.counts = {ALL_TO_ALL: 0, ALL_REDUCE_SUM: 0}
+        self.counts = {ALL_TO_ALL: 0, ALL_REDUCE_SUM: 0, ALL_REDUCE_MAX: 0, ALL_GATHER: 0}
 
     def run(self, programs):
         """Drive one generator per rank to its end; returns their return
@@ -83,6 +89,12 @@ class LocalMesh:
         if kind == ALL_REDUCE_SUM:
             total = torch.stack(xs).sum(dim=0, dtype=xs[0].dtype)
             return [total] * n
+        if kind == ALL_REDUCE_MAX:
+            return [torch.stack(xs).amax(dim=0)] * n
+        if kind == ALL_GATHER:
+            if xs[0].dim() == 0:
+                raise MeshError("all_gather needs a leading axis to concatenate on")
+            return [torch.cat(xs)] * n
         raise MeshError(f"unknown collective {kind!r}")
 
 

@@ -23,7 +23,9 @@ from repro_torch.graphstore.partition import (
     EdgeBlock,
     PartitionedGraphStore,
     PartitionedStoreSpec,
+    apply_mutations_partitioned,
     default_pspec,
+    join_shards,
     local_of,
     local_shard,
     owner_of,
@@ -52,7 +54,9 @@ __all__ = [
     "EdgeBlock",
     "BlockStoreView",
     "partition_store",
+    "apply_mutations_partitioned",
     "default_pspec",
+    "join_shards",
     "owner_of",
     "local_of",
     "local_shard",

@@ -1,10 +1,10 @@
 """The partitioned dual-CSR storage tier: owner-local edge blocks.
 
-PyTorch twin of ``repro.graphstore.partition`` (the read side; mutation of
-a partitioned store, the geid lookups and maintenance are not ported
-yet). ``PartitionedGraphStore`` splits edge storage into owner-local
-blocks, so a one-hop scan reads only tensors of the shard that owns the
-hop's root:
+PyTorch twin of ``repro.graphstore.partition``: the read side, the geid
+index and the gRW commit (``apply_mutations_partitioned``); block
+maintenance is not ported yet. ``PartitionedGraphStore`` splits edge
+storage into owner-local blocks, so a one-hop scan reads only tensors of
+the shard that owns the hop's root:
 
 - the **out block** of shard ``s`` holds every edge whose *src* vertex
   ``s`` owns, CSR-ordered by src;
@@ -21,7 +21,8 @@ single-host store it was built from.
 
 Arrays carry the global layout ``[n * e_blk_cap, ...]``, shard ``s`` at rows
 ``[s * e_blk_cap, (s + 1) * e_blk_cap)``; ``local_shard`` returns views of
-those rows, never copies.
+those rows, never copies. So the commit is functional: it writes copies of
+what it changes and never a view the caller holds.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.distributed.routing import storage_owner_of
+from repro_torch.distributed.sharding import ALL_REDUCE_SUM
+from repro_torch.graphstore.mutations import AppliedMutations, _sec_mask, _set_cells
 from repro_torch.graphstore.store import GraphStore, StoreSpec, empty_store
-from repro_torch.utils import INT32_MAX, PROP_MISSING, take_along0
+from repro_torch.utils import INT32_MAX, PROP_MISSING, scatter_drop, take_along0
 
 
 class PartitionedStoreSpec(NamedTuple):
@@ -335,6 +338,11 @@ class BlockStoreView:
     def valive(self):
         return self.ps.valive
 
+    def own(self, vids):
+        """Which of ``vids`` this shard owns (their storage owner under the
+        routing table); the listener gates its emissions by it."""
+        return storage_owner_of(self.rtable, vids, self.pspec.n_shards) == self.me
+
     def adjacency(self, roots, max_deg: int, *, incoming: bool):
         """Returns ``(other [B, W], mask, truncated [B], elabel, eprops)``."""
         slots, other, mask, trunc = gather_block(
@@ -356,6 +364,183 @@ class BlockStoreView:
         )
 
 
+# ------------------------------------------------------------- geid index
+def rebuild_geid_index(blk_len, geid):
+    """One block's sorted geid -> slot permutation from scratch: allocated
+    slots (``< blk_len``) by ascending geid, then the unallocated tail in
+    slot order, as ``partition_store`` builds it."""
+    lanes = torch.arange(geid.shape[0], dtype=torch.int32, device=geid.device)
+    masked = torch.where(lanes < blk_len, geid, INT32_MAX)
+    return torch.sort(masked, stable=True).indices.to(torch.int32)
+
+
+def sorted_geid_view(EB: int, geid, gperm, blk_len):
+    """The index's ascending geid view (one gather), shareable by every
+    lookup against the same block state."""
+    lanes = torch.arange(EB, dtype=torch.int32, device=geid.device)
+    return torch.where(lanes < blk_len, take_along0(geid, gperm), INT32_MAX)
+
+
+def geid_slot_lookup(EB: int, geid, gperm, blk_len, eids, skey=None):
+    """Locate global edge ids in one block through the sorted geid index:
+    a binary search of the ascending view (pass ``skey`` to share it).
+    Returns ``(slot [K], found [K])``; ``slot`` means something only where
+    ``found``."""
+    if skey is None:
+        skey = sorted_geid_view(EB, geid, gperm, blk_len)
+    eids = torch.as_tensor(eids).to(device=geid.device, dtype=torch.int32)
+    pos = torch.searchsorted(skey, eids.contiguous(), side="left").to(torch.int32)
+    posc = pos.clamp(0, EB - 1)
+    slot = take_along0(gperm, posc)
+    found = (pos < blk_len) & (take_along0(skey, posc) == eids) & (eids >= 0)
+    return slot, found
+
+
+# ----------------------------------------------------------------- writes
+def _psum(x):
+    """One all-reduce sum of the mesh (a per-rank program's request)."""
+    return (yield (ALL_REDUCE_SUM, x))
+
+
+def _lookup_block(pspec: PartitionedStoreSpec, blk: EdgeBlock, eids, skey=None):
+    """Locate global edge ids in one shard's block and replicate their
+    records over the mesh: exactly one shard holds an edge's copy per
+    orientation, so the sum over ranks is that owner's record. A per-rank
+    program; returns ``(found, key, other, label, props)``."""
+    sl, found_l = geid_slot_lookup(pspec.e_blk_cap, blk.geid, blk.gperm, blk.blk_len[0],
+                                   eids, skey=skey)
+    contrib = lambda a: torch.where(found_l, take_along0(a, sl), 0)
+    found = (yield from _psum(found_l.to(torch.int32))) > 0
+    key = yield from _psum(contrib(blk.key))
+    other = yield from _psum(contrib(blk.other))
+    label = yield from _psum(contrib(blk.label))
+    props = yield from _psum(torch.where(found_l[:, None], take_along0(blk.props, sl), 0))
+    return found, key, other, label, props
+
+
+def _pick(rows, col):
+    """``rows[i, col[i]]`` for each row."""
+    return rows.gather(1, col.long()[:, None])[:, 0]
+
+
+def apply_mutations_partitioned(pspec: PartitionedStoreSpec, ps: PartitionedGraphStore,
+                                batch, me: int, rtable=None):
+    """One gRW commit on shard ``me``: a per-rank program (a generator that
+    yields its all-reduces; see ``distributed.sharding``) over the shard's
+    ``local_shard`` view.
+
+    New, deleted and re-propertied edges land at their src-owner's out
+    block and dst-owner's in block (located by global edge id; new edges
+    append to the recent region at ``blk_len + rank`` and enter the geid
+    index at once); vertex sections apply to the replicated attribute tier
+    on every rank alike. The pre-images the single host reads from its
+    edge arrays are all-reduced from the src-owners, so the returned
+    ``AppliedMutations`` equals the single host's on every rank.
+
+    Returns ``(store', applied, append_overflow)``: ``store'`` holds the
+    shard's new blocks, written as copies (``ps`` is left as it was); a
+    nonzero overflow counts new edges a full block dropped, over the mesh.
+    """
+    spec, n = pspec.base, pspec.n_shards
+    EB = pspec.e_blk_cap
+    nvp, nep = spec.n_vprops, spec.n_eprops
+    b = batch
+    dev = ps.vlabel.device
+    where = torch.where
+    new_version = ps.version + 1
+
+    nv_mask = _sec_mask(b.nv_label, b.nv_n)
+    ne_mask = _sec_mask(b.ne_src, b.ne_n)
+    de_mask = _sec_mask(b.de_eid, b.de_n)
+    dv_mask = _sec_mask(b.dv_vid, b.dv_n)
+    sv_mask = _sec_mask(b.sv_vid, b.sv_n)
+    se_mask = _sec_mask(b.se_eid, b.se_n)
+    se_pcol = b.se_pid.clamp(0, nep - 1)
+    sv_pcol = b.sv_pid.clamp(0, nvp - 1)
+
+    # ---- pre-images from the pre-state out blocks (one shared sorted view);
+    # the defaults are what an empty slot holds
+    skey_pre = sorted_geid_view(EB, ps.out.geid, ps.out.gperm, ps.out.blk_len[0])
+    f_de, de_src_g, de_dst_g, de_lab_g, de_props_g = yield from _lookup_block(
+        pspec, ps.out, b.de_eid, skey=skey_pre)
+    de_src = where(de_mask, where(f_de, de_src_g, INT32_MAX), -1)
+    de_dst = where(de_mask, where(f_de, de_dst_g, -1), -1)
+    de_label = where(de_mask, where(f_de, de_lab_g, -1), -1)
+    de_props = where(de_mask[:, None], where(f_de[:, None], de_props_g, PROP_MISSING),
+                     PROP_MISSING)
+    f_se, se_src_g, se_dst_g, se_lab_g, se_props_g = yield from _lookup_block(
+        pspec, ps.out, b.se_eid, skey=skey_pre)
+    se_src = where(se_mask, where(f_se, se_src_g, INT32_MAX), -1)
+    se_dst = where(se_mask, where(f_se, se_dst_g, -1), -1)
+    se_label = where(se_mask, where(f_se, se_lab_g, -1), -1)
+    se_pre_rows = where(f_se[:, None], se_props_g, PROP_MISSING)
+    se_old = where(se_mask, _pick(se_pre_rows, se_pcol), PROP_MISSING)
+    sv_old = where(sv_mask, _pick(take_along0(ps.vprops, b.sv_vid), sv_pcol), PROP_MISSING)
+
+    # ---- ids from the replicated scalars (no coordination)
+    knv, kne = b.nv_label.shape[0], b.ne_src.shape[0]
+    nv_vid = where(nv_mask, ps.v_len + torch.arange(knv, dtype=torch.int32, device=dev), -1)
+    ne_eid = where(ne_mask, ps.e_len + torch.arange(kne, dtype=torch.int32, device=dev), -1)
+
+    # ---- the replicated vertex-attribute tier, alike on every rank
+    vlabel = scatter_drop(ps.vlabel, nv_vid, b.nv_label, nv_mask)
+    valive = scatter_drop(ps.valive, nv_vid, True, nv_mask)
+    vprops = scatter_drop(ps.vprops, nv_vid, b.nv_props, nv_mask)
+    vprops = _set_cells(vprops, b.sv_vid, sv_pcol, b.sv_val, sv_mask)
+    valive = scatter_drop(valive, b.dv_vid, False, dv_mask)
+    vids = torch.cat([b.ne_src, b.ne_dst, de_src, de_dst, b.sv_vid, se_src, se_dst,
+                      b.dv_vid, nv_vid])
+    vmask = torch.cat([ne_mask, ne_mask, de_mask, de_mask, sv_mask, se_mask, se_mask,
+                       dv_mask, nv_mask])
+    vversion = scatter_drop(ps.vversion, vids, new_version, vmask)
+
+    # ---- the shard's owner-local edge blocks
+    def apply_block(blk: EdgeBlock, keysel, othersel):
+        own_ne = ne_mask & (storage_owner_of(rtable, keysel, n) == me)
+        rank = torch.cumsum(own_ne.to(torch.int32), 0, dtype=torch.int32) - 1
+        pos = where(own_ne, blk.blk_len[0] + rank, EB)
+        fits = own_ne & (pos < EB)
+        ovf = (own_ne & ~fits).sum(dtype=torch.int32)
+        put = lambda a, v: scatter_drop(a, pos, v, fits)
+        # appended geids exceed every geid in the block (e_len only grows),
+        # so an appended slot's sorted rank is its own index
+        gperm = put(blk.gperm, pos.to(torch.int32))
+        geid = put(blk.geid, ne_eid)
+        new_len = blk.blk_len[0] + fits.sum(dtype=torch.int32)
+        # prop edits and deletes find their copy after the append, so this
+        # batch's new edges are editable; both share one sorted view
+        skey = sorted_geid_view(EB, geid, gperm, new_len)
+        sl_se, f_se_l = geid_slot_lookup(EB, geid, gperm, new_len, b.se_eid, skey=skey)
+        sl_de, f_de_l = geid_slot_lookup(EB, geid, gperm, new_len, b.de_eid, skey=skey)
+        props = _set_cells(put(blk.props, b.ne_props), sl_se, se_pcol, b.se_val,
+                           f_se_l & se_mask)
+        alive = scatter_drop(put(blk.alive, True), sl_de, False, f_de_l & de_mask)
+        return blk._replace(
+            key=put(blk.key, keysel), other=put(blk.other, othersel),
+            label=put(blk.label, b.ne_label), alive=alive, props=props, geid=geid,
+            gperm=gperm, blk_len=new_len.reshape(1),
+        ), ovf
+
+    out2, ovf_o = apply_block(ps.out, b.ne_src, b.ne_dst)
+    inc2, ovf_i = apply_block(ps.inc, b.ne_dst, b.ne_src)
+    ps2 = ps._replace(
+        vlabel=vlabel, valive=valive, vprops=vprops, vversion=vversion, out=out2, inc=inc2,
+        v_len=ps.v_len + b.nv_n, e_len=ps.e_len + b.ne_n, version=new_version,
+    )
+    # post-change edge-prop rows (the listener's key calc), from the new blocks
+    f_sp, _, _, _, se_post_rows = yield from _lookup_block(pspec, ps2.out, b.se_eid)
+    se_props_new = where(se_mask[:, None], where(f_sp[:, None], se_post_rows, PROP_MISSING),
+                         PROP_MISSING)
+    applied = AppliedMutations(
+        batch=batch, ne_eid=ne_eid, nv_vid=nv_vid,
+        de_src=de_src, de_dst=de_dst, de_label=de_label, de_props=de_props,
+        sv_old=sv_old, se_old=se_old, se_src=se_src, se_dst=se_dst,
+        se_label=se_label, se_props=se_props_new, commit_version=new_version,
+    )
+    overflow = yield from _psum(ovf_o + ovf_i)
+    return ps2, applied, overflow
+
+
 def local_shard(pspec: PartitionedStoreSpec, ps: PartitionedGraphStore, s: int):
     """Shard ``s``'s local view of a global partitioned store: views of its
     block rows; the replicated tier passes through."""
@@ -371,3 +556,13 @@ def local_shard(pspec: PartitionedStoreSpec, ps: PartitionedGraphStore, s: int):
         )
 
     return ps._replace(out=blk(ps.out), inc=blk(ps.inc))
+
+
+def join_shards(stores) -> PartitionedGraphStore:
+    """The inverse of ``local_shard`` over all ranks: one store whose blocks
+    are the ranks' blocks in rank order; the replicated tier, alike on every
+    rank, is rank 0's."""
+    join = lambda blocks: EdgeBlock(*(torch.cat(f) for f in zip(*blocks)))
+    return stores[0]._replace(out=join([s.out for s in stores]),
+                              inc=join([s.inc for s in stores]))
+

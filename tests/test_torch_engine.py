@@ -85,12 +85,14 @@ class Both:
         assert (self.tpop.committed, self.tpop.aborted) == (self.jpop.committed, self.jpop.aborted)
         self.check_state("populate")
 
-    def grw(self, **kw):
+    def grw(self, policy="write-around", **kw):
         self.jstore, self.jcache, jmw = J.run_grw_tx(
-            self.jspec, self.jstore, self.jcache, self.jttable, j_batch(self.jspec.store, **kw))
+            self.jspec, self.jstore, self.jcache, self.jttable, j_batch(self.jspec.store, **kw),
+            policy=policy)
         self.tstore, self.tcache, tmw = T.run_grw_tx(
             self.tspec, self.tstore, self.tcache, self.tttable,
-            t_batch(self.tspec.store, device="cpu", **kw), device="cpu")
+            t_batch(self.tspec.store, device="cpu", **kw), policy=policy, device="cpu")
+        assert tmw.pop("host_syncs") >= 1
         assert tmw == jmw
         self.check_state("gRW")
         return tmw

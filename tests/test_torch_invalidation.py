@@ -77,8 +77,3 @@ def test_invalidate_write_around_sink_path():
         w.jstore, w.jcache, w.tstore, w.tcache = js2, jc, ts2, tc
         w.check_state("invalidate_write_around")
 
-
-def test_write_through_is_not_ported_yet():
-    w = Both()
-    with pytest.raises(NotImplementedError):
-        T.build_grw_step(w.tspec, "write-through", device="cpu")

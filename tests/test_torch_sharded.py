@@ -25,6 +25,8 @@ from repro.graphstore.mutations import apply_mutations as j_apply
 import repro_torch.core as T
 from repro_torch import interop
 from repro_torch.distributed import (
+    ALL_GATHER,
+    ALL_REDUCE_MAX,
     ALL_REDUCE_SUM,
     ALL_TO_ALL,
     MeshError,
@@ -134,7 +136,7 @@ def test_mesh_is_an_exact_lockstep_permutation():
         assert total == 6
         for s in range(3):
             assert recv[s].tolist() == [10 * s + 2 * d, 10 * s + 2 * d + 1]
-    assert mesh.counts == {ALL_TO_ALL: 1, ALL_REDUCE_SUM: 1}
+    assert mesh.counts == {ALL_TO_ALL: 1, ALL_REDUCE_SUM: 1, ALL_GATHER: 0, ALL_REDUCE_MAX: 0}
 
     def odd(r):  # rank 2 asks for another collective than its peers
         yield (ALL_REDUCE_SUM if r == 2 else ALL_TO_ALL, torch.zeros(3, 1))
