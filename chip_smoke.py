@@ -94,7 +94,33 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    does not reach (Gemma3's window and dh 256, dh 112 and 16, fp32,
    non-causal 48 x 96, ``q_offset``, the 128-row tiling's edges); prefill
    and decode times, the kernel's HGMMA / UTMALDG instruction counts, and
-   its times beside its bound and SDPA.
+   its times beside its bound and SDPA;
+11. block maintenance and durability, right after 7 on its partitioned
+   store: 32 W-hat gRW-Txs through ``run_grw_tx`` with the maintenance gate
+   at one lane of each 1,024-lane recent window and the write-behind
+   journal (its flusher thread running), each followed by a read batch of
+   512 Zipf roots with CP; commits 21-28 under write-through, incremental
+   checkpoints every 8 commits on a full one at the start, then, after the
+   last checkpoint (so that replay repeats them), one tombstone purge
+   (commit 25) behind the epoch registry, a forced ``maintenance_tick``
+   after commit 26 and ``grow_blocks`` to 2^24 + 2^22 lanes a block after
+   28. A control runtime takes the same commits with no gate and no
+   maintenance: each commit's ``impacted_keys`` must be equal on both, and
+   so must each read batch (results, misses, metrics) unless a root it read
+   crosses ``max_deg`` differently on the two stores (the one way
+   compaction changes a read, in both packages; every other root's one-hop
+   reads are held equal); every block's gate must have compacted it (the
+   purge counted apart), and every ``block_gather`` / ``cache_probe`` call
+   equal its plain version. Then the crash (runtime and journal objects
+   dropped, torn bytes at the log's tail) and ``replay`` on a fresh
+   runtime, through COMMIT, COMPACT and GROW records: the replayed store
+   must equal the live one field for field, four more read batches the
+   control's, and the recovered store's first incremental checkpoint falls
+   back to full. Prints commit p50 / p90 gated and not, host reads a
+   commit, the crossing roots, ``compact_step``'s device time, the growth's
+   seconds, each checkpoint's seconds and bytes, replay seconds, the
+   journal's metrics and the kernels' times over compacted and grown
+   blocks.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -103,6 +129,7 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
+Phase 11 runs right after 7, on its store, before 9.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -250,6 +277,21 @@ def templates_and_plans():
         ("q_agg", QueryPlan((agg,), FINAL_COUNT, extra_phases=2), L_WATCHLIST, 0.14),
     ]
     return T, meta, plans
+
+
+def serving_ttable(templates):
+    """The template table with every template registered and enabled for
+    reads and writes through one query processor (the safe lifecycle)."""
+    from repro_torch.core import make_template_table
+    from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
+
+    qp = GraphQP("qp0")
+    sc = ServiceCoordinator([qp])
+    for t in range(len(templates)):
+        sc.register(t)
+        sc.enable(t)
+    assert sc.check_safety()
+    return qp.ttable_masks(make_template_table(templates), len(templates))
 
 
 def zipf_pick(rng, lo, hi, n, a=1.3):
@@ -782,7 +824,9 @@ def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, includes, e
     same store and batches (both caches start empty; after every batch both
     populate the same ``P_CP_PER_BATCH`` miss records); then the gRW rounds
     (``run_partitioned_grw``) and phase 6's consistency check on the single
-    host after them."""
+    host after them. Returns the report, the read calls' capture, the gRW
+    rounds' kernel check and the (single-host, partitioned) stores after the
+    rounds."""
     import repro_torch.core.cache as cache_mod
     from repro_torch.core import CachePopulator, empty_cache
     from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_mesh
@@ -893,7 +937,7 @@ def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, includes, e
     profile_window(" partitioned", seed, plans, ranges,
                    lambda name, r: rt.run_gr_tx_batch(pstore, pcache, ttable,
                                                       dict((n, p) for n, p, _, _ in plans)[name], r))
-    return report, capture, gcheck
+    return report, capture, gcheck, (hstore, pstore)
 
 
 def entries_equal_on_card(espec, a, b) -> bool:
@@ -1290,35 +1334,35 @@ def run_partitioned_grw(seed, espec, rt, tiers, ttable, plans, ranges, includes,
     return (hstore, hcache, pstore, pcache), reports, gcheck, launches
 
 
-def time_grw_kernels(gcheck):
-    """The largest ``cache_probe`` and ``block_gather`` calls of the gRW
-    rounds (over blocks the commits changed), timed beside their bounds."""
+def time_kernel_calls(tag, probe, gathers):
+    """One ``cache_probe`` call and named ``block_gather`` calls a path made,
+    each timed beside its bound (counted for its own inputs and
+    ``e_blk_cap``); returns their timing rows."""
     from repro_torch.kernels.block_gather import ops as bg_ops
     from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.cache_probe.ref import cache_probe_ref
 
     out = {}
-    # the partitioned tier's (the owner blocks are the smaller caches)
-    a, kw = gcheck.largest[min(k for k in gcheck.largest if isinstance(k, tuple))]
+    a, kw = probe
     hit, slot = cache_probe_ref(*a, **kw)
     t = timings(lambda: cp_ops.cache_probe(*a, **kw), lambda: cache_probe_ref(*a, **kw))
     bms, by = bound_ms(*probe_bound(a, hit, slot, kw["probes"]))
-    print(f"kernel cache_probe grw largest keys={a[4].shape[0]} cap={a[0].shape[0]} "
+    print(f"kernel cache_probe {tag} largest keys={a[4].shape[0]} cap={a[0].shape[0]} "
           f"hits={int(hit.sum())} {fmt_us(t)} bound_us={bms * 1e3:.4f} ({by})", flush=True)
     out["cache_probe"] = dict(t, bound_ms=bms, shape=f"keys={a[4].shape[0]},cap={a[0].shape[0]}")
-    for incoming in (False, True):
-        a, kw = gcheck.largest[incoming]
+    for label, (a, kw) in gathers.items():
         want = block_gather_filter_ref(*a, **kw)
         t = timings(lambda: bg_ops.block_gather(*a, **kw),
                     lambda: block_gather_filter_ref(*a, **kw))
-        bms, by = bound_ms(*block_gather_bound(a, kw, want))
-        side = "in" if incoming else "out"
+        nbytes, ops = block_gather_bound(a, kw, want)
+        bms, by = bound_ms(nbytes, ops)
         B, W = want[0].shape
-        print(f"kernel block_gather grw {side} rows={B} lanes={W} scanned={int(want[1].sum())} "
-              f"recent_scanned={int(want[1][:, gcheck.max_deg:].sum())} {fmt_us(t)} "
-              f"bound_us={bms * 1e3:.4f} ({by})", flush=True)
-        out[f"block_gather_{side}"] = dict(t, bound_ms=bms, shape=f"{side}:rows={B},lanes={W}")
+        shape = f"{label}:rows={B},lanes={W},EB={kw['e_blk_cap']}"
+        print(f"kernel block_gather {tag} {shape} csr_len={int(a[9])} blk_len={int(a[10])} "
+              f"scanned={int(want[1].sum())} recent_scanned={int(want[1][:, kw['max_deg']:].sum())} "
+              f"{fmt_us(t)} bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+        out[f"block_gather_{label}"] = dict(t, bound_ms=bms, shape=shape)
     return out
 
 
@@ -1523,6 +1567,429 @@ def diagnose_block_gather(a, kw):
     return out
 
 
+# ------------------------------------------------------------ durability
+# Phase 11: block maintenance and durability on the phase-7 store (4 owners,
+# e_blk_cap 2^24, recent windows of 1,024), against a control runtime that
+# takes the same commits with no gate and no maintenance.
+D_COMMITS = 32  # W-hat gRW-Txs of the phase: what its ~300 s allow
+# the gate compacts a block at its first recent lane (ceil(frac * 1,024) =
+# 1), so each block's gate fires at every commit that appends to it
+D_GATE_FRAC = 1 / 1024
+D_CKPT_EVERY = 8  # the reference serve loop's --checkpoint-every default
+D_FLUSH_S = 0.005  # the reference serve loop's flusher interval
+# the one purge, the forced tick and the growth all come after the last
+# checkpoint (commit 24), so replay repeats a COMMIT with purge, a COMPACT
+# and a GROW record; the purge commit's gate compacts every block with purge
+D_PURGE_AT = 25
+D_TICK_AT = 26  # a host maintenance_tick forces a compaction after this commit
+D_GROW_AT = 28  # grow_blocks after this commit, at the batch boundary
+D_GROW_TO = (1 << 24) + (1 << 22)
+# the write-through stretch (both runtimes): commits 21-28, across the last
+# checkpoint, so replay repeats part of it
+D_THROUGH = range(21, 29)
+D_AFTER_READS = 4  # read batches on the replayed store
+
+
+class MaintenanceKernelCheck:
+    """Holds every ``block_gather`` and ``cache_probe`` call of phase 11 to
+    its plain version, batch by batch, and keeps for timing the largest
+    ``block_gather`` call over compacted blocks (an empty recent window) at
+    the phase's first ``e_blk_cap``, the largest over grown blocks, and the
+    largest ``cache_probe`` call. The comparison launches are taken back off
+    the kernels' counts."""
+
+    def __init__(self, eb0):
+        self.eb0 = eb0
+        self.calls = {"cache_probe": 0, "compacted": 0, "recent": 0, "grown": 0}
+        self.largest = {}
+
+    def _keep(self, kind, call, rows):
+        if kind not in self.largest or rows > self.largest[kind][1]:
+            self.largest[kind] = (call, rows)
+
+    def check(self, capture, inc_keys):
+        """Checks and clears the captured calls; returns the distinct roots
+        the ``block_gather`` calls read (rows with ``rmask``), ``[out,
+        inc]`` (a call reads ``inc`` where its ``key`` is in ``inc_keys``)."""
+        from repro_torch.kernels.block_gather import ops as bg_ops
+        from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+        from repro_torch.kernels.cache_probe import ops as cp_ops
+
+        counts = (bg_ops.launches, cp_ops.launches)
+        probes = capture.calls["cache_probe"]
+        if probes:
+            check_probe_calls(probes, "phase 11")
+        for a, kw in probes:
+            self.calls["cache_probe"] += 1
+            self._keep("cache_probe", (a, kw), a[4].shape[0])
+        roots = ([torch.empty(0, dtype=torch.int32)], [torch.empty(0, dtype=torch.int32)])
+        for a, kw in capture.calls["block_gather"]:
+            roots[a[BG_ARGS.index("key")].data_ptr() in inc_keys].append(
+                a[BG_ARGS.index("roots")][a[BG_ARGS.index("rmask")]].to(torch.int32))
+            got, want = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+            for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+                assert torch.equal(g, w), f"block_gather {name} disagrees with its plain " \
+                    "version in phase 11"
+            if kw["e_blk_cap"] != self.eb0:
+                kind = "grown"
+            else:
+                kind = "compacted" if bool(a[9] == a[10]) else "recent"
+            self.calls[kind] += 1
+            self._keep(kind, (a, kw), a[11].shape[0])
+        for calls in capture.calls.values():
+            calls.clear()
+        bg_ops.launches, cp_ops.launches = counts
+        return [torch.unique(torch.cat([x.to(r[-1].device) for x in r])) for r in roots]
+
+
+def read_layout(pspec, ps):
+    """Each vertex's CSR degree and recent lanes in both orientations (out,
+    inc) of a partitioned store: ``[(deg [V], recent [V]), ...]``."""
+    n, EB, V = pspec.n_shards, pspec.e_blk_cap, pspec.base.v_cap
+    lanes = torch.arange(EB, device=ps.version.device)
+    lay = []
+    for b in (ps.out, ps.inc):
+        ip = b.indptr.view(n, -1)
+        deg = (ip[:, 1:] - ip[:, :-1]).t().reshape(-1)[:V]  # shard s, local l: v = l*n + s
+        region = (lanes >= b.csr_len[:, None]) & (lanes < b.blk_len[:, None])
+        lay.append((deg, torch.bincount(b.key.view(n, EB)[region].long(), minlength=V)[:V]))
+    return lay
+
+
+def crossing_masks(max_deg, lay_a, lay_b):
+    """Per orientation, the vertices whose one-hop reads may differ between
+    two layouts of the same edges, by the rule both packages share: a read
+    truncates where the CSR degree alone passes ``max_deg``, so a vertex
+    whose lanes the two layouts place apart (CSR degree or recent lanes)
+    reads alike only while both degrees stay within ``max_deg``."""
+    return [((da > max_deg) | (db > max_deg)) & ((da != db) | (ra != rb))
+            for (da, ra), (db, rb) in zip(lay_a, lay_b)]
+
+
+def one_hop_reads(pspec, ps, roots, max_deg, incoming):
+    """Each root's one-hop reads in one orientation through the plain
+    gather: its live lanes' (leaf, label, props) in read order, -1 past
+    them, and its truncation flag; roots in shard order."""
+    from repro_torch.graphstore.partition import BlockStoreView, local_shard
+
+    out = []
+    for s in range(pspec.n_shards):
+        view = BlockStoreView(pspec, local_shard(pspec, ps, s), s)
+        other, mask, trunc, elabel, eprops = view.adjacency(
+            roots[roots % pspec.n_shards == s], max_deg, incoming=incoming)
+        v = torch.where(mask[..., None], torch.cat([other[..., None], elabel[..., None], eprops],
+                                                   -1), -1)
+        order = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices
+        out += [torch.take_along_dim(v, order[..., None], 1), trunc]
+    return out
+
+
+def crossing_roots(max_deg, runtimes, stores, roots_by_dir) -> int:
+    """How many (root, orientation) reads of ``roots_by_dir`` (``[out,
+    inc]``) may differ between the two stores (by ``crossing_masks``). Every other root's one-hop reads
+    must be equal on both: so a read batch that differs between them
+    differs through the crossing roots alone."""
+    (ra, rb), (sa, sb) = runtimes, stores
+    risks = crossing_masks(max_deg, read_layout(ra.pspec, sa), read_layout(rb.pspec, sb))
+    n = 0
+    for incoming, (roots, risk) in enumerate(zip(roots_by_dir, risks)):
+        roots = roots.to(risk.device)
+        roots = roots[roots >= 0]
+        keep = roots[~risk[roots.long()]]
+        n += roots.numel() - keep.numel()
+        got = (one_hop_reads(r.pspec, st, keep, max_deg, bool(incoming))
+               for r, st in zip(runtimes, stores))
+        for x, y in zip(*got):
+            assert torch.equal(x, y), "phase 11: a root within max_deg on both stores reads " \
+                "differently on the gated store and the control"
+    return n
+
+
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def run_durability(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
+    """Phase 11: D_COMMITS W-hat gRW-Txs on the phase-7 partitioned store
+    through ``run_grw_tx(gate=DeviceGate(D_GATE_FRAC), journal=...)`` (the
+    write-behind journal's flusher running), each followed by a 512-root
+    read batch with CP; checkpoints every D_CKPT_EVERY commits (the first
+    full), then one purge behind the epoch registry, a forced
+    ``maintenance_tick`` and ``grow_blocks`` to D_GROW_TO lanes; the
+    D_THROUGH commits under write-through. A control runtime takes the same
+    commits with no gate and no maintenance: every commit's ``impacted_keys``
+    must be equal on both, and so must every read batch (results, misses,
+    metrics) unless a root it read crosses ``max_deg`` differently on the
+    two stores (``crossing_roots``, which holds every other root's one-hop
+    reads equal); every kernel call equal to its plain version. Then the
+    crash (the runtime and journal objects dropped, torn bytes at the log's
+    tail) and ``replay`` on a fresh runtime, through COMMIT, COMPACT and
+    GROW records: the replayed store must equal the live one field for
+    field, D_AFTER_READS read batches equal the control's as above, and the
+    first incremental checkpoint after it falls back to full (the growth).
+    Returns the phase's report and kernel timings."""
+    import shutil
+    import tempfile
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.checkpoint import CODEC
+    from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_mesh
+    from repro_torch.graphstore import (
+        DeviceGate, EdgeBlock, MaintenancePolicy, WriteBehindJournal, local_shard,
+        make_mutation_batch, replay,
+    )
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 41)
+    kinds, wweights = zip(*WRITE_MIX)
+    wweights = np.array(wweights) / sum(wweights)
+    # the deletes name live includes of the 64 Zipf-hottest watch-lists, and
+    # never one deleted before: purge's contract (a purged geid would
+    # resolve to "not found" where the control finds its tombstone)
+    hot = torch.as_tensor(includes, device=dev)
+    hot = hot[(hstore.esrc[hot] < ranges[L_WATCHLIST][0] + P_HOT_WATCHLISTS)
+              & hstore.ealive[hot]].cpu().numpy()
+    alive_hot = list(hot)
+
+    def write_batch():
+        while True:
+            kind = kinds[int(rng.choice(len(kinds), p=wweights))]
+            if kind == "del_edges":
+                picks = sorted(rng.choice(len(alive_hot), size=int(rng.integers(1, 4)),
+                                          replace=False), reverse=True)
+                eids = [int(alive_hot.pop(i)) for i in picks]
+                return make_mutation_batch(espec.store, del_edges=eids, device=dev)
+            mb = make_write(rng, espec, ranges, None, kind, dev)
+            if mb is not None:
+                return mb
+
+    mesh = flat_mesh(N_OWNERS)
+    rt, ctl = (ShardedTxnRuntime(espec, mesh, device=dev) for _ in range(2))
+    eb0 = rt.pspec.e_blk_cap
+    # commits are functional: both runtimes start from the phase-7 store itself
+    ps, cs = pstore, pstore
+    caches = [rt.empty_cache(), ctl.empty_cache()]
+    drains = [ShardedMissDrain(rt, meta), ShardedMissDrain(ctl, meta)]
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    kcheck = MaintenanceKernelCheck(eb0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    free_gib = shutil.disk_usage(root).free / 2**30
+    t0 = time.perf_counter()
+    j = WriteBehindJournal(root, rt.n)
+    j.start(interval=D_FLUSH_S)
+    ckpts = []
+
+    def checkpoint(kind_asked, j, rt, ps):
+        t = time.perf_counter()
+        fn = j.checkpoint if kind_asked == "full" else j.checkpoint_incremental
+        path = fn(ps, e_blk_cap=rt.pspec.e_blk_cap, recent_blk_cap=rt.pspec.recent_blk_cap,
+                  store_version=int(ps.version))
+        ckpts.append(dict(seq=j.checkpoint_seq, kind=j.checkpoint_meta(j.checkpoint_seq)["kind"],
+                          seconds=time.perf_counter() - t, bytes=dir_bytes(path)))
+
+    checkpoint("full", j, rt, ps)
+    print(f"durability: journal in {root} ({free_gib:.1f} GiB free; codec {CODEC}), flusher "
+          f"every {D_FLUSH_S}s, first checkpoint {ckpts[0]}", flush=True)
+
+    def lens(store):
+        return torch.stack([store.out.csr_len, store.out.blk_len, store.inc.csr_len,
+                            store.inc.blk_len]).cpu().numpy()
+
+    plan_cycle = [(n, p, label) for n, p, label, _ in plans]
+    crossing, differing = [], []  # per read batch: crossing roots; batches that differed
+
+    def read_both(i, runtimes, stores, caches_, drains_, epochs):
+        """One read batch on both runtimes, each under a pinned epoch, with
+        CP on both; the kernels' calls checked; every result, miss and
+        metric equal unless a root read crosses ``max_deg`` differently on
+        the two stores."""
+        name, plan, label = plan_cycle[i % len(plan_cycle)]
+        roots = zipf_pick(rng, *ranges[label], BATCH)
+        outs = []
+        with capture:
+            for k, (r, s) in enumerate(zip(runtimes, stores)):
+                with epochs.pin_scope():
+                    res, ms, met = r.run_gr_tx_batch(s, caches_[k], ttable, plan, roots)
+                assert met["route_overflow"] == 0, f"phase 11 read {i}: route_overflow"
+                drains_[k].push(sorted(ms, key=lambda m: miss_key([m]))[:P_CP_PER_BATCH])
+                caches_[k] = drains_[k].drain(s, s, caches_[k], ttable, k=1 << 30)
+                met.pop("host_syncs")
+                outs.append((res, miss_key(ms), met))
+        inc_keys = {local_shard(r.pspec, st, sh).inc.key.data_ptr()
+                    for r, st in zip(runtimes, stores) for sh in range(N_OWNERS)}
+        cross = crossing_roots(espec.max_deg, runtimes, stores, kcheck.check(capture, inc_keys))
+        crossing.append(cross)
+        (ra, ma, ta), (rb, mb_, tb) = outs
+        if not (np.array_equal(ra, rb) and ma == mb_ and ta == tb):
+            # compaction changes a read only past max_deg (both packages
+            # alike): a difference needs a crossing root to explain it
+            assert cross > 0, f"phase 11 read {i} ({name}): differs from the control (metrics " \
+                f"{ta} vs {tb}), and no root it read crosses max_deg differently"
+            differing.append(dict(read=i, crossing_roots=cross))
+        return ta["hits"]
+
+    lat = {"gated": [], "gated_compacting": [], "gated_plain": [], "ungated": []}
+    syncs = {"gated": [], "ungated": []}
+    # the D_GATE_FRAC gate's compactions per (shard, out/in), the purge's apart
+    compactions = np.zeros((N_OWNERS, 2), np.int64)
+    device_compactions, purge_compactions, hits, grow, tick = 0, 0, 0, None, None
+    cp_ops.launches = bg_ops.launches = 0
+    for i in range(1, D_COMMITS + 1):
+        mb = write_batch()
+        purge = i == D_PURGE_AT
+        if purge:
+            assert j.epochs.safe_to_purge(j.epochs.current, j), \
+                f"commit {i}: the epoch registry does not allow the purge"
+        gate = DeviceGate(0.0, purge=True) if purge else DeviceGate(D_GATE_FRAC)
+        policy = "write-through" if i in D_THROUGH else "write-around"
+        before = lens(ps)
+        t = time.perf_counter()
+        ps, caches[0], mg = rt.run_grw_tx(ps, caches[0], ttable, mb, policy, gate=gate,
+                                          journal=j)
+        dt = (time.perf_counter() - t) * 1e3
+        lat["gated"].append(dt)
+        lat["gated_compacting" if mg["device_compactions"] else "gated_plain"].append(dt)
+        t = time.perf_counter()
+        cs, caches[1], mu = ctl.run_grw_tx(cs, caches[1], ttable, mb, policy)
+        lat["ungated"].append((time.perf_counter() - t) * 1e3)
+        syncs["gated"].append(mg["host_syncs"])
+        syncs["ungated"].append(mu["host_syncs"])
+        assert mg["impacted_keys"] == mu["impacted_keys"], \
+            f"commit {i}: impacted {mg['impacted_keys']} != control {mu['impacted_keys']}"
+        assert mg["op_overflow"] == mu["op_overflow"] == 0 and \
+            mg["store_append_overflow"] == mu["store_append_overflow"] == 0, f"commit {i}: overflow"
+        # which blocks the gate compacted: a compaction moves csr_len to the
+        # block's length, and nothing else moves csr_len
+        after = lens(ps)
+        moved = np.stack([after[0] != before[0], after[2] != before[2]], axis=1)
+        if purge:
+            assert mg["device_compactions"] == 2 * N_OWNERS, f"commit {i}: purge {mg}"
+            purge_compactions = mg["device_compactions"]
+        else:
+            assert int(moved.sum()) == mg["device_compactions"], \
+                f"commit {i}: {mg['device_compactions']} compactions, {int(moved.sum())} moved"
+            compactions += moved
+        device_compactions += mg["device_compactions"]
+        hits += read_both(i, (rt, ctl), (ps, cs), caches, drains, j.epochs)
+        if i == D_TICK_AT:
+            ps, tick = rt.maintenance_tick(ps, MaintenancePolicy(recent_fill_frac=0.0),
+                                           journal=j)
+            assert tick["compacted"] and tick["grown_to"] is None, tick
+        if i == D_GROW_AT:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ps = rt.grow_blocks(ps, D_GROW_TO)
+            torch.cuda.synchronize()
+            grow = dict(seconds=time.perf_counter() - t, e_blk_cap=rt.pspec.e_blk_cap)
+            j.append_grow(rt.pspec.e_blk_cap, rt.pspec.recent_blk_cap)
+        if i % D_CKPT_EVERY == 0 and i < D_COMMITS:
+            checkpoint("incremental", j, rt, ps)
+    live_s = time.perf_counter() - t0
+    launches = {"block_gather": bg_ops.launches, "cache_probe": cp_ops.launches}
+    assert launches["block_gather"] > 0 and launches["cache_probe"] > 0, \
+        f"phase 11 launched a kernel no time: {launches}"
+    assert (compactions > 0).all(), f"a block's gate never compacted it: {compactions.tolist()}"
+    # the first checkpoint is full, the rest chain on it (the growth comes after them)
+    assert [c["kind"] for c in ckpts] == ["full"] + ["incremental"] * (
+        (D_COMMITS - 1) // D_CKPT_EVERY), ckpts
+    j.stop(final_flush=True)
+    jm = j.metrics()
+    assert jm["journal_lag_batches"] == 0 and jm["flush_failures"] == 0, jm
+    occ = rt.store_occupancy(ps)
+    assert occ["max_recent_fill"] == 0, occ  # the gate leaves no recent lane behind
+
+    # the maintenance pass's device time at full size, on the live store
+    compact_ms = device_ms(lambda: rt.compact_step(False)(ps), iters=3)
+
+    # 4. the crash: runtime and journal objects dropped, torn bytes on the log
+    with open(j.log_path, "ab") as f:
+        f.write(b"GJL2" + b"\x01" * 9)
+    log_bytes = os.path.getsize(j.log_path)
+    live, pspec_live = ps, rt.pspec
+    del rt, j, drains, caches
+
+    # 5. recovery on a fresh runtime and journal
+    gc.collect()
+    torch.cuda.synchronize()
+    rt2 = ShardedTxnRuntime(espec, mesh, device=dev)
+    t = time.perf_counter()
+    j2 = WriteBehindJournal(root, rt2.n)
+    ps2, last, info = replay(j2, rt2, ttable)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t
+    assert rt2.pspec == pspec_live, (rt2.pspec, pspec_live)
+    assert info == dict(
+        replayed_commits=D_COMMITS - D_CKPT_EVERY * ((D_COMMITS - 1) // D_CKPT_EVERY),
+        replayed_compactions=1, replayed_growths=1, replayed_migrations=0), info
+    for f in live._fields:
+        a, b = getattr(ps2, f), getattr(live, f)
+        for name, x, y in (zip(EdgeBlock._fields, a, b) if isinstance(b, EdgeBlock)
+                           else [(f, a, b)]):
+            assert torch.equal(x, y), f"the replayed store's {f}.{name} differs from the live one"
+    del live
+    caches = [rt2.empty_cache(), ctl.empty_cache()]
+    drains = [ShardedMissDrain(rt2, meta), ShardedMissDrain(ctl, meta)]
+    for i in range(D_AFTER_READS):
+        hits += read_both(D_COMMITS + 1 + i, (rt2, ctl), (ps2, cs), caches, drains, j2.epochs)
+    launches = {"block_gather": bg_ops.launches, "cache_probe": cp_ops.launches}
+    # the recovered store's first checkpoint: the chain's layout predates the
+    # growth, so the incremental one falls back to full
+    checkpoint("incremental", j2, rt2, ps2)
+    assert ckpts[-1]["kind"] == "full", ckpts[-1]
+
+    # 6. clean up
+    written = dir_bytes(root)
+    shutil.rmtree(root)
+    report = dict(
+        commits=D_COMMITS, write_through_commits=[i for i in D_THROUGH if i <= D_COMMITS],
+        gate_frac=D_GATE_FRAC, gate_lanes=int(np.ceil(D_GATE_FRAC * 1024)),
+        codec=CODEC, live_seconds=live_s, device_compactions=device_compactions,
+        gate_compactions_per_block_out_in=compactions.tolist(),
+        purge_commit=dict(commit=D_PURGE_AT, compactions=purge_compactions),
+        gated_p50_ms=pct(lat["gated"], 50), gated_p90_ms=pct(lat["gated"], 90),
+        ungated_p50_ms=pct(lat["ungated"], 50), ungated_p90_ms=pct(lat["ungated"], 90),
+        gated_compacting_p50_ms=pct(lat["gated_compacting"], 50),
+        gated_compacting_commits=len(lat["gated_compacting"]),
+        gated_plain_p50_ms=pct(lat["gated_plain"], 50),
+        host_syncs_per_commit_gated=float(np.mean(syncs["gated"])),
+        host_syncs_per_commit_ungated=float(np.mean(syncs["ungated"])),
+        tick=dict(commit=D_TICK_AT, **tick), grow=dict(commit=D_GROW_AT, **grow),
+        e_blk_cap=pspec_live.e_blk_cap, compact_step_device_ms=compact_ms,
+        checkpoints=ckpts, replay_seconds=replay_s, replay=info, replay_last_seq=last,
+        journal=jm, log_bytes=log_bytes, bytes_written=written, read_hits=hits,
+        launches=launches, kernel_calls=kcheck.calls, crossing_roots_per_read=crossing,
+        reads_differing_from_control=differing,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+        seconds=time.perf_counter() - t_phase,
+    )
+    print("durability: " + json.dumps(report), flush=True)
+    print(f"durability commits ms, gated (journal, gate) p50 {report['gated_p50_ms']:.3f} p90 "
+          f"{report['gated_p90_ms']:.3f} | ungated p50 {report['ungated_p50_ms']:.3f} p90 "
+          f"{report['ungated_p90_ms']:.3f}; host_syncs a commit gated "
+          f"{report['host_syncs_per_commit_gated']:.3f} ungated "
+          f"{report['host_syncs_per_commit_ungated']:.3f}", flush=True)
+    print(f"durability gate: compactions per block (out, in) {compactions.tolist()} "
+          f"({int(compactions.sum())} in all); the purge at commit {D_PURGE_AT} compacted "
+          f"{purge_compactions} blocks; the tick at {D_TICK_AT}, grow_blocks at {D_GROW_AT} "
+          f"{grow['seconds']:.6f}s", flush=True)
+    print(f"durability reads vs control: {len(crossing)} batches, roots crossing max_deg "
+          f"differently {sum(crossing)} (per batch {crossing}), batches differing "
+          f"{len(differing)} {differing}", flush=True)
+    print(f"durability recovery: replay {replay_s:.3f}s ({info}), checkpoints "
+          f"{[(c['kind'], round(c['seconds'], 3), c['bytes']) for c in ckpts]}, "
+          f"bytes written {written}", flush=True)
+    print(f"kernel block_gather durability calls over compacted blocks={kcheck.calls['compacted']} "
+          f"recent={kcheck.calls['recent']} grown={kcheck.calls['grown']}; cache_probe "
+          f"calls={kcheck.calls['cache_probe']} (all equal)", flush=True)
+    assert kcheck.calls["compacted"] > 0 and kcheck.calls["grown"] > 0, kcheck.calls
+    return report, time_kernel_calls(
+        "durability", kcheck.largest["cache_probe"][0],
+        {kind: kcheck.largest[kind][0] for kind in ("compacted", "grown")})
+
+
 # ------------------------------------------------------------ GNN serving
 # Phase 8: cached neighbour sampling over a graph sized like Reddit, the
 # dataset behind the minibatch_lg cell (src/repro/configs/gnn_shapes.py),
@@ -1543,9 +2010,7 @@ def build_gnn_world(rng, device, n_vertices, max_deg=64):
     max_deg] with uniform destinations and no duplicate pairs; fp32 features
     and labels; the example's NBR template (all out-neighbours); a cache of
     ``v_cap`` slots (2^18 at Reddit's size)."""
-    from repro_torch.core import (ANY_LABEL, DIR_OUT, CacheSpec, EngineSpec, Template,
-                                  make_template_table)
-    from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
+    from repro_torch.core import ANY_LABEL, DIR_OUT, CacheSpec, EngineSpec, Template
     from repro_torch.graphstore import StoreSpec, ingest
 
     V = n_vertices
@@ -1562,12 +2027,8 @@ def build_gnn_world(rng, device, n_vertices, max_deg=64):
                    device=device)
     cspec = CacheSpec(capacity=v_cap, probes=8, max_leaves=32, max_chunks=2)
     espec = EngineSpec(store=spec, cache=cspec, max_deg=max_deg, frontier=32)
-    qp = GraphQP("qp0")
-    sc = ServiceCoordinator([qp])
-    sc.register(0)
-    sc.enable(0)
-    nbr = Template("NBR", DIR_OUT, (ANY_LABEL, []), (ANY_LABEL, []), (ANY_LABEL, []))
-    ttable = qp.ttable_masks(make_template_table([nbr]), 1)
+    ttable = serving_ttable(
+        [Template("NBR", DIR_OUT, (ANY_LABEL, []), (ANY_LABEL, []), (ANY_LABEL, []))])
     feats = rng.standard_normal((V, GNN_FEAT), dtype=np.float32)
     labels = rng.integers(0, GNN_CLASSES, V).astype(np.int32)
     return espec, store, ttable, feats, labels, src
@@ -2426,21 +2887,13 @@ def run_graph(seed, dev):
     from repro_torch.kernels.segment_spmm import ops as ss_ops
 
     # 3. the world
-    from repro_torch.core import empty_cache, make_template_table
-    from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
+    from repro_torch.core import empty_cache
 
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
     espec, store, ranges, includes, n_edges = build_world(rng, dev, SCALE)
     templates, meta, plans = templates_and_plans()
-    ttable = make_template_table(templates)
-    qp = GraphQP("qp0")
-    sc = ServiceCoordinator([qp])
-    for t in range(len(templates)):
-        sc.register(t)
-        sc.enable(t)
-    assert sc.check_safety()
-    ttable = qp.ttable_masks(ttable, len(templates))
+    ttable = serving_ttable(templates)
     cache = empty_cache(espec.cache, device=dev)
     torch.cuda.synchronize()
     nv = ranges[L_LISTING][1]
@@ -2483,13 +2936,16 @@ def run_graph(seed, dev):
 
     # 7. the partitioned tier on the final store, against the single host;
     # then block_gather against its plain version at the inputs it was given
-    p_report, capture, gcheck = run_partitioned(seed, espec, state[0], ttable, plans, meta,
-                                                ranges, includes, engines, dev)
+    p_report, capture, gcheck, (hstore, pstore) = run_partitioned(
+        seed, espec, state[0], ttable, plans, meta, ranges, includes, engines, dev)
     rows.append(check_partitioned_kernels(capture, p_report["block_gather_launches"],
                                           espec.max_deg))
     # both kernels' launches on each path that ran them, and their times at
     # the gRW rounds' largest calls (over blocks the commits changed)
-    after = time_grw_kernels(gcheck)
+    # the partitioned tier's largest probe (the owner blocks are the smaller caches)
+    after = time_kernel_calls(
+        "grw", gcheck.largest[min(k for k in gcheck.largest if isinstance(k, tuple))],
+        {side: gcheck.largest[incoming] for side, incoming in (("out", False), ("in", True))})
     for row in rows:
         if row["name"] in ("cache_probe", "block_gather"):
             grw = p_report["grw_launches"]
@@ -2501,6 +2957,19 @@ def run_graph(seed, dev):
             }
             row["after_commits"] = {k: v for k, v in after.items() if k.startswith(row["name"])}
     phase_memory("phases 5-7")
+    del capture, gcheck, state, engines, probes
+
+    # 11. block maintenance and durability on the phase-7 store; the two
+    # kernels' launches counted around it (zeroed inside, just before)
+    d_report, d_times = run_durability(seed, espec, hstore, pstore, ttable, plans, meta, ranges,
+                                       includes, dev)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            row["launches"] += d_report["launches"][row["name"]]
+            row["launches_by_path"]["phase 11"] = d_report["launches"][row["name"]]
+            row["after_maintenance"] = {k: v for k, v in d_times.items()
+                                        if k.startswith(row["name"])}
+    phase_memory("phase 11")
     return rows
 
 

@@ -1,5 +1,6 @@
 """The sharded transaction runtime (PyTorch): the process-local mesh, the
-routing table of the partitioned tier, and ``ShardedTxnRuntime``."""
+routing table of the partitioned tier, ``ShardedTxnRuntime``, and the
+bounded retries and timed calls of ``distributed.fault``."""
 
 from repro_torch.distributed.sharding import (
     ALL_GATHER,
@@ -10,6 +11,7 @@ from repro_torch.distributed.sharding import (
     MeshError,
     flat_mesh,
 )
+from repro_torch.distributed.fault import CallTimeout, RetryPolicy, timed_call
 from repro_torch.distributed.routing import (
     RoutingTable,
     base_owner,
@@ -31,6 +33,9 @@ __all__ = [
     "cache_owner_of",
     "identity_table",
     "storage_owner_of",
+    "CallTimeout",
+    "RetryPolicy",
+    "timed_call",
     "ShardedTxnRuntime",
     "ShardedMissDrain",
 ]

@@ -1,10 +1,11 @@
 """The partitioned gR-Tx serving tier: owner shards over a mesh.
 
 PyTorch twin of ``repro.distributed.graph_serve`` on the partitioned
-tier: the read path, CP population and the gRW-Tx commit under both
-policies (the overlapped schedule, telemetry, degraded mode, routing
-overlays, the maintenance gate, the journal and the replicated tier are not
-ported yet). Vertex ownership is interleaved
+tier: the read path, CP population, the gRW-Tx commit under both
+policies with its maintenance gate and write-behind journal, and block
+maintenance between batches (compaction, capacity growth). The overlapped
+schedule, telemetry, degraded mode, routing overlays and the replicated
+tier are not ported yet. Vertex ownership is interleaved
 (shard ``v mod n`` owns ``v``) and the one-hop result cache is
 co-partitioned with it: the global cache of ``C`` slots is ``n`` blocks of
 ``C // n`` slots, and a key's block is its root's owner, so a probe is
@@ -37,11 +38,20 @@ the derived ops, routes each to its root's cache owner in one all_to_all,
 all-gathers the sweeps, and applies both to its cache block. Its post-store
 equals ``partition_store`` of the single host's post-store, and its cache
 the single host's entries.
+
+With a ``DeviceGate`` the commit also compacts, on each rank, every block
+of its whose recent fill reached the gate's threshold, after the listener
+(so the layout change cannot perturb the commit's ops). Eager torch decides
+on the host: the ranks all-gather their flags and the mesh reads them once
+a commit (``host_syncs``); the decision is a function of (store, batch,
+gate) alone, which journal replay relies on. ``maintenance_tick`` runs the
+same maintenance between batches under a ``MaintenancePolicy``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -84,6 +94,15 @@ from repro_torch.distributed.sharding import (
     ALL_TO_ALL,
     LocalMesh,
 )
+from repro_torch.graphstore.maintenance import (
+    DeviceGate,
+    MaintenancePolicy,
+    block_occupancy,
+    compact_block,
+    compact_store,
+    decide_maintenance,
+    grow_store,
+)
 from repro_torch.graphstore.partition import (
     BlockStoreView,
     apply_mutations_partitioned,
@@ -119,6 +138,21 @@ def _replicate_stats(before: CacheState, shards) -> CacheState:
     stats = {f: getattr(before, f) + sum(getattr(s, f) - getattr(before, f) for s in shards)
              for f in _STAT_FIELDS}
     return before._replace(**slots, **stats)
+
+
+class _MeshRead:
+    """A host read of a value every rank receives alike from a collective
+    (the all-gathered gate flags): the first rank to ask reads it, counted
+    in ``syncs``; the others reuse that read. One rank per process would
+    read its own copy instead, once a commit per process."""
+
+    def __init__(self, syncs: SyncCount):
+        self.syncs, self.value = syncs, None
+
+    def read(self, x) -> list:
+        if self.value is None:
+            self.value = self.syncs.read_list(x)
+        return self.value
 
 
 class _MeshTier:
@@ -204,7 +238,8 @@ class ShardedTxnRuntime:
     ``espec`` is the *global* spec: ``espec.cache.capacity`` is the fleet
     cache capacity, split into ``n`` co-partitioned blocks of
     ``capacity // n`` slots (each a power of two). Block capacities are
-    twice the uniform share (``partition.default_pspec``).
+    twice the uniform share (``partition.default_pspec``);
+    ``maintenance_tick`` and ``grow_blocks`` change them.
 
     ``route_cap_factor`` bounds the per-peer routing buckets: the default is
     the reference's measured production caps, a tuple gives per-hop factors
@@ -240,6 +275,9 @@ class ShardedTxnRuntime:
                 raise ValueError("per-hop route_cap_factor entries must be ints")
         self.route_cap_factor = route_cap_factor
         self.rtable = identity_table(n, device=self.device)
+        # applied mutation rows since the last compaction (the policy's
+        # latency-amortization input)
+        self.mutation_rows_since_compact = 0
 
     # ------------------------------------------------------------ state
     def partition_store(self, store):
@@ -257,6 +295,66 @@ class ShardedTxnRuntime:
         """Global-capacity empty cache: block ``s`` of every slot tensor is
         shard ``s``'s cache."""
         return empty_cache(self.espec.cache, device=self.device)
+
+    # ---------------------------------------------------- block maintenance
+    def _set_pspec(self, pspec):
+        """Swap the block layout spec. Eager torch keeps no compiled steps
+        closed over a spec, so nothing else changes."""
+        self.pspec = pspec
+
+    def set_block_capacity(self, e_blk_cap: int, *, recent_blk_cap: int | None = None):
+        """Adopt a block layout without a store in hand: recovery restores a
+        checkpoint taken under a recorded capacity."""
+        rb = self.pspec.recent_blk_cap if recent_blk_cap is None else int(recent_blk_cap)
+        self._set_pspec(self.pspec._replace(e_blk_cap=int(e_blk_cap),
+                                            recent_blk_cap=min(rb, int(e_blk_cap))))
+
+    def store_occupancy(self, pstore) -> dict:
+        """Per-shard / per-block occupancy and recent fill."""
+        return block_occupancy(self.pspec, pstore)
+
+    def compact_step(self, purge: bool = False):
+        """The owner-local compaction pass under the current block layout,
+        ``step(pstore) -> pstore'``: each shard merges its blocks' recent
+        regions into their sorted bodies and rebuilds its geid indexes, with
+        no collectives."""
+        pspec = self.pspec
+        return lambda ps: compact_store(pspec, ps, purge=purge)
+
+    def grow_blocks(self, pstore, e_blk_cap: int, *, recent_blk_cap: int | None = None):
+        """Grow every block to ``e_blk_cap`` and adopt the grown spec: the
+        one capacity-growth path (``maintenance_tick`` and replay call it).
+        The reference also prepares the next tier's compiled steps ahead of
+        the swap (``precompile_next_tier`` / ``swap_to_next_tier``); eager
+        torch compiles nothing, so the swap is this pad alone."""
+        new, grown = grow_store(self.pspec, pstore, e_blk_cap, recent_blk_cap=recent_blk_cap)
+        self._set_pspec(new)
+        return grown
+
+    def maintenance_tick(self, pstore, policy: MaintenancePolicy | None = None, *,
+                         journal=None):
+        """Run due maintenance between transaction batches: read the block
+        lengths, then grow and / or compact as ``policy`` decides, journaling
+        each event (GROW / COMPACT) so replay repeats it at the same point.
+        Returns ``(pstore', info)``. (The reference's ``occupancy=``, a
+        report the serve loop already holds, waits for ``launch/serve.py``.)"""
+        policy = MaintenancePolicy() if policy is None else policy
+        occ = self.store_occupancy(pstore)
+        dec = decide_maintenance(self.pspec, occ, policy, self.mutation_rows_since_compact)
+        info = dict(compacted=False, grown_to=None, reason=dec.reason,
+                    max_occupancy=occ["max_occupancy"], max_recent_fill=occ["max_recent_fill"])
+        if dec.grow_to is not None:
+            pstore = self.grow_blocks(pstore, dec.grow_to)
+            if journal is not None:
+                journal.append_grow(self.pspec.e_blk_cap, self.pspec.recent_blk_cap)
+            info["grown_to"] = dec.grow_to
+        if dec.compact:
+            pstore = self.compact_step(policy.purge)(pstore)
+            if journal is not None:
+                journal.append_compact(purge=policy.purge)
+            self.mutation_rows_since_compact = 0
+            info["compacted"] = True
+        return pstore, info
 
     # --------------------------------------------------------- gR-Tx path
     def _hop_route_caps(self, plan, Bloc: int):
@@ -356,13 +454,17 @@ class ShardedTxnRuntime:
         occ = occ0 - head(cache2)
         return cache2._replace(n_delete=cache.n_delete + occ), occ, ovf_c + ovf_r + ovf_s
 
-    def _grw_fn(self, through: bool, store, cache, ttable, batch, me: int, syncs):
+    def _grw_fn(self, through: bool, gate, store, cache, ttable, batch, me: int, syncs,
+                flags_read: _MeshRead):
         """Rank ``me``'s gRW-Tx commit, a per-rank program: apply the batch to
-        its blocks, derive the ops its storage owns, route and apply them,
-        then one all-reduce sum of (impacted, overflow) and one all-reduce
-        max of (largest block, largest recent fill). Returns (the rank's
-        store, its cache block, impacted, op_overflow, store_overflow,
-        blk_max, rec_max)."""
+        its blocks, derive the ops its storage owns; with a ``gate``,
+        all-gather every rank's (out, inc) gate flags (read once for the
+        mesh through ``flags_read``) and compact its own flagged blocks;
+        route and apply the ops, then one all-reduce sum of (impacted,
+        overflow) and one all-reduce max of (largest block, largest recent
+        fill) over the maintained blocks. Returns (the rank's store, its
+        cache block, impacted, op_overflow, store_overflow, blk_max,
+        rec_max, the blocks the gate compacted over the mesh)."""
         pspec, rtable = self.pspec, self.rtable
         local = local_shard(pspec, store, me)
         store2, applied, store_ovf = yield from apply_mutations_partitioned(
@@ -370,6 +472,18 @@ class ShardedTxnRuntime:
         ops, sweeps = derive_cache_ops_views(
             self.lspec, BlockStoreView(pspec, local, me, rtable),
             BlockStoreView(pspec, store2, me, rtable), ttable, applied, through=through)
+        ncomp = 0
+        if gate is not None:
+            # the ops are derived already, so the layout change cannot
+            # perturb this commit's invalidation; a block compacts at
+            # ceil(recent_fill_frac * recent_blk_cap) recent lanes
+            thresh = max(int(math.ceil(gate.recent_fill_frac * pspec.recent_blk_cap)), 0)
+            rec = torch.stack([b.blk_len[0] - b.csr_len[0] for b in (store2.out, store2.inc)])
+            flags = flags_read.read((yield (ALL_GATHER, (rec >= thresh)[None])))
+            maintain = lambda b, hit: compact_block(pspec, b, purge=gate.purge, me=me) if hit else b
+            store2 = store2._replace(out=maintain(store2.out, flags[me][0]),
+                                     inc=maintain(store2.inc, flags[me][1]))
+            ncomp = sum(map(sum, flags))
         cache2, occ, ovf = yield from self._route_and_apply_ops(
             cache_shard(cache, self.n, me), ops, sweeps, through, syncs)
         sums = yield (ALL_REDUCE_SUM, torch.stack([occ, ovf]))
@@ -378,22 +492,26 @@ class ShardedTxnRuntime:
                             torch.maximum(out.blk_len[0] - out.csr_len[0],
                                           inc.blk_len[0] - inc.csr_len[0])])
         maxes = yield (ALL_REDUCE_MAX, fill)
-        return store2, cache2, sums[0], sums[1], store_ovf, maxes[0], maxes[1]
+        return store2, cache2, sums[0], sums[1], store_ovf, maxes[0], maxes[1], ncomp
 
-    def grw_step(self, policy: str = "write-around"):
+    def grw_step(self, policy: str = "write-around", gate: DeviceGate | None = None):
         """The partitioned gRW-Tx commit under ``policy`` (write-around or
-        write-through): ``step(store, cache, ttable, batch, syncs=None) ->
-        (store', cache', impacted, op_overflow, store_append_overflow,
-        max_blk_len, max_recent_fill)``, the last five device scalars. Runs
-        every rank's ``_grw_fn`` on the mesh and joins their blocks in rank
-        order; write-through's round reads are counted in ``syncs``."""
+        write-through) and ``gate`` (a ``DeviceGate`` or None):
+        ``step(store, cache, ttable, batch, syncs=None) -> (store', cache',
+        impacted, op_overflow, store_append_overflow, max_blk_len,
+        max_recent_fill, device_compactions)``, device scalars but the last,
+        a host int. Runs every rank's ``_grw_fn`` on the mesh and joins
+        their blocks in rank order; write-through's round reads and the
+        gate's one flag read are counted in ``syncs``."""
         if policy not in ("write-around", "write-through"):
             raise ValueError(f"unknown gRW policy {policy!r}")
         through = policy == "write-through"
 
         def step(store, cache, ttable, batch, syncs=None):
             syncs = syncs if syncs is not None else SyncCount()
-            outs = self.mesh.run([self._grw_fn(through, store, cache, ttable, batch, me, syncs)
+            flags_read = _MeshRead(syncs)
+            outs = self.mesh.run([self._grw_fn(through, gate, store, cache, ttable, batch, me,
+                                               syncs, flags_read)
                                   for me in range(self.n)])
             store2 = join_shards([o[0] for o in outs])
             cache2 = _replicate_stats(cache, [o[1] for o in outs])
@@ -401,23 +519,46 @@ class ShardedTxnRuntime:
 
         return step
 
-    def run_grw_tx(self, store, cache, ttable, batch, policy: str = "write-around"):
+    def run_grw_tx(self, store, cache, ttable, batch, policy: str = "write-around", *,
+                   gate: DeviceGate | None = None, occupancy_metrics: bool = True,
+                   journal=None):
         """One gRW-Tx on the partitioned tier, mirroring
         ``core.engine.run_grw_tx``: (store', cache', metrics). Metrics:
-        ``impacted_keys``, ``op_overflow``, ``store_append_overflow``,
-        ``store_occupancy_max`` (largest block fill over ``e_blk_cap``),
-        ``store_recent_fill_max`` (largest ``blk_len - csr_len``) and
-        ``host_syncs`` (write-through's round reads and the one copy of the
-        rest)."""
+        ``impacted_keys``, ``op_overflow``, ``store_append_overflow``;
+        with a ``gate``, ``device_compactions`` (the blocks it compacted);
+        with ``occupancy_metrics``, ``store_occupancy_max`` (largest block
+        fill over ``e_blk_cap``) and ``store_recent_fill_max`` (largest
+        ``blk_len - csr_len``), both after the gate; ``host_syncs``:
+        write-through's round reads, the gate's one flag read, the one copy
+        of the metrics (the commit version and the batch's section counts
+        ride it) and, with a ``journal``, its one copy of the batch.
+
+        ``journal`` (a ``WriteBehindJournal``) makes the commit durable
+        write-behind: the batch is appended with its policy and gate, and
+        the journal's metrics join the returned ones."""
         syncs = SyncCount()
-        store2, cache2, *scalars = self.grw_step(policy)(store, cache, ttable, batch, syncs)
-        impacted, ovf, store_ovf, blk_max, rec_max = torch.stack(
-            [x.to(torch.int64) for x in scalars]).tolist()
-        return store2, cache2, {
-            "impacted_keys": impacted, "op_overflow": ovf, "store_append_overflow": store_ovf,
-            "store_occupancy_max": round(blk_max / self.pspec.e_blk_cap, 4),
-            "store_recent_fill_max": rec_max, "host_syncs": syncs.n + 1,
-        }
+        store2, cache2, *scalars, ncomp = self.grw_step(policy, gate)(
+            store, cache, ttable, batch, syncs)
+        b = batch
+        counts = [b.nv_n, b.ne_n, b.de_n, b.dv_n, b.sv_n, b.se_n]
+        impacted, ovf, store_ovf, blk_max, rec_max, version, *rows = torch.stack(
+            [x.to(torch.int64) for x in scalars + [store2.version] + counts]).tolist()
+        metrics = {"impacted_keys": impacted, "op_overflow": ovf,
+                   "store_append_overflow": store_ovf}
+        self.mutation_rows_since_compact += sum(rows)
+        if gate is not None:
+            metrics["device_compactions"] = ncomp
+            if ncomp:
+                self.mutation_rows_since_compact = 0
+        if occupancy_metrics:
+            metrics["store_occupancy_max"] = round(blk_max / self.pspec.e_blk_cap, 4)
+            metrics["store_recent_fill_max"] = rec_max
+        metrics["host_syncs"] = syncs.n + 1 + (journal is not None)
+        if journal is not None:
+            journal.append_commit(batch, policy=policy, gate=gate, commit_version=version,
+                                  device_compactions=ncomp)
+            metrics.update(journal.metrics())
+        return store2, cache2, metrics
 
     # ------------------------------------------------------ CP population
     def populator(self, templates_meta, owner: int, max_retries: int = 3):
@@ -434,13 +575,17 @@ class ShardedTxnRuntime:
         from repro_torch.core.population import populate_step
 
         del bucket  # eager torch compiles nothing per batch shape
-        n, pspec, lspec, rtable = self.n, self.pspec, self.lspec, self.rtable
+        n, lspec, rtable = self.n, self.lspec, self.rtable
         direction, edge_label = templates_meta[tpl_idx]
 
         def step(store_exec, store_commit, cache, ttable, roots, params, mask, read_versions):
             # under the identity table the executing and the committing shard
             # of a row are both its storage owner
             mine = mask & (roots >= 0) & (storage_owner_of(rtable, roots, n) == me)
+            # the block layout at CALL time: a populator keeps this step across
+            # a capacity swap, after which the old spec would slice the
+            # grown blocks at the wrong rows
+            pspec = self.pspec
             view = BlockStoreView(pspec, local_shard(pspec, store_exec, me), me, rtable)
             c2, ok, ab = populate_step(
                 lspec, store_exec, store_commit, cache_shard(cache, n, me), ttable,

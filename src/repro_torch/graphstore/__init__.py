@@ -4,7 +4,8 @@ Slotted vertex/edge tensors + CSR indexes over the compacted prefix, with a
 linearly-scanned recent region for post-compaction edge inserts; per-vertex
 version counters give optimistic conflict detection at vertex granularity.
 ``partition`` splits the edges into owner-local dual-CSR blocks for the
-partitioned tier.
+partitioned tier, ``maintenance`` compacts and grows them, and ``journal``
+makes their commits durable (write-behind log, checkpoints, replay).
 """
 
 from repro_torch.graphstore.store import (
@@ -23,14 +24,34 @@ from repro_torch.graphstore.partition import (
     EdgeBlock,
     PartitionedGraphStore,
     PartitionedStoreSpec,
+    abstract_partitioned_store,
     apply_mutations_partitioned,
     default_pspec,
+    geid_slot_lookup,
     join_shards,
     local_of,
     local_shard,
     owner_of,
     partition_store,
+    rebuild_geid_index,
     store_bytes_report,
+)
+from repro_torch.graphstore.maintenance import (
+    DeviceGate,
+    MaintenanceDecision,
+    MaintenancePolicy,
+    block_occupancy,
+    compact_block,
+    compact_store,
+    decide_maintenance,
+    grow_store,
+)
+from repro_torch.graphstore.journal import (
+    EpochRegistry,
+    FlushError,
+    WriteBehindJournal,
+    replay,
+    restore_chain,
 )
 from repro_torch.graphstore.mutations import (
     AppliedMutations,
@@ -61,7 +82,23 @@ __all__ = [
     "local_of",
     "local_shard",
     "store_bytes_report",
+    "abstract_partitioned_store",
     "BlockCapacityError",
+    "geid_slot_lookup",
+    "rebuild_geid_index",
+    "MaintenancePolicy",
+    "MaintenanceDecision",
+    "DeviceGate",
+    "block_occupancy",
+    "compact_block",
+    "compact_store",
+    "decide_maintenance",
+    "grow_store",
+    "WriteBehindJournal",
+    "EpochRegistry",
+    "FlushError",
+    "replay",
+    "restore_chain",
     "MutationBatch",
     "AppliedMutations",
     "make_mutation_batch",

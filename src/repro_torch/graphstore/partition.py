@@ -2,7 +2,8 @@
 
 PyTorch twin of ``repro.graphstore.partition``: the read side, the geid
 index and the gRW commit (``apply_mutations_partitioned``); block
-maintenance is not ported yet. ``PartitionedGraphStore`` splits edge
+maintenance is in ``graphstore.maintenance``, and ``splice_owner_blocks``
+waits for failover. ``PartitionedGraphStore`` splits edge
 storage into owner-local blocks, so a one-hop scan reads only tensors of
 the shard that owns the hop's root:
 
@@ -202,6 +203,27 @@ def partition_store(pspec: PartitionedStoreSpec, store: GraphStore) -> Partition
         vlabel=store.vlabel, valive=store.valive, vprops=store.vprops,
         vversion=store.vversion, out=out, inc=inc,
         v_len=store.v_len, e_len=store.e_len, version=store.version,
+    )
+
+
+def abstract_partitioned_store(pspec: PartitionedStoreSpec) -> PartitionedGraphStore:
+    """The shapes and dtypes of a partitioned store, as tensors on the
+    ``meta`` device (no storage): the template a checkpoint restores into."""
+    spec, n = pspec.base, pspec.n_shards
+    EB, Vloc = pspec.e_blk_cap, pspec.v_loc
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device="meta")
+    b8 = lambda *shape: torch.empty(shape, dtype=torch.bool, device="meta")
+
+    def blk():
+        return EdgeBlock(
+            key=i32(n * EB), other=i32(n * EB), label=i32(n * EB), alive=b8(n * EB),
+            props=i32(n * EB, spec.n_eprops), geid=i32(n * EB), gperm=i32(n * EB),
+            indptr=i32(n * (Vloc + 1)), blk_len=i32(n), csr_len=i32(n),
+        )
+
+    return PartitionedGraphStore(
+        vlabel=i32(spec.v_cap), valive=b8(spec.v_cap), vprops=i32(spec.v_cap, spec.n_vprops),
+        vversion=i32(spec.v_cap), out=blk(), inc=blk(), v_len=i32(), e_len=i32(), version=i32(),
     )
 
 

@@ -63,6 +63,11 @@ class SyncCount:
         self.n += 1
         return int(x.item())
 
+    def read_list(self, x) -> list:
+        """One read of a whole (small) tensor, as nested lists."""
+        self.n += 1
+        return x.tolist()
+
 
 def as_u32(x) -> torch.Tensor:
     """``x.astype(uint32)`` as int64: two's complement, so -1 -> 0xFFFFFFFF."""

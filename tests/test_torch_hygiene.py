@@ -44,7 +44,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.gnn.config import GNNConfig
     from repro_torch.gnn.graph import random_graph_batch
     from repro_torch.gnn.models import init_params
+    from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.graphstore import StoreSpec, empty_store, ingest, make_mutation_batch
+    from repro_torch.graphstore.journal import decode_commit, encode_commit
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = StoreSpec(v_cap=8, e_cap=16, n_vprops=1, n_eprops=1, recent_cap=4)
@@ -58,6 +60,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: build_grw_step(espec),
         lambda: make_mutation_batch(spec),
         lambda: ShardedTxnRuntime(espec, flat_mesh(2)),
+        # durability: a replayed commit and a restored checkpoint land on CUDA
+        lambda: decode_commit(encode_commit(make_mutation_batch(spec, device="cpu"))),
+        lambda: restore_checkpoint("unused", 0, None),
     ]
     # the GNN serving path's entry points, each run on the CPU when asked
     cfg = GNNConfig(name="t", kind="pna", n_layers=1, d_hidden=4, d_in=3, n_classes=2)
