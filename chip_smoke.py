@@ -120,7 +120,25 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    commit, the crossing roots, ``compact_step``'s device time, the growth's
    seconds, each checkpoint's seconds and bytes, replay seconds, the
    journal's metrics and the kernels' times over compacted and grown
-   blocks.
+   blocks;
+12. the serve loop (``repro_torch.launch.serve.serve_loop``), right after
+   11 on phase 7's store: 48 gR batches of 512 Zipf roots over the six read
+   plans in turn, each followed by its per-owner CP drain, a W-hat commit
+   every 2 batches through the gate at 0.5 with the write-behind journal
+   (an incremental checkpoint every 8 commits on a full one), growth at
+   0.85 occupancy, a telemetry snapshot every 8 batches and the trace to a
+   temporary JSONL. Checks: the trace validates (meta first, 6 snapshots,
+   1 report, one ``gr_dispatch`` / ``gr_sync`` / ``gr_unpack`` /
+   ``cp_drain`` span a batch, one ``grw_step`` a commit, one
+   ``checkpoint`` a checkpoint); the report's owner-stage columns sum to
+   its counters; one batch with telemetry on and off gives the same
+   results, metrics and collectives; the store equals the partition of a
+   single-host control that took the same commits, and every cache entry a
+   fresh execution of its key; every kernel call of the first two batches
+   and the commit between them equals its plain version; the journal ends
+   drained with no pin open. Prints requests, hits, misses, populated and
+   overflow, latency per traffic class, hit locality per owner, the spans,
+   the journal's metrics and the phase's seconds.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -129,7 +147,7 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
-Phase 11 runs right after 7, on its store, before 9.
+Phase 11 runs right after 7, on its store, then 12, before 9.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -397,6 +415,17 @@ def device_ms(fn, iters=20, match=None, attempts=3) -> float | None:
 
 def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
+
+
+def weighted_quantile(xs, weights, q):
+    """The inverted-CDF quantile of ``xs`` each counted ``weights`` times,
+    as ``LatencyHistogram.quantile`` takes it but on the exact values."""
+    order = np.argsort(xs, kind="stable")
+    cum = np.cumsum(np.asarray(weights, np.int64)[order])
+    if not len(cum) or cum[-1] == 0:
+        return float("nan")
+    i = int(np.searchsorted(cum, max(q * cum[-1], 1), side="left"))
+    return float(np.asarray(xs)[order][min(i, len(cum) - 1)])
 
 
 # ---------------------------------------------------------------- phases
@@ -1990,6 +2019,249 @@ def run_durability(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inc
         {kind: kcheck.largest[kind][0] for kind in ("compacted", "grown")})
 
 
+# Phase 12: the serve loop (repro_torch.launch.serve.serve_loop) on the
+# phase-7 store (4 owners), with telemetry, the maintenance gate and the
+# write-behind journal at the reference serve loop's settings.
+S_BATCHES = 48  # gR batches of the loop (a serving loop runs thousands)
+S_WRITE_EVERY = 2  # a W-hat commit every 2 batches: 24 commits
+S_CKPT_EVERY = 8  # the reference serve loop's --checkpoint-every default
+S_SNAPSHOT_EVERY = 8  # a telemetry snapshot every 8 batches: 6 snapshots
+S_SPAN_PER_BATCH = ("gr_dispatch", "gr_sync", "gr_unpack", "cp_drain")
+# a column of the owner-stage block and the report counter it sums to
+S_COLUMN_SUMS = {"probe_hits": "hits", "miss_rows": "misses", "edges_scanned": "edges_scanned",
+                 "leaf_fetches": "leaf_fetches", "route_overflow": "route_overflow",
+                 "deferred_rows": "deferred"}
+
+
+def hold_partitioned_entries(rt, hstore, pcache, plans, dev):
+    """Every valid entry of the partitioned cache, owner block by owner
+    block, against a fresh one-hop execution of its key on the single-host
+    store; under write-around the leaves must come in the fresh order too.
+    Returns the entries checked."""
+    from repro_torch.core.cache import cache_shard
+
+    checked = 0
+    for s in range(rt.n):
+        _, n, reordered = hold_write_through_entries(
+            rt.lspec, hstore, cache_shard(pcache, rt.n, s), plans, dev)
+        assert reordered == 0, f"phase 12: {reordered} entries of owner {s} list their leaves " \
+            "in another order than a fresh execution"
+        checked += n
+    return checked
+
+
+def run_serve(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
+    """Phase 12: S_BATCHES gR batches of BATCH Zipf roots over the six read
+    plans in turn, each followed by its per-owner CP drain, and a W-hat
+    commit every S_WRITE_EVERY batches, through the port's serve loop
+    (``launch.serve.serve_loop``) on the phase-7 partitioned store, with
+    the reference serve loop's settings (gate 0.5, growth at 0.85 occupancy,
+    an incremental checkpoint every S_CKPT_EVERY commits on a full one, the
+    flusher behind the loop), a snapshot every S_SNAPSHOT_EVERY batches and
+    the trace to a temporary JSONL. The same commits go to the single-host
+    control store. Checks: (a) the trace validates, with its snapshots,
+    report and spans; (b) the report's owner-stage columns sum to its
+    counters; (c) one batch run with telemetry on and off gives the same
+    results, metrics and collectives; (d) neither the gate nor the growth
+    fired, the partitioned store equals the control's partition and every
+    cache entry a fresh execution; (e) every
+    kernel call of the first two batches and of the commit between them
+    equals its plain version; (f) the journal is drained and no pin open.
+    Returns the phase's report."""
+    import shutil
+    import tempfile
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.core import run_grw_tx
+    from repro_torch.distributed import ShardedTxnRuntime, flat_mesh
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.launch import serve
+    from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
+    from repro_torch.obs.schema import LATENCY_CLASSES
+    from repro_torch.obs.telemetry import ServeTelemetry
+    from repro_torch.obs.validate import validate_file
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 51)
+    kinds, wweights = zip(*WRITE_MIX)
+    wweights = np.array(wweights) / sum(wweights)
+    hot = torch.as_tensor(includes, device=dev)
+    hot = hot[hstore.esrc[hot] < ranges[L_WATCHLIST][0] + P_HOT_WATCHLISTS].cpu().numpy()
+    plan_cycle = [(p, label) for _, p, label, _ in plans]
+
+    # (c) one batch with telemetry on and off, on runtimes of their own: the
+    # same results, metrics (host reads included) and collectives, and no
+    # block when off. It also makes the loop's first batch a warm one.
+    roots = zipf_pick(rng, *ranges[L_WATCHLIST], BATCH)
+    seen = {}
+    for on in (True, False):
+        r = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev, telemetry=on)
+        res, ms, met = r.run_gr_tx_batch(pstore, r.empty_cache(), ttable, plans[0][1], roots)
+        seen[on] = (res, miss_key(ms), met, dict(r.mesh.counts), r.last_owner_stage)
+    assert np.array_equal(seen[True][0], seen[False][0]) and seen[True][1:4] == seen[False][1:4], \
+        f"phase 12: telemetry changes a batch: {seen[True][2:4]} vs {seen[False][2:4]}"
+    assert seen[False][4] is None and seen[True][4].shape == (N_OWNERS, len(OWNER_STAGE_FIELDS))
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    trace = os.path.join(root, "trace.jsonl")
+    args = serve.parse_args([
+        "--shards", str(N_OWNERS), "--batches", str(S_BATCHES), "--batch", str(BATCH),
+        "--write-every", str(S_WRITE_EVERY), "--checkpoint-every", str(S_CKPT_EVERY),
+        "--snapshot-every", str(S_SNAPSHOT_EVERY), "--trace", trace,
+        "--journal-dir", os.path.join(root, "journal"), "--device", dev])
+    telemetry = ServeTelemetry(N_OWNERS, trace_path=trace)
+    rt = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev, tracer=telemetry.tracer)
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    marks, commits = {}, []
+    # every loop batch's exact gR step seconds, hits and misses, which the
+    # class histograms keep only as log-bucket midpoints
+    steps, record_gr = [], telemetry.record_gr
+
+    def record_exact(step_seconds, m, owner_stage=None):
+        steps.append((step_seconds, int(m.get("hits", 0)), int(m.get("misses", 0))))
+        return record_gr(step_seconds, m, owner_stage=owner_stage)
+
+    telemetry.record_gr = record_exact
+
+    def next_batch(b):
+        # (e) the kernels' calls of batches 0 and 1 and of the commit after
+        # batch 1 are kept, their stages marked
+        if b == 0:
+            capture.__enter__()
+        elif b == 2:
+            marks["commit_end"] = {k: len(v) for k, v in capture.calls.items()}
+            capture.__exit__(None, None, None)
+        plan, label = plan_cycle[b % len(plan_cycle)]
+        return plan, zipf_pick(rng, *ranges[label], BATCH)
+
+    def next_commit(b):
+        if b == 1:
+            marks["commit_start"] = {k: len(v) for k, v in capture.calls.items()}
+        while True:
+            kind = kinds[int(rng.choice(len(kinds), p=wweights))]
+            mb = make_write(rng, espec, ranges, hot, kind, dev)
+            if mb is not None:
+                commits.append(mb)
+                return mb
+
+    cp_ops.launches = bg_ops.launches = 0
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter()
+    out = serve.serve_loop(args, rt, pstore, ttable, meta, next_batch, next_commit, telemetry,
+                           log=lambda s: print(f"serve loop: {s}", flush=True))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    launches = {"block_gather": bg_ops.launches, "cache_probe": cp_ops.launches}
+    assert len(steps) == S_BATCHES, len(steps)
+    assert launches["block_gather"] > 0 and launches["cache_probe"] > 0, \
+        f"phase 12 launched a kernel no time: {launches}"
+    total, rep = out.total, out.report
+
+    # (a) the trace: meta first, the snapshots and the report, the spans
+    counts = validate_file(trace, expect_snapshots=S_BATCHES // S_SNAPSHOT_EVERY,
+                           expect_report=True)
+    assert counts["snapshot"] == S_BATCHES // S_SNAPSHOT_EVERY and counts["report"] == 1, counts
+    spans = {}
+    with open(trace) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev["type"] == "span":
+                spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    n_commits = S_BATCHES // S_WRITE_EVERY
+    want = {**{k: S_BATCHES for k in S_SPAN_PER_BATCH}, "grw_step": n_commits,
+            "checkpoint": 1 + n_commits // S_CKPT_EVERY}
+    assert {k: spans.get(k, 0) for k in want} == want, f"phase 12 spans {spans} != {want}"
+    # (b) the owner-stage columns sum to the report's counters
+    cols = {f: sum(row[f] for row in rep["owner_stage"]) for f in OWNER_STAGE_FIELDS}
+    for field, counter in S_COLUMN_SUMS.items():
+        assert cols[field] == rep["counters"][counter], \
+            f"phase 12: owner_stage {field} sums to {cols[field]}, {counter} is " \
+            f"{rep['counters'][counter]}"
+    assert total["route_overflow"] == 0, f"phase 12: route_overflow {total['route_overflow']}"
+    # (f) the journal drained, no pin left open
+    for k in ("journal_lag_batches", "flush_queue_depth", "open_pins", "leaked_pin_releases"):
+        assert total[k] == 0, f"phase 12: {k} = {total[k]} after the final flush"
+    # (d) consistency: neither the gate nor the growth fired (the recent
+    # windows stay under half full, occupancy under 0.85), so the store
+    # equals the partition of the control's, which takes the same commits;
+    # every entry equals a fresh execution
+    occ = rt.store_occupancy(out.pstore)
+    assert out.maint["device_compactions"] == 0 and out.maint["growths"] == 0, \
+        f"phase 12: the gate or the growth fired: {out.maint}"
+    hs, hc = hstore, None
+    for mb in commits:
+        hs, hc, _ = run_grw_tx(espec, hs, cache_mod.empty_cache(espec.cache, device=dev), ttable,
+                               mb, "write-around", device=dev)
+    stores_equal(rt, out.pstore, hs)
+    checked = hold_partitioned_entries(rt, hs, out.cache, plans, dev)
+    # (e) every kept kernel call against its plain version
+    calls = {k: len(v) for k, v in capture.calls.items()}
+    if capture.calls["cache_probe"]:
+        check_probe_calls(capture.calls["cache_probe"], "phase 12")
+    for a, kw in capture.calls["block_gather"]:
+        got, want_ = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+        for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want_):
+            assert torch.equal(g, w), f"block_gather {name} disagrees with its plain version " \
+                "in phase 12"
+    stage_calls = {k: dict(reads_and_cp=marks["commit_start"][k],
+                           commit=marks["commit_end"][k] - marks["commit_start"][k])
+                   for k in calls}
+    assert min(calls.values()) > 0, f"phase 12 kept no call of a kernel: {calls}"
+    capture.calls.clear()
+    shutil.rmtree(root)
+
+    card = card_line()
+    step_ms = [s * 1e3 for s, _, _ in steps]
+    # the classes' exact quantiles: each batch's step weighted by its hits
+    # (gr_cached) or misses (gr_uncached), inverted CDF as the histograms
+    exact = {cls: {name: weighted_quantile(step_ms, [x[i] for x in steps], q)
+                   for name, q in (("p50", 0.5), ("p95", 0.95), ("p99", 0.99),
+                                   ("p999", 0.999))}
+             for cls, i in (("gr_cached", 1), ("gr_uncached", 2))}
+    report = dict(
+        batches=S_BATCHES, batch=BATCH, commits=n_commits, total=total,
+        populated=out.drain.committed, aborted=out.drain.aborted, pending=out.drain.pending(),
+        step_p50_ms=pct(step_ms, 50), step_p95_ms=pct(step_ms, 95),
+        step_p99_ms=pct(step_ms, 99), step_max_ms=max(step_ms), class_exact_ms=exact,
+        maint=out.maint,
+        loop_seconds=loop_s, wall_ms_per_batch=loop_s / S_BATCHES * 1e3,
+        launches=launches, kernel_calls_checked=stage_calls, entries_checked=checked,
+        trace_events=counts, spans=spans, journal=out.journal_metrics,
+        occupancy_max=occ["max_occupancy"], recent_fill_max=occ["max_recent_fill"],
+        telemetry_off_equal=True, seconds=time.perf_counter() - t_phase,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("serve report: " + json.dumps(report), flush=True)
+    print(f"serve: requests={total['requests']} hits={total['hits']} misses={total['misses']} "
+          f"populated={out.drain.committed} route_overflow={total['route_overflow']}; gR step "
+          f"ms p50 {report['step_p50_ms']:.3f} p95 {report['step_p95_ms']:.3f} p99 "
+          f"{report['step_p99_ms']:.3f} max {report['step_max_ms']:.3f}; device compactions "
+          f"{out.maint['device_compactions']}, growths {out.maint['growths']}; "
+          f"{report['wall_ms_per_batch']:.3f} ms a batch of the loop (CP, commits and "
+          f"checkpoints in) | {card}", flush=True)
+    for cls in LATENCY_CLASSES:
+        p = rep["latency"][cls]
+        ms = lambda v: "n/a" if v is None else f"{v * 1e3:.3f}"
+        ex = "".join(f" {k} {v:.3f}" for k, v in exact[cls].items()) if cls in exact else ""
+        print(f"serve latency[{cls}] ms (bucket midpoints, +-7.5 %): p50 {ms(p['p50'])} p95 "
+              f"{ms(p['p95'])} p99 {ms(p['p99'])} p99.9 {ms(p['p999'])} n={p['count']}"
+              f"{'; exact' + ex if ex else ''} | {card}", flush=True)
+    print(f"serve hit_locality per owner: {[round(v, 4) for v in rep['hit_locality']]}; "
+          f"owner_stage {rep['owner_stage']}", flush=True)
+    print("serve spans (count, total s): " + json.dumps(
+        {k: (v["count"], round(v["total_s"], 6)) for k, v in telemetry.tracer.snapshot().items()}),
+        flush=True)
+    print(f"serve durability: {json.dumps(out.journal_metrics)}", flush=True)
+    print(f"serve checks: trace {counts}, spans {spans}, owner_stage sums equal, telemetry "
+          f"off equal, store equal, {checked} entries equal a fresh execution, kernel calls "
+          f"{stage_calls} (all equal); phase {report['seconds']:.1f}s, loop {loop_s:.1f}s, "
+          f"peak device memory {report['peak_device_gib']:.2f} GiB | {card}", flush=True)
+    return report
+
+
 # ------------------------------------------------------------ GNN serving
 # Phase 8: cached neighbour sampling over a graph sized like Reddit, the
 # dataset behind the minibatch_lg cell (src/repro/configs/gnn_shapes.py),
@@ -2878,8 +3150,8 @@ def phase_memory(tag):
 
 
 def run_graph(seed, dev):
-    """Phases 3-7, the graph-cache paths; returns their kernel rows. Their
-    worlds are locals, freed when it returns."""
+    """Phases 3-7, 11 and 12, the graph-cache paths; returns their kernel
+    rows. Their worlds are locals, freed when it returns."""
     import repro_torch.core.cache as cache_mod
     from repro_torch.kernels.cache_probe import ops as cp_ops
     from repro_torch.kernels.block_gather import ops as bg_ops
@@ -2970,6 +3242,15 @@ def run_graph(seed, dev):
             row["after_maintenance"] = {k: v for k, v in d_times.items()
                                         if k.startswith(row["name"])}
     phase_memory("phase 11")
+
+    # 12. the serve loop on the phase-7 store; the two kernels' launches
+    # counted around the loop (zeroed inside, just before)
+    s_report = run_serve(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            row["launches"] += s_report["launches"][row["name"]]
+            row["launches_by_path"]["phase 12"] = s_report["launches"][row["name"]]
+    phase_memory("phase 12")
     return rows
 
 

@@ -431,7 +431,9 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
     counts (one segment per rank on a mesh); ``reduce_metrics`` globalizes
     the additive metrics and the per-hop miss counts in one reduction,
     after which each hop's edge-read + leaf-fetch phases are gated on the
-    *global* count, as in the reference.
+    *global* count, as in the reference. A tier whose ``stage_rows`` is
+    true also gets ``metrics["_frontier_rows"]``, the live routed rows this
+    rank probed and executed over the hops, to pop in ``reduce_metrics``.
 
     Returns ``steps(store, cache, ttable, roots, bvalid, syncs=None)``, a
     generator function: it yields the tier's collective requests and
@@ -459,6 +461,13 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
         }
         if tier.routed:
             m["route_overflow"] = z
+        # the telemetry tier: owner-side frontier occupancy (live routed rows
+        # this rank probes and executes, summed over hops), a device scalar
+        # until ``reduce_metrics`` folds it into the owner-stage block and
+        # pops it, so the host metrics are unchanged
+        stage_rows = getattr(tier, "stage_rows", False)
+        if stage_rows:
+            m["_frontier_rows"] = z
         frontier = torch.full((Bb, F), NULL_ID, dtype=torch.int32, device=dev)
         frontier[:, 0] = roots
         fmask = torch.zeros((Bb, F), dtype=torch.bool, device=dev)
@@ -472,6 +481,8 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
             )
             if tier.routed:
                 m["route_overflow"] = m["route_overflow"] + ovf
+            if stage_rows:
+                m["_frontier_rows"] = m["_frontier_rows"] + qmask.sum(dtype=torch.int32)
             vals, cnt, mr, nrec, hs = kernel(store, cache, ttable, q, qmask, qparams, syncs)
             if cached_hops[h]:
                 m["requests"] = m["requests"] + hs["n_read"]

@@ -38,12 +38,18 @@ __all__ = [
     "timed_call",
     "ShardedTxnRuntime",
     "ShardedMissDrain",
+    "GraphServeConfig",
+    "config_espec",
+    "config_plan_and_ttable",
 ]
+
+_LAZY = ("ShardedTxnRuntime", "ShardedMissDrain", "GraphServeConfig", "config_espec",
+         "config_plan_and_ttable")
 
 
 def __getattr__(name):
     # lazy: graph_serve pulls in the whole core engine stack
-    if name in ("ShardedTxnRuntime", "ShardedMissDrain"):
+    if name in _LAZY:
         from repro_torch.distributed import graph_serve
 
         return getattr(graph_serve, name)

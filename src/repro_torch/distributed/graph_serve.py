@@ -3,9 +3,10 @@
 PyTorch twin of ``repro.distributed.graph_serve`` on the partitioned
 tier: the read path, CP population, the gRW-Tx commit under both
 policies with its maintenance gate and write-behind journal, and block
-maintenance between batches (compaction, capacity growth). The overlapped
-schedule, telemetry, degraded mode, routing overlays and the replicated
-tier are not ported yet. Vertex ownership is interleaved
+maintenance between batches (compaction, capacity growth), and the
+owner-stage telemetry with its tracer spans. The overlapped schedule,
+degraded mode, routing overlays and the replicated tier are not ported
+yet. Vertex ownership is interleaved
 (shard ``v mod n`` owns ``v``) and the one-hop result cache is
 co-partitioned with it: the global cache of ``C`` slots is ``n`` blocks of
 ``C // n`` slots, and a key's block is its root's owner, so a probe is
@@ -46,12 +47,35 @@ on the host: the ranks all-gather their flags and the mesh reads them once
 a commit (``host_syncs``); the decision is a function of (store, batch,
 gate) alone, which journal replay relies on. ``maintenance_tick`` runs the
 same maintenance between batches under a ``MaintenancePolicy``.
+
+Observability
+-------------
+
+With ``telemetry=True`` (the default) each gR-Tx batch also assembles the
+per-owner stage block (``repro_torch.obs.metrics.OWNER_STAGE_FIELDS``:
+frontier rows, probe hits, miss rows, edges scanned, leaf fetches, route
+overflow, deferred rows) on the same one metrics all-reduce: each rank
+writes its local counters at its own row of an ``[n, 7]`` block, the
+block rides the reduced vector, and the sum assembles the matrix on every
+rank. Hits, misses, edges, leaves and frontier rows are counted at the
+owner (after routing), overflow and deferred rows at the origin. The block
+rides the batch's one result copy too, and ``run_gr_tx_batch`` pops it
+into ``last_owner_stage`` before it builds the metrics dict, so the
+collectives, the host reads and the metrics are those of
+``telemetry=False``. Host phases run in ``tracer`` spans
+(``repro_torch.obs.trace``; the no-op ``NULL_TRACER`` unless one is
+given): ``gr_dispatch`` (every rank's program, with its per-hop reads),
+``gr_sync`` (the one result copy), ``gr_unpack`` (the decode),
+``grw_step``, ``compaction_tick`` and ``hot_swap_pause`` (``grow_blocks``).
+A span adds no device synchronization.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -104,6 +128,7 @@ from repro_torch.graphstore.maintenance import (
     grow_store,
 )
 from repro_torch.graphstore.partition import (
+    BlockCapacityError,
     BlockStoreView,
     apply_mutations_partitioned,
     default_pspec,
@@ -114,6 +139,8 @@ from repro_torch.graphstore.partition import (
     store_bytes_report,
 )
 from repro_torch.kernels.block_gather.ops import block_onehop_exec
+from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.utils import NULL_ID, SyncCount, resolve_device
 
 _STAT_FIELDS = ("n_hit", "n_miss", "n_insert", "n_evict", "n_delete", "n_oversize")
@@ -165,6 +192,10 @@ class _MeshTier:
         self.rt, self.caps, self.me = rt, caps, me
         self.n, self.pspec, self.rtable = rt.n, rt.pspec, rt.rtable
         self._locality = 0  # rows the table routed away from their base owner
+        # telemetry: the plan program counts owner-side frontier rows
+        # (stage_rows) and reduce_metrics folds the owner-stage block into
+        # its one all-reduce
+        self.telemetry = self.stage_rows = rt.telemetry
 
     def exec_fn(self, hop):
         pspec, espec = self.pspec, self.rt.lspec
@@ -222,12 +253,33 @@ class _MeshTier:
         keys = [k for k in _ADDITIVE_METRICS if k in m]
         hop_k = m["_hop_k"]
         dev = self.rt.device
-        vec = torch.stack([torch.as_tensor(v, dtype=torch.int64, device=dev)
-                           for v in [m[k] for k in keys] + list(hop_k)])
+        as64 = lambda vs: torch.stack([torch.as_tensor(v, dtype=torch.int64, device=dev)
+                                       for v in vs])
+        vec = as64([m[k] for k in keys] + list(hop_k))
+        S = len(OWNER_STAGE_FIELDS)
+        if self.telemetry:
+            # the owner-stage block rides the same sum: every value is still
+            # this rank's local count, so writing the locals at row ``me`` of
+            # an [n, S] block and summing over the ranks assembles the matrix
+            # on every rank. Field order is the OWNER_STAGE_FIELDS contract;
+            # route_overflow and deferred are the origin's, the rest the
+            # owner's (counted after routing)
+            local = {
+                "frontier_rows": m.pop("_frontier_rows"), "probe_hits": m["hits"],
+                "miss_rows": m["misses"], "edges_scanned": m["edges_scanned"],
+                "leaf_fetches": m["leaf_fetches"], "route_overflow": m["route_overflow"],
+                "deferred_rows": m["deferred"],
+            }
+            block = torch.zeros((self.n, S), dtype=torch.int64, device=dev)
+            block[self.me] = as64([local[f] for f in OWNER_STAGE_FIELDS])
+            vec = torch.cat([vec, block.reshape(-1)])
         g = yield from self.psum(vec)
+        nk, nh = len(keys), len(hop_k)
         for i, k in enumerate(keys):
             m[k] = g[i]
-        m["_hop_k"] = list(g[len(keys):])
+        m["_hop_k"] = list(g[nk:nk + nh])
+        if self.telemetry:
+            m["owner_stage"] = g[nk + nh:].reshape(self.n, S)
         return m
 
 
@@ -250,13 +302,20 @@ class ShardedTxnRuntime:
     ops it routes to each peer, are bounded by the single host's caps
     (``OPS_CAP`` / ``SWEEP_CAP``); ops they drop count in ``op_overflow``.
 
+    ``telemetry`` (default on) assembles the owner-stage block of every gR
+    batch into ``last_owner_stage``; ``last_step_seconds`` is the batch's
+    wall clock from the first rank's program to the end of the result
+    copy. ``tracer`` (an ``obs.trace.Tracer``) times the host phases;
+    the default records nothing.
+
     Entry points run on CUDA unless ``device`` names another device, and
     raise if it is absent. The identity routing table is threaded through
     every step, as the reference does by default.
     """
 
     def __init__(self, espec, mesh: LocalMesh, *,
-                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR, device=None):
+                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR, device=None,
+                 telemetry: bool = True, tracer=None):
         self.device = resolve_device(device)
         self.mesh = mesh
         n = self.n = mesh.n
@@ -278,14 +337,33 @@ class ShardedTxnRuntime:
         # applied mutation rows since the last compaction (the policy's
         # latency-amortization input)
         self.mutation_rows_since_compact = 0
+        self.telemetry = bool(telemetry)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        # the latest gR batch: its wall clock and its [n, S] owner-stage
+        # block (int64, OWNER_STAGE_FIELDS order; None unless telemetry is on)
+        self.last_step_seconds = 0.0
+        self.last_owner_stage = None
+        self.swap_events = 0  # capacity growths (``grow_blocks``)
 
     # ------------------------------------------------------------ state
-    def partition_store(self, store):
+    def partition_store(self, store, *, elastic: bool = False):
         """Partition a single-host ``GraphStore`` (on this runtime's device)
-        into the owner-local blocks of every rank."""
+        into the owner-local blocks of every rank.
+
+        With ``elastic=True`` an orientation that overflows its blocks grows
+        ``e_blk_cap`` (25 % over the reported need) and retries, where it
+        would raise ``BlockCapacityError``: the ingest-time half of capacity
+        growth (``maintenance_tick`` is the online half)."""
         if store.esrc.device.type != self.device.type:
             raise ValueError(f"the store lies on {store.esrc.device}, the runtime on {self.device}")
-        return partition_store(self.pspec, store)
+        while True:
+            try:
+                return partition_store(self.pspec, store)
+            except BlockCapacityError as e:
+                if not elastic:
+                    raise
+                self._set_pspec(self.pspec._replace(
+                    e_blk_cap=max(int(math.ceil(e.needed * 1.25)), self.pspec.e_blk_cap + 1)))
 
     def store_bytes(self, pstore) -> dict:
         """Per-shard bytes vs the replicated snapshot."""
@@ -317,43 +395,49 @@ class ShardedTxnRuntime:
         """The owner-local compaction pass under the current block layout,
         ``step(pstore) -> pstore'``: each shard merges its blocks' recent
         regions into their sorted bodies and rebuilds its geid indexes, with
-        no collectives."""
-        pspec = self.pspec
-        return lambda ps: compact_store(pspec, ps, purge=purge)
+        no collectives. The pass runs in a ``compact_store`` span."""
+        pspec, tracer = self.pspec, self.tracer
+        return lambda ps: compact_store(pspec, ps, purge=purge, tracer=tracer)
 
     def grow_blocks(self, pstore, e_blk_cap: int, *, recent_blk_cap: int | None = None):
         """Grow every block to ``e_blk_cap`` and adopt the grown spec: the
         one capacity-growth path (``maintenance_tick`` and replay call it).
         The reference also prepares the next tier's compiled steps ahead of
         the swap (``precompile_next_tier`` / ``swap_to_next_tier``); eager
-        torch compiles nothing, so the swap is this pad alone."""
-        new, grown = grow_store(self.pspec, pstore, e_blk_cap, recent_blk_cap=recent_blk_cap)
-        self._set_pspec(new)
+        torch compiles nothing, so the swap is this pad alone, counted in
+        ``swap_events`` and timed in a ``hot_swap_pause`` span."""
+        with self.tracer.span("hot_swap_pause"):
+            new, grown = grow_store(self.pspec, pstore, e_blk_cap, recent_blk_cap=recent_blk_cap)
+            self._set_pspec(new)
+        self.swap_events += 1
         return grown
 
     def maintenance_tick(self, pstore, policy: MaintenancePolicy | None = None, *,
                          journal=None):
-        """Run due maintenance between transaction batches: read the block
-        lengths, then grow and / or compact as ``policy`` decides, journaling
-        each event (GROW / COMPACT) so replay repeats it at the same point.
-        Returns ``(pstore', info)``. (The reference's ``occupancy=``, a
-        report the serve loop already holds, waits for ``launch/serve.py``.)"""
-        policy = MaintenancePolicy() if policy is None else policy
-        occ = self.store_occupancy(pstore)
-        dec = decide_maintenance(self.pspec, occ, policy, self.mutation_rows_since_compact)
-        info = dict(compacted=False, grown_to=None, reason=dec.reason,
-                    max_occupancy=occ["max_occupancy"], max_recent_fill=occ["max_recent_fill"])
-        if dec.grow_to is not None:
-            pstore = self.grow_blocks(pstore, dec.grow_to)
-            if journal is not None:
-                journal.append_grow(self.pspec.e_blk_cap, self.pspec.recent_blk_cap)
-            info["grown_to"] = dec.grow_to
-        if dec.compact:
-            pstore = self.compact_step(policy.purge)(pstore)
-            if journal is not None:
-                journal.append_compact(purge=policy.purge)
-            self.mutation_rows_since_compact = 0
-            info["compacted"] = True
+        """Run due maintenance between transaction batches, in a
+        ``compaction_tick`` span: read the block lengths, then grow and / or
+        compact as ``policy`` decides, journaling each event (GROW / COMPACT)
+        so replay repeats it at the same point. Returns ``(pstore', info)``.
+        (The reference's ``occupancy=``, a report the caller holds already,
+        waits for a caller: its serve loop does not tick.)"""
+        with self.tracer.span("compaction_tick"):
+            policy = MaintenancePolicy() if policy is None else policy
+            occ = self.store_occupancy(pstore)
+            dec = decide_maintenance(self.pspec, occ, policy, self.mutation_rows_since_compact)
+            info = dict(compacted=False, grown_to=None, reason=dec.reason,
+                        max_occupancy=occ["max_occupancy"],
+                        max_recent_fill=occ["max_recent_fill"])
+            if dec.grow_to is not None:
+                pstore = self.grow_blocks(pstore, dec.grow_to)
+                if journal is not None:
+                    journal.append_grow(self.pspec.e_blk_cap, self.pspec.recent_blk_cap)
+                info["grown_to"] = dec.grow_to
+            if dec.compact:
+                pstore = self.compact_step(policy.purge)(pstore)
+                if journal is not None:
+                    journal.append_compact(purge=policy.purge)
+                self.mutation_rows_since_compact = 0
+                info["compacted"] = True
         return pstore, info
 
     # --------------------------------------------------------- gR-Tx path
@@ -376,10 +460,12 @@ class ShardedTxnRuntime:
         Same contract as ``GraphEngine.run``: (result, misses, metrics).
 
         ``metrics["host_syncs"]`` counts each rank's miss-count read per hop,
-        each rank's merge rounds and the one result copy."""
+        each rank's merge rounds and the one result copy. With telemetry on,
+        the owner-stage block rides that copy and lands in
+        ``last_owner_stage``, not in the metrics."""
         from repro_torch.core.engine import _to_host
 
-        n, pspec = self.n, self.pspec
+        n, pspec, tr = self.n, self.pspec, self.tracer
         B = len(roots)
         bucket = max(bucket_for(B), n)
         if bucket // n * n != bucket:
@@ -390,24 +476,35 @@ class ShardedTxnRuntime:
         bvalid = torch.as_tensor(bvalid, device=self.device)
         caps = self._hop_route_caps(plan, Bloc)
         syncs = SyncCount()
-        programs = []
-        for me in range(n):
-            steps = make_plan_fn(self.lspec, plan, True, _MeshTier(self, caps, me))
-            rows = slice(me * Bloc, (me + 1) * Bloc)
-            programs.append(steps(local_shard(pspec, store, me), cache_shard(cache, n, me),
-                                  ttable, proots[rows], bvalid[rows], syncs))
-        outs = self.mesh.run(programs)
-        result = torch.cat([o[0] for o in outs])
-        n_seg = len(outs[0][1])
-        mroots = [torch.cat([o[1][i] for o in outs]) for i in range(n_seg)]
-        mcounts = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
-        metrics, (result, *host) = _to_host(dict(outs[0][3], _version=outs[0][4]),
-                                            [result, *mroots, *mcounts])
-        version = metrics.pop("_version")
-        metrics["host_syncs"] = syncs.n + 1
-        metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
-        metrics["locality_retry_rows"] = 0  # no routing overlays yet
-        misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
+        t0 = time.perf_counter()
+        with tr.span("gr_dispatch"):
+            programs = []
+            for me in range(n):
+                steps = make_plan_fn(self.lspec, plan, True, _MeshTier(self, caps, me))
+                rows = slice(me * Bloc, (me + 1) * Bloc)
+                programs.append(steps(local_shard(pspec, store, me), cache_shard(cache, n, me),
+                                      ttable, proots[rows], bvalid[rows], syncs))
+            outs = self.mesh.run(programs)
+            result = torch.cat([o[0] for o in outs])
+            n_seg = len(outs[0][1])
+            mroots = [torch.cat([o[1][i] for o in outs]) for i in range(n_seg)]
+            mcounts = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
+        # the owner-stage block leaves the metrics before the copy, so the
+        # metrics dict is the one telemetry=False builds
+        m = dict(outs[0][3], _version=outs[0][4])
+        stage = m.pop("owner_stage", None)
+        with tr.span("gr_sync"):
+            metrics, (result, *host) = _to_host(
+                m, [result, *mroots, *mcounts] + ([stage] if stage is not None else []))
+        self.last_step_seconds = time.perf_counter() - t0
+        with tr.span("gr_unpack"):
+            stage = host.pop() if stage is not None else None
+            version = metrics.pop("_version")
+            metrics["host_syncs"] = syncs.n + 1
+            metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
+            metrics["locality_retry_rows"] = 0  # no routing overlays yet
+            misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
+        self.last_owner_stage = stage.astype(np.int64) if stage is not None else None
         return result[:B], misses, metrics
 
     # -------------------------------------------------------- gRW-Tx path
@@ -535,14 +632,16 @@ class ShardedTxnRuntime:
 
         ``journal`` (a ``WriteBehindJournal``) makes the commit durable
         write-behind: the batch is appended with its policy and gate, and
-        the journal's metrics join the returned ones."""
+        the journal's metrics join the returned ones. The commit and its
+        metrics copy run in a ``grw_step`` span."""
         syncs = SyncCount()
-        store2, cache2, *scalars, ncomp = self.grw_step(policy, gate)(
-            store, cache, ttable, batch, syncs)
-        b = batch
-        counts = [b.nv_n, b.ne_n, b.de_n, b.dv_n, b.sv_n, b.se_n]
-        impacted, ovf, store_ovf, blk_max, rec_max, version, *rows = torch.stack(
-            [x.to(torch.int64) for x in scalars + [store2.version] + counts]).tolist()
+        with self.tracer.span("grw_step"):
+            store2, cache2, *scalars, ncomp = self.grw_step(policy, gate)(
+                store, cache, ttable, batch, syncs)
+            b = batch
+            counts = [b.nv_n, b.ne_n, b.de_n, b.dv_n, b.sv_n, b.se_n]
+            impacted, ovf, store_ovf, blk_max, rec_max, version, *rows = torch.stack(
+                [x.to(torch.int64) for x in scalars + [store2.version] + counts]).tolist()
         metrics = {"impacted_keys": impacted, "op_overflow": ovf,
                    "store_append_overflow": store_ovf}
         self.mutation_rows_since_compact += sum(rows)
@@ -633,3 +732,70 @@ class ShardedMissDrain:
 
     def pending(self) -> int:
         return sum(len(p.queue) for p in self.pops)
+
+
+# ======================================================================
+# The capacity-planning description of a deployment, lowered to the
+# runtime's spec and its served template (the reference's config_cell and
+# config_grw_cell lower XLA programs for the dry-run tools and have no twin).
+
+
+@dataclass(frozen=True)
+class GraphServeConfig:
+    v_total: int  # vertices
+    e_per_vertex: int  # average degree for capacity planning
+    max_deg: int  # per-hop gather window
+    max_leaves: int  # cache value width
+    cache_slots_total: int  # cache capacity across the fleet
+    recent_cap: int  # append-region scan window
+    n_vprops: int = 2
+    n_eprops: int = 1
+    # the served template instance (Figure 1): edge prop0 == 1, leaf prop0 == 0
+    edge_prop: int = 0
+    edge_val: int = 1
+    leaf_prop: int = 0
+    leaf_val: int = 0
+
+    def e_total(self) -> int:
+        return self.v_total * self.e_per_vertex
+
+
+def config_espec(cfg: GraphServeConfig):
+    """Lower a capacity config to an ``EngineSpec`` for the runtime."""
+    from repro_torch.core.cache import CacheSpec
+    from repro_torch.core.engine import EngineSpec
+    from repro_torch.graphstore.store import StoreSpec
+
+    spec = StoreSpec(v_cap=cfg.v_total, e_cap=cfg.e_total(), n_vprops=cfg.n_vprops,
+                     n_eprops=cfg.n_eprops, recent_cap=cfg.recent_cap)
+    cspec = CacheSpec(capacity=cfg.cache_slots_total, probes=8, max_leaves=cfg.max_leaves,
+                      max_chunks=1)
+    return EngineSpec(store=spec, cache=cspec, max_deg=cfg.max_deg, frontier=cfg.max_leaves)
+
+
+def config_plan_and_ttable(cfg: GraphServeConfig):
+    """The served SQ1-shape template instance (Figure 1) as a runtime
+    ``QueryPlan`` plus its enabled ``TemplateTable``."""
+    from repro_torch.core.engine import Hop, QueryPlan
+    from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
+    from repro_torch.core.templates import (
+        ANY_LABEL, DIR_OUT, MAX_CONDS, OP_EQ, WILDCARD, Template, make_pred,
+        make_template_table,
+    )
+    from repro_torch.utils import PROP_MISSING
+
+    econd = [(cfg.edge_prop, OP_EQ, WILDCARD)]
+    lcond = [(cfg.leaf_prop, OP_EQ, WILDCARD)]
+    tpl = Template("SQ1", DIR_OUT, (ANY_LABEL, []), (ANY_LABEL, econd), (ANY_LABEL, lcond))
+    ttable = make_template_table([tpl])
+    qp = GraphQP("qp0")
+    sc = ServiceCoordinator([qp])
+    sc.register(0)
+    sc.enable(0)
+    ttable = qp.ttable_masks(ttable, 1)
+    params = np.full(PARAM_LEN, int(PROP_MISSING), np.int32)
+    params[0] = cfg.edge_val
+    params[MAX_CONDS] = cfg.leaf_val
+    hop = Hop(DIR_OUT, ANY_LABEL, make_pred(ANY_LABEL, []), make_pred(ANY_LABEL, econd),
+              make_pred(ANY_LABEL, lcond), 0, params)
+    return QueryPlan(hops=(hop,)), ttable

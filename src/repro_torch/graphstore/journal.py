@@ -49,9 +49,12 @@ mutation naming a purged geid resolves to "not found". ``EpochRegistry``
 allows purge only when no reader pins an epoch older than the store version
 and the journal's checkpoint covers that version.
 
-Not ported yet: the reference's tracer spans (the observability tier),
-``replay_to_owner`` and ``drain_queued`` (failover), and replaying MIGRATE
-records (migration).
+Flushes and checkpoints run in ``journal_flush`` and ``checkpoint`` spans
+of the journal's ``tracer`` (``repro_torch.obs.trace``; the flusher thread
+records into it too, so it must be thread-safe, as ``Tracer`` is).
+
+Not ported yet: ``replay_to_owner`` and ``drain_queued`` (failover), and
+replaying MIGRATE records (migration).
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ from repro_torch.distributed.routing import base_owner
 from repro_torch.graphstore.maintenance import DeviceGate
 from repro_torch.graphstore.mutations import MutationBatch
 from repro_torch.graphstore.partition import abstract_partitioned_store
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.utils import resolve_device
 
 _MAGIC = b"GJL2"
@@ -250,12 +254,15 @@ class WriteBehindJournal:
     written and before the rest: raising simulates a torn flush, which the
     bounded retries must absorb without losing or duplicating a record.
     ``io_timeout`` bounds each write and checkpoint save (``timed_call``).
+    ``tracer`` (an ``obs.trace.Tracer``) times each flush and checkpoint;
+    the default records nothing.
     """
 
     def __init__(self, root: str, n_shards: int, *, retry: Optional[RetryPolicy] = None,
                  flush_fault: Optional[Callable[[int], None]] = None,
-                 io_timeout: Optional[float] = None):
+                 io_timeout: Optional[float] = None, tracer=None):
         self.root = root
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.n = n_shards
         self.retry = retry if retry is not None else RetryPolicy(max_attempts=4)
         self.flush_fault = flush_fault
@@ -357,7 +364,7 @@ class WriteBehindJournal:
         """Group-commit the pending queue: one write + fsync for the whole
         group, with bounded retries (truncate to the durable offset, rewrite
         the group). Returns the number of records made durable."""
-        with self._flush_lock:
+        with self._flush_lock, self.tracer.span("journal_flush"):
             return self._flush_locked()
 
     def _flush_locked(self) -> int:
@@ -531,11 +538,12 @@ class WriteBehindJournal:
         """Snapshot the whole partitioned store, covering every appended
         record. The block layout is recorded so recovery rebuilds the right
         shapes before it replays."""
-        seq, _ = self._mark()
-        return self._publish(seq, pstore, {
-            "kind": "full", "e_blk_cap": int(e_blk_cap),
-            "recent_blk_cap": int(recent_blk_cap), "store_version": int(store_version),
-        })
+        with self.tracer.span("checkpoint"):
+            seq, _ = self._mark()
+            return self._publish(seq, pstore, {
+                "kind": "full", "e_blk_cap": int(e_blk_cap),
+                "recent_blk_cap": int(recent_blk_cap), "store_version": int(store_version),
+            })
 
     def checkpoint_incremental(self, pstore, *, e_blk_cap: int, recent_blk_cap: int,
                                store_version: int) -> str:
@@ -549,13 +557,14 @@ class WriteBehindJournal:
                 or int(base[1]["recent_blk_cap"]) != int(recent_blk_cap)):
             return self.checkpoint(pstore, e_blk_cap=e_blk_cap, recent_blk_cap=recent_blk_cap,
                                    store_version=store_version)
-        seq, owners = self._mark()
-        tree = _incremental_tree(_to_numpy_tree(pstore), owners, self.n, int(e_blk_cap))
-        return self._publish(seq, tree, {
-            "kind": "incremental", "base_seq": int(base[0]), "owners": owners,
-            "e_blk_cap": int(e_blk_cap), "recent_blk_cap": int(recent_blk_cap),
-            "store_version": int(store_version),
-        })
+        with self.tracer.span("checkpoint"):
+            seq, owners = self._mark()
+            tree = _incremental_tree(_to_numpy_tree(pstore), owners, self.n, int(e_blk_cap))
+            return self._publish(seq, tree, {
+                "kind": "incremental", "base_seq": int(base[0]), "owners": owners,
+                "e_blk_cap": int(e_blk_cap), "recent_blk_cap": int(recent_blk_cap),
+                "store_version": int(store_version),
+            })
 
     def latest_checkpoint(self):
         """``(seq, spec_meta)`` of the newest checkpoint, or None."""

@@ -23,8 +23,7 @@ is the write path's background half:
 
 All of it is owner-local: no collectives. ``ShardedTxnRuntime`` runs it
 between batches (``maintenance_tick``) or inside a gated commit
-(``run_grw_tx(gate=DeviceGate(...))``). The reference's ``tracer`` span of
-``compact_store`` waits for the observability tier.
+(``run_grw_tx(gate=DeviceGate(...))``).
 """
 
 from __future__ import annotations
@@ -43,6 +42,7 @@ from repro_torch.graphstore.partition import (
     local_shard,
     rebuild_geid_index,
 )
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.utils import INT32_MAX, PROP_MISSING
 
 
@@ -121,15 +121,17 @@ def compact_block(pspec: PartitionedStoreSpec, blk: EdgeBlock, *, purge: bool = 
 
 
 def compact_store(pspec: PartitionedStoreSpec, ps: PartitionedGraphStore, *,
-                  purge: bool = False) -> PartitionedGraphStore:
+                  purge: bool = False, tracer=None) -> PartitionedGraphStore:
     """Compact both blocks of every shard of a global-layout store and join
     them in shard order; the replicated tier passes through. Owner-local: no
-    collectives. The reference's ``native_only`` (``me`` per shard, for
-    migrated stores) waits for the migration tier."""
-    shards = [local_shard(pspec, ps, s) for s in range(pspec.n_shards)]
-    return join_shards([p._replace(out=compact_block(pspec, p.out, purge=purge),
-                                   inc=compact_block(pspec, p.inc, purge=purge))
-                        for p in shards])
+    collectives. ``tracer`` (an ``obs.trace.Tracer``) times the pass in a
+    ``compact_store`` span. The reference's ``native_only`` (``me`` per
+    shard, for migrated stores) waits for the migration tier."""
+    with (tracer if tracer is not None else NULL_TRACER).span("compact_store"):
+        shards = [local_shard(pspec, ps, s) for s in range(pspec.n_shards)]
+        return join_shards([p._replace(out=compact_block(pspec, p.out, purge=purge),
+                                       inc=compact_block(pspec, p.inc, purge=purge))
+                            for p in shards])
 
 
 # ------------------------------------------------------------- elasticity

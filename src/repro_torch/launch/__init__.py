@@ -1,0 +1,3 @@
+"""Entry points of the PyTorch port: ``serve`` runs the sharded
+transaction runtime's serving loop on one device (``python -m
+repro_torch.launch.serve``)."""

@@ -4,6 +4,8 @@
   imports ``jax`` or anything of the JAX package ``repro``.
 - The entry points default to CUDA and raise when it is absent, instead of
   falling back to the CPU.
+- The serve loop's flags of slices not ported yet raise
+  ``NotImplementedError``.
 """
 
 import ast
@@ -47,6 +49,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.graphstore import StoreSpec, empty_store, ingest, make_mutation_batch
     from repro_torch.graphstore.journal import decode_commit, encode_commit
+    from repro_torch.launch import serve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = StoreSpec(v_cap=8, e_cap=16, n_vprops=1, n_eprops=1, recent_cap=4)
@@ -63,6 +66,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         # durability: a replayed commit and a restored checkpoint land on CUDA
         lambda: decode_commit(encode_commit(make_mutation_batch(spec, device="cpu"))),
         lambda: restore_checkpoint("unused", 0, None),
+        # the serve loop, with no flags
+        lambda: serve.main([]),
     ]
     # the GNN serving path's entry points, each run on the CPU when asked
     cfg = GNNConfig(name="t", kind="pna", n_layers=1, d_hidden=4, d_in=3, n_classes=2)
@@ -99,3 +104,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert empty_store(spec, device="cpu").vlabel.device.type == "cpu"
     for call in gnn_calls + serve_calls:
         assert call(device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("flags", [["--store-tier", "replicated"], ["--inject-crash", "1:3"],
+                                   ["--recover-after", "2"], ["--hedge-after", "0.1"],
+                                   ["--migrate"]], ids=lambda f: f[0])
+def test_unported_serve_flags_raise(flags):
+    """The serve loop's flags of slices not ported yet raise, naming their
+    ROADMAP.md item, before anything is built."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item \d"):
+        serve.main(flags + ["--device", "cpu"])
