@@ -138,7 +138,27 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    and the commit between them equals its plain version; the journal ends
    drained with no pin open. Prints requests, hits, misses, populated and
    overflow, latency per traffic class, hit locality per owner, the spans,
-   the journal's metrics and the phase's seconds.
+   the journal's metrics and the phase's seconds;
+13. failover, right after 12 on phase 7's store: 16 gR batches of 512 Zipf
+   roots through a ``FailoverController`` (the detector's fail_threshold 2,
+   a 0.05 s hedge), each with its per-owner CP drain, a W-hat commit after
+   every 2nd batch, the write-behind journal with a full checkpoint just
+   before the crash, and a control runtime that takes the same commits
+   with no fault. Owner 1 crashes at batch 4: batch 4 raises
+   ``NodeFailure``; batches 5-8 serve degraded (every row not deferred
+   held equal to a healthy read on the same store and cache, rows deferred
+   and hits served, no miss record of owner 1) while their commits queue
+   and the store stays as it was; after batch 8's reads ``recover``
+   replays to the watermark, splices owner 1's blocks and drains the
+   queued commits, and the store must equal the control's field for field,
+   every later batch the control's read through the same cache. Owner 2
+   straggles in batch 11 (2 s): the masked hedge must win and batch 12
+   equal the control's, owner-stage block included. Every kernel call of
+   the phase is held to its plain version. Then ``python -m
+   repro_torch.launch.serve --inject-crash 1:3 --recover-after 2`` runs
+   on the card and must recover once. Prints the unavailable, degraded and
+   deferred counts, the queued and drained commits, the recovery's seconds
+   (replay, splice, drain) and the degraded and healthy gR step p50.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -147,7 +167,7 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
-Phase 11 runs right after 7, on its store, then 12, before 9.
+Phase 11 runs right after 7, on its store, then 12 and 13, before 9.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -2262,6 +2282,297 @@ def run_serve(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes
     return report
 
 
+# ------------------------------------------------------------- failover
+# Phase 13: degraded mode, queued writes and recovery on the phase-7 store
+# (4 owners, EB 2^24, recent 1,024, cache 4 x 2^16), the reference serve
+# loop's failover settings (a detector of fail_threshold 2, a 0.05 s hedge).
+F_BATCHES = 16  # gR batches of BATCH Zipf roots over the six plans in turn
+F_WRITE_EVERY = 2  # a W-hat commit after every 2nd batch: 8 commits
+F_CRASH_OWNER, F_CRASH_AT = 1, 4  # owner 1's storage is lost from batch 4 on
+F_RECOVER_AFTER = 4  # degraded batches 5-8, recovery after batch 8's reads
+F_HANG_OWNER, F_HANG_AT, F_HANG_S = 2, 11, 2.0  # owner 2 straggles in batch 11
+F_STRAGGLE_AFTER, F_HEDGE_AFTER = 1.0, 0.05
+
+
+def pstores_equal(a, b, where):
+    """Two partitioned stores field for field, ``gperm`` included."""
+    from repro_torch.graphstore.partition import EdgeBlock
+
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        for name, u, v in (zip(EdgeBlock._fields, x, y) if isinstance(x, EdgeBlock)
+                           else [(f, x, y)]):
+            assert torch.equal(u, v), f"{where}: {f}.{name} differs"
+
+
+def run_failover(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
+    """Phase 13: F_BATCHES gR batches through a ``FailoverController`` on the
+    phase-7 partitioned store, each followed by its per-owner CP drain, a
+    W-hat commit after every F_WRITE_EVERY-th batch, and owner F_CRASH_OWNER
+    crashing at batch F_CRASH_AT, with the write-behind journal (a full
+    checkpoint just before the crash). A control runtime takes the same
+    commits with no fault. Checks: the crash batch raises ``NodeFailure``;
+    on every degraded batch each row not deferred equals a healthy call on
+    the same store and cache, rows defer and hits serve, and no miss record
+    names a root of the down owner; the store does not move while commits
+    queue; after ``recover`` the store equals the control's field for
+    field, and every later batch's results, misses and metrics equal the
+    control's read on the same cache. Owner F_HANG_OWNER straggles in batch
+    F_HANG_AT: the masked hedge wins and the batch after it equals the
+    control's, owner-stage block included. Every kernel call of the phase
+    equals its plain version. Then ``python -m repro_torch.launch.serve
+    --inject-crash 1:3 --recover-after 2`` runs on the card as a subprocess
+    and must recover once. Returns the phase's report."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, base_owner, flat_mesh
+    from repro_torch.distributed.failover import FailoverController
+    from repro_torch.distributed.fault import (
+        FailureDetector, HedgedCalls, NodeFailure, ShardFaultPlan,
+    )
+    from repro_torch.graphstore import WriteBehindJournal
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.launch.serve import CP_DRAIN_K
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 61)
+    kinds, wweights = zip(*WRITE_MIX)
+    wweights = np.array(wweights) / sum(wweights)
+    # the deletes draw from the includes of the Zipf-hottest watch-lists, as
+    # in phase 12, so that the reads meet them
+    hot = torch.as_tensor(includes, device=dev)
+    hot = hot[hstore.esrc[hot] < ranges[L_WATCHLIST][0] + P_HOT_WATCHLISTS].cpu().numpy()
+    plan_cycle = [(name, p, label) for name, p, label, _ in plans]
+    root = tempfile.mkdtemp(prefix="chip_smoke_failover_")
+    # rt serves through the controller; rt_c is the control (the same
+    # commits, no fault); rt_h makes the healthy reads held against the
+    # degraded ones
+    rt, rt_c, rt_h = (ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev) for _ in range(3))
+    ps = ps_c = pstore  # commits are functional: all start from the phase-7 store
+    cache, cache_c = rt.empty_cache(), rt_c.empty_cache()
+    drain = ShardedMissDrain(rt, meta)
+    j = WriteBehindJournal(os.path.join(root, "journal"), rt.n)
+    j.start(interval=D_FLUSH_S)
+    ctl = FailoverController(
+        rt, j, ttable,
+        plan=ShardFaultPlan(crash={F_CRASH_OWNER: F_CRASH_AT},
+                            hang={F_HANG_OWNER: (F_HANG_AT, F_HANG_AT + 1, F_HANG_S)}),
+        detector=FailureDetector(n=N_OWNERS, fail_threshold=2, straggle_after=F_STRAGGLE_AFTER),
+        hedge=HedgedCalls(), hedge_after=F_HEDGE_AFTER)
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    checked = {"cache_probe": 0, "block_gather": 0}
+
+    @contextlib.contextmanager
+    def uncounted():
+        # the checks' own launches (control, healthy reads, plain-version
+        # comparisons) stay out of the main path's counts and captures
+        capture.__exit__(None, None, None)
+        saved = cp_ops.launches, bg_ops.launches
+        try:
+            yield
+        finally:
+            cp_ops.launches, bg_ops.launches = saved
+            capture.__enter__()
+
+    def check_calls(where):
+        with uncounted():
+            if capture.calls["cache_probe"]:
+                check_probe_calls(capture.calls["cache_probe"], where)
+            for a, kw in capture.calls["block_gather"]:
+                got, want = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+                for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+                    assert torch.equal(g, w), f"block_gather {name} disagrees with its plain " \
+                        f"version ({where})"
+            for k in checked:
+                checked[k] += len(capture.calls[k])
+                capture.calls[k].clear()
+
+    def write_batch():
+        while True:
+            kind = kinds[int(rng.choice(len(kinds), p=wweights))]
+            mb = make_write(rng, espec, ranges, hot, kind, dev)
+            if mb is not None:
+                return mb
+
+    def healthy_read(ps, cache, plan, roots):
+        # the same batch on the same store and cache with no owner down,
+        # outside the main path's counts: the degraded read is held against
+        # its rows, and its step time pairs with the degraded one's
+        with uncounted():
+            torch.cuda.synchronize()
+            res_h, _, _ = rt_h.run_gr_tx_batch(ps, cache, ttable, plan, roots)
+        return res_h, rt_h.last_step_seconds * 1e3
+
+    rows = {"unavailable": 0, "degraded": 0, "deferred": 0, "degraded_hits": 0,
+            "queued": 0, "compared_after_recovery": 0}
+    step_ms = {"healthy": [], "degraded": []}
+    paired = []  # each degraded batch's step time beside its healthy read's
+    rinfo, hedge_info, recovered_at = None, None, None
+    torch.cuda.synchronize()
+    cp_ops.launches = bg_ops.launches = 0
+    capture.__enter__()
+    t_loop = time.perf_counter()
+    for b in range(F_BATCHES):
+        name, plan, label = plan_cycle[b % len(plan_cycle)]
+        roots = zipf_pick(rng, *ranges[label], BATCH)
+        ctl.probe(b)
+        # on every other degraded batch the healthy read goes first, so that
+        # the order of the pair does not bias its ratio
+        healthy = (healthy_read(ps, cache, plan, roots)
+                   if ctl.detector.down() and b % 2 == 0 else None)
+        try:
+            res, deferred, misses, m = ctl.run_gr(ps, cache, plan, roots, b)
+        except NodeFailure:
+            # the detection gap: one failed probe of fail_threshold 2
+            assert b == F_CRASH_AT and not ctl.detector.down(), b
+            rows["unavailable"] += 1
+            continue
+        assert m["route_overflow"] == 0, f"phase 13 batch {b}: route_overflow"
+        down = ctl.detector.down()
+        (step_ms["degraded"] if down else step_ms["healthy"]).append(rt.last_step_seconds * 1e3)
+        if down or m["hedged"]:
+            first = healthy is not None
+            healthy, healthy_ms = healthy if first else healthy_read(ps, cache, plan, roots)
+            keep = ~deferred
+            assert np.array_equal(res[keep], healthy[keep]), \
+                f"phase 13 batch {b}: a row not deferred differs from the healthy read"
+            gone = down | ({F_HANG_OWNER} if m["hedged"] else set())
+            bad = [x.root for x in misses if int(base_owner(x.root, N_OWNERS)) in gone]
+            assert not bad, f"phase 13 batch {b}: miss records of down owners {bad[:8]}"
+            if down:
+                deg_ms = rt.last_step_seconds * 1e3
+                paired.append(dict(batch=b, plan=name, degraded_ms=deg_ms,
+                                   healthy_ms=healthy_ms, healthy_first=first,
+                                   ratio=deg_ms / healthy_ms))
+        if down:
+            assert b in range(F_CRASH_AT + 1, F_CRASH_AT + F_RECOVER_AFTER + 1), b
+            rows["degraded"] += 1
+            rows["deferred"] += m["deferred_rows"]
+            rows["degraded_hits"] += m["hits"]
+        if b == F_HANG_AT:
+            assert m["hedged"] == 1 and ctl.hedge.hedge_wins == 1 and deferred.any(), \
+                f"phase 13: the straggler's batch did not hedge: {m['hedged']}"
+            hedge_info = dict(deferred_rows=m["deferred_rows"],
+                              step_ms=rt.last_step_seconds * 1e3)
+        elif recovered_at is not None:
+            # after recovery: the control's read of its store through the
+            # same cache gives the same batch
+            with uncounted():
+                want = rt_c.run_gr_tx_batch(ps_c, cache, ttable, plan, roots,
+                                            return_deferred=True)
+            assert np.array_equal(res, want[0]) and not deferred.any() and \
+                miss_key(misses) == miss_key(want[1]), \
+                f"phase 13 batch {b}: differs from the control after recovery"
+            got_m = {k: v for k, v in m.items() if k in want[2] and k != "host_syncs"}
+            assert got_m == {k: v for k, v in want[2].items() if k != "host_syncs"}, \
+                f"phase 13 batch {b}: metrics {got_m} != the control's {want[2]}"
+            if b == F_HANG_AT + 1:
+                assert np.array_equal(rt.last_owner_stage, rt_c.last_owner_stage), \
+                    "phase 13: the batch after the hedge has another owner-stage block"
+            rows["compared_after_recovery"] += 1
+        drain.push(misses)
+        cache = drain.drain(ps, ps, cache, ttable, CP_DRAIN_K)
+        if F_CRASH_OWNER in ctl.detector.down() and b >= F_CRASH_AT + F_RECOVER_AFTER:
+            ps, cache, rinfo = ctl.recover(ps, cache, F_CRASH_OWNER)
+            recovered_at = b
+            with uncounted():
+                pstores_equal(ps, ps_c, "phase 13: the recovered store against the control's")
+        if (b + 1) % F_WRITE_EVERY == 0:
+            mb = write_batch()
+            before = ps
+            ps, cache, wm = ctl.run_grw(ps, cache, mb)
+            if wm["queued"]:
+                assert ps is before and ctl.detector.down(), "phase 13: a queued commit moved"
+                rows["queued"] += 1
+            else:
+                assert wm["op_overflow"] == 0 and wm["store_append_overflow"] == 0, wm
+            with uncounted():
+                ps_c, cache_c, _ = rt_c.run_grw_tx(ps_c, cache_c, ttable, mb)
+            if b == F_CRASH_AT - 1:
+                # the checkpoint just before the crash: replay reads no record
+                t = time.perf_counter()
+                j.checkpoint(ps, e_blk_cap=rt.pspec.e_blk_cap,
+                             recent_blk_cap=rt.pspec.recent_blk_cap,
+                             store_version=int(ps.version))
+                ckpt_s = time.perf_counter() - t
+        check_calls(f"phase 13 batch {b}")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    capture.__exit__(None, None, None)
+    launches = {"block_gather": bg_ops.launches, "cache_probe": cp_ops.launches}
+    assert min(launches.values()) > 0, f"phase 13 launched a kernel no time: {launches}"
+    assert min(checked.values()) > 0, f"phase 13 checked no call of a kernel: {checked}"
+    assert rows["unavailable"] == 1 and rows["degraded"] == F_RECOVER_AFTER, rows
+    assert rows["deferred"] > 0 and rows["degraded_hits"] > 0, rows
+    assert rinfo is not None and rinfo["drained_commits"] == rows["queued"] > 0, (rinfo, rows)
+    assert rinfo["replayed_commits"] == 0 and hedge_info is not None
+    assert rows["compared_after_recovery"] == F_BATCHES - recovered_at - 2, rows
+    j.stop(final_flush=True)
+    jm = j.metrics()
+    assert jm["queued_commits"] == 0 and jm["applied_seq"] == jm["durable_seq"], jm
+    fm = ctl.metrics()
+    shutil.rmtree(root)
+
+    # the serve loop's chaos flags at their defaults, on the card
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--inject-crash",
+                           "1:3", "--recover-after", "2"], capture_output=True, text=True,
+                          env=env, timeout=300)
+    serve_s = time.perf_counter() - t
+    assert proc.returncode == 0, f"phase 13 serve loop failed: {proc.stderr[-3000:]}"
+    fo = next(l for l in proc.stdout.splitlines() if l.startswith("failover: "))
+    kv = dict(w.split("=") for w in fo[len("failover: "):].split())
+    assert kv["recoveries"] == "1" and kv["unavailable_batches"] == "1", fo
+
+    card = card_line()
+    report = dict(
+        batches=F_BATCHES, batch=BATCH, commits=F_BATCHES // F_WRITE_EVERY, rows=rows,
+        failover=fm, recovery={k: v for k, v in rinfo.items()}, hedge=hedge_info,
+        checkpoint_seconds=ckpt_s, degraded_step_p50_ms=pct(step_ms["degraded"], 50),
+        healthy_step_p50_ms=pct(step_ms["healthy"], 50), step_ms=step_ms, paired=paired,
+        paired_ratio_p50=pct([x["ratio"] for x in paired], 50),
+        launches=launches, kernel_calls_checked=checked, loop_seconds=loop_s,
+        serve_subprocess=dict(seconds=serve_s, failover_line=fo), journal=jm,
+        seconds=time.perf_counter() - t_phase,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("failover report: " + json.dumps(report), flush=True)
+    print(f"failover: unavailable_batches={rows['unavailable']} degraded_batches="
+          f"{rows['degraded']} deferred_rows={rows['deferred']} degraded_hits="
+          f"{rows['degraded_hits']} queued_commits={rows['queued']} drained_commits="
+          f"{rinfo['drained_commits']} | {card}", flush=True)
+    print(f"failover recovery: recovery_seconds={rinfo['recovery_seconds']:.3f} (replay "
+          f"{rinfo['replay_seconds']:.3f}, splice {rinfo['splice_seconds']:.3f}, drain "
+          f"{rinfo['drain_seconds']:.3f}); checkpoint before the crash {ckpt_s:.3f} s | {card}",
+          flush=True)
+    print("failover gR step, each degraded batch and a healthy read of it on the same store "
+          "and cache: " + ", ".join(
+              f"batch {x['batch']} ({x['plan']}) {x['degraded_ms']:.3f} / {x['healthy_ms']:.3f} "
+              f"ms = {x['ratio']:.4f}" for x in paired)
+          + f"; paired ratio p50 {report['paired_ratio_p50']:.4f} | {card}", flush=True)
+    print(f"failover gR step p50 ms over different batches: degraded "
+          f"{report['degraded_step_p50_ms']:.3f} (n={len(step_ms['degraded'])}), healthy "
+          f"{report['healthy_step_p50_ms']:.3f} (n={len(step_ms['healthy'])}); hedged batch "
+          f"{hedge_info['step_ms']:.3f} ms, "
+          f"{hedge_info['deferred_rows']} rows deferred | {card}", flush=True)
+    print(f"failover checks: crash batch unavailable, {rows['degraded']} degraded batches held "
+          f"to healthy reads, no miss record of the down owner, queued commits left the store, "
+          f"recovered store equal to the control's, {rows['compared_after_recovery']} batches "
+          f"after recovery equal to the control's, the hedge won and the next batch equals the "
+          f"control's, kernel calls {checked} (all equal); serve loop --inject-crash 1:3 "
+          f"--recover-after 2: {fo} ({serve_s:.1f} s); phase {report['seconds']:.1f}s, peak "
+          f"device memory {report['peak_device_gib']:.2f} GiB", flush=True)
+    return report
+
+
 # ------------------------------------------------------------ GNN serving
 # Phase 8: cached neighbour sampling over a graph sized like Reddit, the
 # dataset behind the minibatch_lg cell (src/repro/configs/gnn_shapes.py),
@@ -3150,7 +3461,7 @@ def phase_memory(tag):
 
 
 def run_graph(seed, dev):
-    """Phases 3-7, 11 and 12, the graph-cache paths; returns their kernel
+    """Phases 3-7 and 11-13, the graph-cache paths; returns their kernel
     rows. Their worlds are locals, freed when it returns."""
     import repro_torch.core.cache as cache_mod
     from repro_torch.kernels.cache_probe import ops as cp_ops
@@ -3251,6 +3562,17 @@ def run_graph(seed, dev):
             row["launches"] += s_report["launches"][row["name"]]
             row["launches_by_path"]["phase 12"] = s_report["launches"][row["name"]]
     phase_memory("phase 12")
+
+    # 13. failover on the phase-7 store; the two kernels' launches counted
+    # around the phase's batches, commits and recovery (zeroed inside, just
+    # before; its checks' launches left out)
+    f_report = run_failover(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes,
+                            dev)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            row["launches"] += f_report["launches"][row["name"]]
+            row["launches_by_path"]["phase 13"] = f_report["launches"][row["name"]]
+    phase_memory("phase 13")
     return rows
 
 

@@ -146,7 +146,7 @@ class GraphEngine:
         bucket = self._bucket_for(B)
         proots, bvalid = pad_roots(roots, bucket)
         syncs = SyncCount()
-        result, miss_roots, miss_counts, m, version = self._fused_fn(
+        result, _, miss_roots, miss_counts, m, version = self._fused_fn(
             store, cache, ttable,
             torch.as_tensor(proots, device=self.device),
             torch.as_tensor(bvalid, device=self.device), syncs,

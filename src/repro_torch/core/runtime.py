@@ -75,7 +75,7 @@ FINAL_IDS, FINAL_COUNT, FINAL_VALUES = 0, 1, 2
 # Result frame (owner -> querier), int32 lanes per row:
 #     [0 : RW]         left-packed leaf ids (cache hit or miss exec)
 #     [RW]             count lane: >= 0 is the leaf count, -1 marks a row
-#                      deferred at a down owner (not produced by this port yet)
+#                      deferred at a down owner (see ``make_hop_kernel``)
 WIRE_FLAG_VALID = 1
 WIRE_QUERY_LANES = 2 + PARAM_LEN
 
@@ -291,7 +291,7 @@ def _hop_params(hop, n: int, device):
 
 
 # ----------------------------------------------------------- hop pipeline
-def make_hop_kernel(espec, hop, use_cache: bool, exec_fn=None):
+def make_hop_kernel(espec, hop, use_cache: bool, exec_fn=None, defer_fn=None):
     """One hop of the pipeline over a flat root frontier.
 
     Returns ``kernel(store, cache, ttable, roots_flat, rmask_flat,
@@ -309,6 +309,13 @@ def make_hop_kernel(espec, hop, use_cache: bool, exec_fn=None):
     ``exec_fn(store, roots, params, rmask)`` is the storage hook of the miss
     path (default: ``onehop_exec`` over a full ``GraphStore``; the
     partitioned tier supplies an owner-local block executor).
+
+    ``defer_fn(roots_flat) -> bool[BF]`` is the degraded-mode hook: True
+    where this shard cannot execute the row's miss (its storage is down).
+    Such a miss *defers*: it leaves the miss mask, so no storage
+    gather runs for it and it emits no miss record (CP must not populate
+    from a lost block), and its count lane comes home as ``cnt = -1``.
+    Hits still serve. With the hook absent the kernel does no deferral work.
     """
     RW = espec.result_width
     cacheable = hop.tpl_idx >= 0 and use_cache
@@ -335,6 +342,10 @@ def make_hop_kernel(espec, hop, use_cache: bool, exec_fn=None):
             hit = torch.zeros(BF, dtype=torch.bool, device=dev)
             n_read = n_hit = z
         miss_mask = rmask_flat & ~hit
+        deferred = None
+        if defer_fn is not None:
+            deferred = miss_mask & defer_fn(roots_flat)
+            miss_mask = miss_mask & ~deferred
         k = syncs.read(miss_mask.sum())
         null_roots = torch.full((BF,), NULL_ID, dtype=torch.int32, device=dev)
         if k > 0:
@@ -358,6 +369,10 @@ def make_hop_kernel(espec, hop, use_cache: bool, exec_fn=None):
                 vals = torch.full((BF, RW), NULL_ID, dtype=torch.int32, device=dev)
                 cnt = torch.zeros(BF, dtype=torch.int32, device=dev)
             mr, nrec, trunc_n, es, lf = null_roots, z, z, z, z
+        if deferred is not None:
+            # deferred rows ride the count lane home as -1 (their count is 0
+            # on both branches, so the encoding is unambiguous)
+            cnt = torch.where(deferred, -1, cnt)
         stats = {
             "k": k, "n_read": n_read, "hits": n_hit,
             "trunc": trunc_n, "edges": es, "leaves": lf,
@@ -397,6 +412,9 @@ class LocalPlanTier:
     def exec_fn(self, hop):
         return None  # default: onehop_exec over the full store
 
+    def defer_fn(self):
+        return None  # one host has no owner to lose: nothing defers
+
     def route(self, hop_idx, A, roots_flat, rmask_flat, params_row):
         # rows stay home; per-row params stay implicit (None -> the hop
         # kernel broadcasts its own)
@@ -425,7 +443,8 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
     miss arrays and the metrics, over the ``tier``'s hooks.
 
     Tier hooks: ``exec_fn(hop)`` supplies the miss-path storage executor
-    (None -> full-store ``onehop_exec``); ``route`` / ``unroute`` move
+    (None -> full-store ``onehop_exec``); ``defer_fn()`` the degraded-mode
+    hook of the hop kernels (None: nothing defers); ``route`` / ``unroute`` move
     frontier rows to their owners and results home (identity on a single
     host, one all_to_all each on a mesh); ``pack_count`` shapes per-hop miss
     counts (one segment per rank on a mesh); ``reduce_metrics`` globalizes
@@ -435,16 +454,25 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
     true also gets ``metrics["_frontier_rows"]``, the live routed rows this
     rank probed and executed over the hops, to pop in ``reduce_metrics``.
 
+    Deferred rows come home with ``cnt = -1`` in any of their slots: the
+    whole query row is then flagged deferred (bounded-stale), its slots
+    merge as empty (so a row deferred at hop 1 reaches later hops with no
+    leaves), and ``metrics["deferred"]`` counts the flagged rows on the one
+    reduction that exists.
+
     Returns ``steps(store, cache, ttable, roots, bvalid, syncs=None)``, a
     generator function: it yields the tier's collective requests and
-    returns ``(result, miss_roots, miss_counts, metrics, version)``; metric
-    values are host ints or device scalars. ``overlap=True`` and the
-    degraded mode are not ported yet, so ``metrics["deferred"]`` is 0.
+    returns ``(result, deferred, miss_roots, miss_counts, metrics,
+    version)``; ``deferred`` is the bool per-row flag, or None when the
+    tier defers nothing; metric values are host ints or device scalars.
+    ``overlap=True`` is not ported yet.
     """
     if overlap:
         raise NotImplementedError("the double-buffered schedule is not ported yet")
     F, RW = espec.frontier, espec.result_width
-    kernels = [make_hop_kernel(espec, hop, use_cache, tier.exec_fn(hop)) for hop in plan.hops]
+    defer_fn = tier.defer_fn()
+    kernels = [make_hop_kernel(espec, hop, use_cache, tier.exec_fn(hop), defer_fn)
+               for hop in plan.hops]
     cached_hops = [hop.tpl_idx >= 0 and use_cache for hop in plan.hops]
 
     def steps(store, cache, ttable, roots, bvalid, syncs=None):
@@ -473,6 +501,7 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
         fmask = torch.zeros((Bb, F), dtype=torch.bool, device=dev)
         fmask[:, 0] = bvalid
         A = 1  # occupied frontier prefix: 1 for the root hop, then min(F, A*RW)
+        row_def = None if defer_fn is None else torch.zeros(Bb, dtype=torch.bool, device=dev)
         miss_roots, miss_counts, hop_k = [], [], []
         for h, kernel in enumerate(kernels):
             q, qmask, qparams, ctx, ovf = yield from tier.route(
@@ -498,9 +527,12 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
             m["misses"] += hs["k"]
             m["truncated"] = m["truncated"] + hs["trunc"]
             vals, cnt = yield from tier.unroute(ctx, vals, cnt)
-            frontier, fmask = segmented_dedup_merge(
-                vals.reshape(Bb, A, RW), cnt.reshape(Bb, A), F, syncs=syncs
-            )
+            cnt = cnt.reshape(Bb, A)
+            if row_def is not None:
+                # the deferred channel: any slot at -1 flags its query row
+                row_def = row_def | (cnt < 0).any(dim=1)
+                cnt = cnt.clamp(min=0)
+            frontier, fmask = segmented_dedup_merge(vals.reshape(Bb, A, RW), cnt, F, syncs=syncs)
             A = min(F, A * RW)
 
         result = finalize_frontier(plan, store, roots, frontier, fmask)
@@ -511,6 +543,8 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
             m["phases"] += 1  # valueMap fetch
             m["requests"] = m["requests"] + fmask.sum(dtype=torch.int32)
         m["phases"] += plan.extra_phases
+        if row_def is not None:
+            m["deferred"] = row_def.sum(dtype=torch.int32)
         # one deferred reduction: the per-hop miss counts ride the metrics
         # through ``reduce_metrics``, then gate each hop's edge-read +
         # leaf-fetch phases on the global count
@@ -518,7 +552,7 @@ def make_plan_fn(espec, plan, use_cache: bool, tier, *, overlap: bool = False):
         m = yield from tier.reduce_metrics(m)
         for k in m.pop("_hop_k"):
             m["phases"] = m["phases"] + 2 * (k > 0)
-        return result, tuple(miss_roots), tuple(miss_counts), m, store.version
+        return result, row_def, tuple(miss_roots), tuple(miss_counts), m, store.version
 
     return steps
 
@@ -535,7 +569,8 @@ def run_local(program):
 def make_fused_plan_fn(espec, plan, use_cache: bool):
     """The single-host whole-plan pipeline: ``make_plan_fn`` with identity
     hooks, run to its end. ``fused(store, cache, ttable, roots, bvalid,
-    syncs=None) -> (result, miss_roots, miss_counts, metrics, version)``."""
+    syncs=None) -> (result, deferred, miss_roots, miss_counts, metrics,
+    version)``; ``deferred`` is None (one host defers nothing)."""
     steps = make_plan_fn(espec, plan, use_cache, LocalPlanTier())
 
     def fused(*args, **kwargs):

@@ -1,6 +1,6 @@
 """The sharded transaction runtime (PyTorch): the process-local mesh, the
-routing table of the partitioned tier, ``ShardedTxnRuntime``, and the
-bounded retries and timed calls of ``distributed.fault``."""
+routing table of the partitioned tier, ``ShardedTxnRuntime``, the fault
+model of ``distributed.fault`` and the ``FailoverController``."""
 
 from repro_torch.distributed.sharding import (
     ALL_GATHER,
@@ -11,7 +11,16 @@ from repro_torch.distributed.sharding import (
     MeshError,
     flat_mesh,
 )
-from repro_torch.distributed.fault import CallTimeout, RetryPolicy, timed_call
+from repro_torch.distributed.fault import (
+    CallTimeout,
+    ElasticRunner,
+    FailureDetector,
+    HedgedCalls,
+    NodeFailure,
+    RetryPolicy,
+    ShardFaultPlan,
+    timed_call,
+)
 from repro_torch.distributed.routing import (
     RoutingTable,
     base_owner,
@@ -34,8 +43,14 @@ __all__ = [
     "identity_table",
     "storage_owner_of",
     "CallTimeout",
+    "ElasticRunner",
+    "FailureDetector",
+    "HedgedCalls",
+    "NodeFailure",
     "RetryPolicy",
+    "ShardFaultPlan",
     "timed_call",
+    "FailoverController",
     "ShardedTxnRuntime",
     "ShardedMissDrain",
     "GraphServeConfig",
@@ -48,9 +63,14 @@ _LAZY = ("ShardedTxnRuntime", "ShardedMissDrain", "GraphServeConfig", "config_es
 
 
 def __getattr__(name):
-    # lazy: graph_serve pulls in the whole core engine stack
+    # lazy: graph_serve pulls in the whole core engine stack, failover the
+    # journal
     if name in _LAZY:
         from repro_torch.distributed import graph_serve
 
         return getattr(graph_serve, name)
+    if name == "FailoverController":
+        from repro_torch.distributed import failover
+
+        return failover.FailoverController
     raise AttributeError(name)

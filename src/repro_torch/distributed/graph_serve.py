@@ -3,10 +3,11 @@
 PyTorch twin of ``repro.distributed.graph_serve`` on the partitioned
 tier: the read path, CP population, the gRW-Tx commit under both
 policies with its maintenance gate and write-behind journal, and block
-maintenance between batches (compaction, capacity growth), and the
-owner-stage telemetry with its tracer spans. The overlapped schedule,
-degraded mode, routing overlays and the replicated tier are not ported
-yet. Vertex ownership is interleaved
+maintenance between batches (compaction, capacity growth), the
+owner-stage telemetry with its tracer spans, and the degraded mode the
+failover tier drives. The overlapped schedule, the routing overlays (they
+wait for the migration tier) and the replicated tier are not ported yet.
+Vertex ownership is interleaved
 (shard ``v mod n`` owns ``v``) and the one-hop result cache is
 co-partitioned with it: the global cache of ``C`` slots is ``n`` blocks of
 ``C // n`` slots, and a key's block is its root's owner, so a probe is
@@ -68,10 +69,27 @@ given): ``gr_dispatch`` (every rank's program, with its per-hop reads),
 ``gr_sync`` (the one result copy), ``gr_unpack`` (the decode),
 ``grw_step``, ``compaction_tick`` and ``hot_swap_pause`` (``grow_blocks``).
 A span adds no device synchronization.
+
+Degraded mode
+-------------
+
+``run_gr_tx_batch(down=...)`` masks the miss segments of the owners marked
+down: a miss whose storage owner is down *defers* (no gather, no miss
+record; its row comes back flagged in ``deferred``), while hits, the dead
+owner's cached entries among them, and the other owners' misses serve as
+usual. A healthy batch (no owner down) does no deferral work: the same
+kernels and host reads as before.
+
+``racer()`` / ``adopt()`` serve the hedged read of a straggling owner: each
+racer is a copy of the runtime with observations, mesh counts and spans of
+its own, and the winner's are adopted. The kernels' launch counts and the
+CUDA stream stay shared: a losing racer that is still running queues its
+kernels behind the next batch's.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import math
 import time
@@ -139,8 +157,8 @@ from repro_torch.graphstore.partition import (
     store_bytes_report,
 )
 from repro_torch.kernels.block_gather.ops import block_onehop_exec
-from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.metrics import OWNER_STAGE_FIELDS, attribute_step_seconds
+from repro_torch.obs.trace import NULL_TRACER, _Span
 from repro_torch.utils import NULL_ID, SyncCount, resolve_device
 
 _STAT_FIELDS = ("n_hit", "n_miss", "n_insert", "n_evict", "n_delete", "n_oversize")
@@ -182,20 +200,52 @@ class _MeshRead:
         return self.value
 
 
+# what a gR batch records on its runtime: a hedged read's racers keep these
+# apart, and the winner's are adopted (``ShardedTxnRuntime.racer``)
+_OBSERVED = ("last_step_seconds", "last_owner_stage", "last_step_owner_seconds")
+
+
+class _SpanLog:
+    """A tracer that keeps its spans as they close, for ``adopt`` to record
+    into the runtime's own tracer."""
+
+    enabled = True
+
+    def __init__(self):
+        self.spans = []
+
+    def span(self, name: str, **attrs):
+        return _Span(self, name, attrs or None)
+
+    def record(self, name: str, seconds: float, attrs: dict | None = None):
+        self.spans.append((name, seconds, attrs))
+
+
 class _MeshTier:
     """One rank's hooks of the hop driver: owner routing over all_to_all,
-    the one metrics all-reduce, and owner-local block execution."""
+    the one metrics all-reduce, owner-local block execution and, when
+    ``down`` (the host bool mask of owners marked down) is given, the
+    degraded-mode hook."""
 
     routed = True
 
-    def __init__(self, rt: "ShardedTxnRuntime", caps, me: int):
+    def __init__(self, rt: "ShardedTxnRuntime", caps, me: int, down=None):
         self.rt, self.caps, self.me = rt, caps, me
         self.n, self.pspec, self.rtable = rt.n, rt.pspec, rt.rtable
+        self.down = down
         self._locality = 0  # rows the table routed away from their base owner
         # telemetry: the plan program counts owner-side frontier rows
         # (stage_rows) and reduce_metrics folds the owner-stage block into
         # its one all-reduce
         self.telemetry = self.stage_rows = rt.telemetry
+
+    def defer_fn(self):
+        if self.down is None:
+            return None
+        # every miss routed to a down owner defers; a live owner's never does
+        # (under the identity table a row routed here is stored here)
+        dead = bool(self.down[self.me])
+        return lambda roots_flat: torch.full_like(roots_flat, dead, dtype=torch.bool)
 
     def exec_fn(self, hop):
         pspec, espec = self.pspec, self.rt.lspec
@@ -305,8 +355,11 @@ class ShardedTxnRuntime:
     ``telemetry`` (default on) assembles the owner-stage block of every gR
     batch into ``last_owner_stage``; ``last_step_seconds`` is the batch's
     wall clock from the first rank's program to the end of the result
-    copy. ``tracer`` (an ``obs.trace.Tracer``) times the host phases;
-    the default records nothing.
+    copy, and ``last_step_owner_seconds`` that wall clock attributed to
+    the owners by their work (``obs.metrics.attribute_step_seconds``), the
+    failure detector's per-owner heartbeat. ``tracer`` (an
+    ``obs.trace.Tracer``) times the host phases; the default records
+    nothing.
 
     Entry points run on CUDA unless ``device`` names another device, and
     raise if it is absent. The identity routing table is threaded through
@@ -343,6 +396,7 @@ class ShardedTxnRuntime:
         # block (int64, OWNER_STAGE_FIELDS order; None unless telemetry is on)
         self.last_step_seconds = 0.0
         self.last_owner_stage = None
+        self.last_step_owner_seconds = None
         self.swap_events = 0  # capacity growths (``grow_blocks``)
 
     # ------------------------------------------------------------ state
@@ -440,6 +494,26 @@ class ShardedTxnRuntime:
                 info["compacted"] = True
         return pstore, info
 
+    # ------------------------------------------------------------- hedging
+    def racer(self):
+        """A copy of this runtime for one call of a hedged read: it serves
+        the same state, but its observations (``last_step_seconds``,
+        ``last_owner_stage``, ``last_step_owner_seconds``), its mesh counts
+        and its spans are its own. ``adopt`` takes the winner's."""
+        r = copy.copy(self)
+        r.mesh = LocalMesh(self.n)
+        r.tracer = _SpanLog()
+        return r
+
+    def adopt(self, racer):
+        """Take a winning ``racer``'s observations, mesh counts and spans."""
+        for f in _OBSERVED:
+            setattr(self, f, getattr(racer, f))
+        for k, v in racer.mesh.counts.items():
+            self.mesh.counts[k] = self.mesh.counts.get(k, 0) + v
+        for name, seconds, attrs in racer.tracer.spans:
+            self.tracer.record(name, seconds, attrs)
+
     # --------------------------------------------------------- gR-Tx path
     def _hop_route_caps(self, plan, Bloc: int):
         """Per-hop per-peer routing capacity: ``ceil(factor * rows / n)`` for
@@ -455,14 +529,20 @@ class ShardedTxnRuntime:
             A = min(F, A * RW)
         return caps
 
-    def run_gr_tx_batch(self, store, cache, ttable, plan, roots):
+    def run_gr_tx_batch(self, store, cache, ttable, plan, roots, *, down=None,
+                        return_deferred: bool = False):
         """Pad, run every rank's program on the mesh, decode the misses.
-        Same contract as ``GraphEngine.run``: (result, misses, metrics).
+        Same contract as ``GraphEngine.run``: (result, misses, metrics), and
+        the per-row ``deferred`` flags fourth with ``return_deferred``.
+
+        ``down`` (bool[n]) masks the named owners' miss segments: their
+        misses defer. With no owner down the batch does no deferral work.
 
         ``metrics["host_syncs"]`` counts each rank's miss-count read per hop,
         each rank's merge rounds and the one result copy. With telemetry on,
         the owner-stage block rides that copy and lands in
-        ``last_owner_stage``, not in the metrics."""
+        ``last_owner_stage``, not in the metrics; ``last_step_owner_seconds``
+        attributes ``last_step_seconds`` to the owners by their work."""
         from repro_torch.core.engine import _to_host
 
         n, pspec, tr = self.n, self.pspec, self.tracer
@@ -474,37 +554,49 @@ class ShardedTxnRuntime:
         proots, bvalid = pad_roots(roots, bucket)
         proots = torch.as_tensor(proots, device=self.device)
         bvalid = torch.as_tensor(bvalid, device=self.device)
+        down = None if down is None else np.asarray(down, dtype=bool).reshape(-1)
+        if down is not None and not down.any():
+            down = None
         caps = self._hop_route_caps(plan, Bloc)
         syncs = SyncCount()
         t0 = time.perf_counter()
         with tr.span("gr_dispatch"):
             programs = []
             for me in range(n):
-                steps = make_plan_fn(self.lspec, plan, True, _MeshTier(self, caps, me))
+                steps = make_plan_fn(self.lspec, plan, True, _MeshTier(self, caps, me, down))
                 rows = slice(me * Bloc, (me + 1) * Bloc)
                 programs.append(steps(local_shard(pspec, store, me), cache_shard(cache, n, me),
                                       ttable, proots[rows], bvalid[rows], syncs))
             outs = self.mesh.run(programs)
             result = torch.cat([o[0] for o in outs])
-            n_seg = len(outs[0][1])
-            mroots = [torch.cat([o[1][i] for o in outs]) for i in range(n_seg)]
-            mcounts = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
+            row_def = torch.cat([o[1] for o in outs]) if down is not None else None
+            n_seg = len(outs[0][2])
+            mroots = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
+            mcounts = [torch.cat([o[3][i] for o in outs]) for i in range(n_seg)]
         # the owner-stage block leaves the metrics before the copy, so the
         # metrics dict is the one telemetry=False builds
-        m = dict(outs[0][3], _version=outs[0][4])
+        m = dict(outs[0][4], _version=outs[0][5])
         stage = m.pop("owner_stage", None)
+        extra = ([row_def] if row_def is not None else []) + ([stage] if stage is not None else [])
         with tr.span("gr_sync"):
-            metrics, (result, *host) = _to_host(
-                m, [result, *mroots, *mcounts] + ([stage] if stage is not None else []))
+            metrics, (result, *host) = _to_host(m, [result, *mroots, *mcounts, *extra])
         self.last_step_seconds = time.perf_counter() - t0
         with tr.span("gr_unpack"):
             stage = host.pop() if stage is not None else None
+            deferred = host.pop() if row_def is not None else np.zeros(len(result), bool)
             version = metrics.pop("_version")
             metrics["host_syncs"] = syncs.n + 1
             metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
             metrics["locality_retry_rows"] = 0  # no routing overlays yet
             misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
-        self.last_owner_stage = stage.astype(np.int64) if stage is not None else None
+        if stage is not None:
+            self.last_owner_stage = stage.astype(np.int64)
+            self.last_step_owner_seconds = attribute_step_seconds(self.last_step_seconds,
+                                                                  self.last_owner_stage)
+        else:
+            self.last_owner_stage = self.last_step_owner_seconds = None
+        if return_deferred:
+            return result[:B], misses, metrics, deferred[:B]
         return result[:B], misses, metrics
 
     # -------------------------------------------------------- gRW-Tx path

@@ -4,7 +4,8 @@ PyTorch twin of the PNA part of ``repro.gnn.layers``. The layer consumes a
 padded edge list and uses segment reductions; no dense adjacency ever
 materializes. Parameters keep the reference's layout: an MLP is a list of
 ``(w [a, b], b [b])`` pairs, a layer a dict of MLPs. The reference's GAT,
-EGNN and NequIP layers are not ported yet (ROADMAP queue 1, item 12).
+EGNN and NequIP layers are not ported yet: they wait for the rest of the
+model families (ROADMAP queue 1).
 
 Float32 products run in full float32: the port leaves PyTorch's default
 (TF32 off for matmul) as it is, and the reference's forward is fp32.

@@ -18,8 +18,8 @@ from repro_torch.utils import resolve_device
 
 def _not_ported(cfg: GNNConfig):
     return NotImplementedError(
-        f"GNN kind {cfg.kind!r} is not ported yet (ROADMAP queue 1, item 12: "
-        "the GAT, EGNN and NequIP layers)"
+        f"GNN kind {cfg.kind!r} is not ported yet: it waits for the GAT, EGNN and "
+        "NequIP layers (ROADMAP queue 1, the rest of the model families)"
     )
 
 

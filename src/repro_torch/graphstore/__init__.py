@@ -34,6 +34,7 @@ from repro_torch.graphstore.partition import (
     owner_of,
     partition_store,
     rebuild_geid_index,
+    splice_owner_blocks,
     store_bytes_report,
 )
 from repro_torch.graphstore.maintenance import (
@@ -50,7 +51,9 @@ from repro_torch.graphstore.journal import (
     EpochRegistry,
     FlushError,
     WriteBehindJournal,
+    drain_queued,
     replay,
+    replay_to_owner,
     restore_chain,
 )
 from repro_torch.graphstore.mutations import (
@@ -86,6 +89,7 @@ __all__ = [
     "BlockCapacityError",
     "geid_slot_lookup",
     "rebuild_geid_index",
+    "splice_owner_blocks",
     "MaintenancePolicy",
     "MaintenanceDecision",
     "DeviceGate",
@@ -98,6 +102,8 @@ __all__ = [
     "EpochRegistry",
     "FlushError",
     "replay",
+    "replay_to_owner",
+    "drain_queued",
     "restore_chain",
     "MutationBatch",
     "AppliedMutations",

@@ -7,7 +7,11 @@ format byte for byte, so either package reads the other's journal. Commits
 land in the device store at once; ``append_commit`` queues the record (one
 copy of the batch to the host, no I/O) and marks the owners it touches
 dirty; the flusher persists the queue behind the serve loop with bounded
-retries (``distributed.fault.RetryPolicy``).
+retries (``distributed.fault.RetryPolicy``). While an owner is down the
+failover tier journals commits *unapplied* (``applied=False``): the
+applied watermark ``applied_seq`` stops, and recovery replays up to it
+(``replay_to_owner``), then applies the rest against the live store
+(``drain_queued``).
 
 Record format
 =============
@@ -53,8 +57,7 @@ Flushes and checkpoints run in ``journal_flush`` and ``checkpoint`` spans
 of the journal's ``tracer`` (``repro_torch.obs.trace``; the flusher thread
 records into it too, so it must be thread-safe, as ``Tracer`` is).
 
-Not ported yet: ``replay_to_owner`` and ``drain_queued`` (failover), and
-replaying MIGRATE records (migration).
+Replaying a MIGRATE record waits for the migration tier.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ import json
 import os
 import struct
 import threading
+import time
 import zlib
 from typing import Callable, NamedTuple, Optional
 
@@ -81,7 +85,7 @@ from repro_torch.distributed.fault import RetryPolicy, timed_call
 from repro_torch.distributed.routing import base_owner
 from repro_torch.graphstore.maintenance import DeviceGate
 from repro_torch.graphstore.mutations import MutationBatch
-from repro_torch.graphstore.partition import abstract_partitioned_store
+from repro_torch.graphstore.partition import abstract_partitioned_store, splice_owner_blocks
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.utils import resolve_device
 
@@ -280,9 +284,14 @@ class WriteBehindJournal:
         self._dirty_since_ckpt: set[int] = set()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self._queued_commits = 0  # journaled unapplied since the last drain
         self.epochs = EpochRegistry()
         self.next_seq = 1
         self.durable_seq = 0
+        # the highest seq applied to the live device store: it follows
+        # next_seq - 1 until an outage queues commits unapplied, then stays
+        # at the outage's start until ``drain_queued``
+        self.applied_seq = 0
         self._durable_offset = 0
         self.checkpoint_seq = 0
         self.checkpoint_version = 0
@@ -303,14 +312,20 @@ class WriteBehindJournal:
 
     def append_commit(self, batch: MutationBatch, *, policy: str = "write-around",
                       gate: Optional[DeviceGate] = None,
-                      commit_version: Optional[int] = None, device_compactions: int = 0) -> int:
+                      commit_version: Optional[int] = None, device_compactions: int = 0,
+                      applied: bool = True) -> int:
         """Queue one committed gRW batch and mark the owners it touches dirty.
 
         The batch crosses to the host in one copy (``batch_to_numpy``).
         ``device_compactions > 0`` marks every owner checkpoint-dirty (the
         gate may rewrite any block). New edges mark their endpoints' owners
         (``v mod n``); deletes and edge-prop edits name geids, whose owners
-        the host cannot tell, so they mark every owner dirty."""
+        the host cannot tell, so they mark every owner dirty.
+
+        ``applied=False`` is degraded mode's write: the record is durable like
+        any other but was not applied to the live store, so ``applied_seq``
+        stays where it is and ``queued_commits`` counts it until
+        ``drain_queued`` applies it."""
         fields = batch_to_numpy(batch)
         seq = self._append(REC_COMMIT, encode_commit(MutationBatch(**fields), policy=policy,
                                                      gate=gate))
@@ -324,16 +339,21 @@ class WriteBehindJournal:
         with self._lock:
             self._dirty_owners |= owners
             self._dirty_since_ckpt |= owners
+            if applied:
+                self.applied_seq = max(self.applied_seq, seq)
+            else:
+                self._queued_commits += 1
         if commit_version is not None:
             self.epochs.advance(commit_version)
         return seq
 
     def _append_layout(self, rtype: int, meta: dict) -> int:
         """A record that rewrites every owner's blocks (all go
-        checkpoint-dirty)."""
+        checkpoint-dirty), applied to the live store as it is journaled."""
         seq = self._append(rtype, json.dumps(meta).encode())
         with self._lock:
             self._dirty_since_ckpt.update(range(self.n))
+            self.applied_seq = max(self.applied_seq, seq)
         return seq
 
     def append_compact(self, *, purge: bool = False) -> int:
@@ -444,11 +464,15 @@ class WriteBehindJournal:
             pending = len(self._pending)
             dirty = len(self._dirty_owners)
             dirty_ckpt = len(self._dirty_since_ckpt)
+            queued = self._queued_commits
+            applied = self.applied_seq
         return {
             "journal_lag_batches": (self.next_seq - 1) - self.durable_seq,
             "flush_queue_depth": pending,
             "dirty_owners": dirty,
             "dirty_owners_since_ckpt": dirty_ckpt,
+            "applied_seq": applied,
+            "queued_commits": queued,
             "open_pins": self.epochs.open_pins(),
             "leaked_pin_releases": self.epochs.leaked_releases,
             "flushes": self.flushes,
@@ -470,15 +494,19 @@ class WriteBehindJournal:
                 "durable_offset": self._durable_offset,
                 "checkpoint_seq": self.checkpoint_seq,
                 "checkpoint_version": self.checkpoint_version,
+                "applied_seq": self.applied_seq,
             }, f)
         os.replace(tmp, self.meta_path)
 
     def _load_meta(self) -> None:
+        meta_applied = None
         if os.path.exists(self.meta_path):
             with open(self.meta_path) as f:
                 m = json.load(f)
             self.checkpoint_seq = int(m.get("checkpoint_seq", 0))
             self.checkpoint_version = int(m.get("checkpoint_version", 0))
+            if "applied_seq" in m:
+                meta_applied = int(m["applied_seq"])
         # the log is the ground truth: a flush that landed before the meta
         # rewrite keeps its seqs, a torn group's complete frames stay valid
         off, seq = 0, 0
@@ -486,6 +514,9 @@ class WriteBehindJournal:
             seq, off = rec.seq, end
         self.durable_seq, self._durable_offset = seq, off
         self.next_seq = seq + 1
+        # the watermark the meta knew, clamped to what survived on the log;
+        # a meta without one predates degraded mode: everything was applied
+        self.applied_seq = seq if meta_applied is None else min(meta_applied, seq)
 
     # ----------------------------------------------------------- read path
     def _scan(self):
@@ -679,42 +710,108 @@ def restore_chain(journal: WriteBehindJournal, rt):
     return tree_unflatten(pstore, leaves), seq, spec_meta
 
 
-def replay(journal: WriteBehindJournal, rt, ttable, *, default_policy: str = "write-around"):
+def _apply_record(rt, ttable, pstore, cache, rec, default_policy: str, info: dict, tag: str):
+    """Re-run one journal record through the step family the live run
+    used (COMMIT: the recorded policy and gate; COMPACT: ``compact_step``;
+    GROW: ``grow_blocks``), counting it in ``info[f"{tag}_..."]``. Returns
+    ``(pstore, cache)``."""
+    if rec.rtype == REC_COMMIT:
+        batch, policy, gate = decode_commit(rec.payload, device=rt.device)
+        pstore, cache, _ = rt.run_grw_tx(pstore, cache, ttable, batch, policy or default_policy,
+                                         gate=gate, occupancy_metrics=False)
+        info[f"{tag}_commits"] += 1
+    elif rec.rtype == REC_COMPACT:
+        pstore = rt.compact_step(json.loads(rec.payload.decode())["purge"])(pstore)
+        info[f"{tag}_compactions"] += 1
+    elif rec.rtype == REC_GROW:
+        m = json.loads(rec.payload.decode())
+        pstore = rt.grow_blocks(pstore, m["e_blk_cap"], recent_blk_cap=m["recent_blk_cap"])
+        info[f"{tag}_growths"] += 1
+    elif rec.rtype == REC_MIGRATE:
+        raise NotImplementedError(
+            f"journal record {rec.seq} is a MIGRATE: replaying migrations waits for the "
+            f"migration tier (ROADMAP.md queue 1)")
+    else:
+        raise ValueError(f"journal record {rec.seq} has unknown type {rec.rtype}")
+    return pstore, cache
+
+
+def replay(journal: WriteBehindJournal, rt, ttable, *, default_policy: str = "write-around",
+           upto_seq: Optional[int] = None):
     """Rebuild the partitioned store of a crashed shard group: restore the
     newest checkpoint (``restore_chain``), then re-apply every durable
     record after it through the step family the live run used (COMMIT: the
     recorded policy and gate; COMPACT: ``compact_step``; GROW:
     ``grow_blocks``). The store path of a commit does not depend on the
     cache, so replay against an empty cache reproduces the pre-crash store
-    byte for byte. Returns ``(pstore, last_seq, info)``.
+    byte for byte. ``upto_seq`` stops at a watermark: recovery from a live
+    outage replays only what the dead store had applied
+    (``journal.applied_seq``); the queued rest is ``drain_queued``'s.
+    Returns ``(pstore, last_seq, info)``.
 
-    MIGRATE records wait for the migration tier (``ROADMAP.md`` queue 1,
-    item 9): replay raises ``NotImplementedError`` on one.
+    MIGRATE records wait for the migration tier: replay raises
+    ``NotImplementedError`` on one.
     """
     info = {"replayed_commits": 0, "replayed_compactions": 0, "replayed_growths": 0,
             "replayed_migrations": 0}
     pstore, last, _ = restore_chain(journal, rt)
     cache = rt.empty_cache()
     for rec in journal.read_records(after_seq=last):
-        if rec.rtype == REC_COMMIT:
-            batch, policy, gate = decode_commit(rec.payload, device=rt.device)
-            pstore, _, _ = rt.run_grw_tx(pstore, cache, ttable, batch,
-                                         policy or default_policy, gate=gate,
-                                         occupancy_metrics=False)
-            info["replayed_commits"] += 1
-        elif rec.rtype == REC_COMPACT:
-            pstore = rt.compact_step(json.loads(rec.payload.decode())["purge"])(pstore)
-            info["replayed_compactions"] += 1
-        elif rec.rtype == REC_GROW:
-            m = json.loads(rec.payload.decode())
-            pstore = rt.grow_blocks(pstore, m["e_blk_cap"], recent_blk_cap=m["recent_blk_cap"])
-            info["replayed_growths"] += 1
-        elif rec.rtype == REC_MIGRATE:
-            raise NotImplementedError(
-                f"journal record {rec.seq} is a MIGRATE: replaying migrations waits for the "
-                f"migration tier (ROADMAP.md queue 1, item 9)")
-        else:
-            raise ValueError(f"journal record {rec.seq} has unknown type {rec.rtype}")
+        if upto_seq is not None and rec.seq > upto_seq:
+            break
+        pstore, _ = _apply_record(rt, ttable, pstore, cache, rec, default_policy, info, "replayed")
         last = rec.seq
     journal.epochs.advance(int(pstore.version))
     return pstore, last, info
+
+
+def replay_to_owner(journal: WriteBehindJournal, rt, ttable, *, live_pstore, owner: int):
+    """Recovery as migration: rebuild a dead owner's blocks from durable
+    state and graft them into the live store that kept serving degraded.
+
+    ``replay(upto_seq=journal.applied_seq)`` rebuilds the pre-outage store
+    (the checkpoint chain and the journal up to the applied watermark, so
+    the commits queued during the outage stay out), then
+    ``partition.splice_owner_blocks`` moves the dead owner's out / inc block
+    rows into it from nowhere but the replay, and every other owner's rows
+    from ``live_pstore``. The geid index (``gperm``) travels inside the rows,
+    so the spliced store serves at once. The splice writes into the
+    replayed store in place on the device: recovery holds the live store,
+    the replayed one and the host copy ``restore_chain`` reads, no more.
+    The caller then runs ``drain_queued`` and marks the owner healthy.
+    Returns ``(pstore, info)``; ``info`` adds ``replay_seconds`` and
+    ``splice_seconds``."""
+    t0 = time.perf_counter()
+    replayed, last, info = replay(journal, rt, ttable, upto_seq=journal.applied_seq)
+    t1 = time.perf_counter()
+    pstore = splice_owner_blocks(rt.pspec, live_pstore, replayed, owner)
+    int(pstore.version)  # the splice's copies end before its time is taken
+    info.update(recovered_owner=int(owner), replayed_to_seq=int(last),
+                replay_seconds=t1 - t0, splice_seconds=time.perf_counter() - t1)
+    return pstore, info
+
+
+def drain_queued(journal: WriteBehindJournal, rt, ttable, pstore, cache):
+    """Apply the commits that queued (durable, unapplied) during an outage,
+    in journal order, through the normal gRW step against the LIVE store and
+    cache, so the write policy and the maintenance listener see them as
+    commits that landed late, which they are. Advances
+    ``journal.applied_seq`` record by record and clears the queued count.
+    Returns ``(pstore, cache, info)``; ``info`` adds ``drain_seconds``.
+    A MIGRATE record raises ``NotImplementedError``, as in ``replay``.
+    (The reference's ``rhost=`` routes drained appends through a migrated
+    placement and waits for the migration tier.)"""
+    t0 = time.perf_counter()
+    journal.flush()
+    info = {"drained_commits": 0, "drained_compactions": 0, "drained_growths": 0,
+            "drained_migrations": 0}
+    for rec in journal.read_records(after_seq=journal.applied_seq):
+        pstore, cache = _apply_record(rt, ttable, pstore, cache, rec, "write-around", info,
+                                      "drained")
+        with journal._lock:
+            journal.applied_seq = max(journal.applied_seq, rec.seq)
+    with journal._lock:
+        journal._queued_commits = 0
+    journal.epochs.advance(int(pstore.version))
+    info["drain_seconds"] = time.perf_counter() - t0
+    return pstore, cache, info

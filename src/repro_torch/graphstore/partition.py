@@ -588,3 +588,35 @@ def join_shards(stores) -> PartitionedGraphStore:
     return stores[0]._replace(out=join([s.out for s in stores]),
                               inc=join([s.inc for s in stores]))
 
+
+
+def splice_owner_blocks(pspec: PartitionedStoreSpec, dst: PartitionedGraphStore,
+                        src: PartitionedGraphStore, owner: int) -> PartitionedGraphStore:
+    """Graft owner ``owner``'s out / inc block rows from ``src`` into a store
+    that holds ``dst``'s rows for every other owner: the transport of
+    recovery as migration. ``src`` is the dead owner's rebuilt store
+    (checkpoint chain + journal replay), ``dst`` the live store that kept
+    serving degraded. The replicated vertex tier and the scalars come from
+    ``src``: during the outage every commit queued unapplied, so the replayed
+    store is the durable global state, and the live copy equals it. The geid
+    index (``gperm``) lives inside the rows and travels with them, so the
+    result serves at once.
+
+    The result equals the reference's numpy function field for field. It is
+    written into ``src``'s block tensors in place (the other owners' row
+    ranges copied over from ``dst``), so the splice allocates nothing; a
+    caller that needs ``src`` afterwards passes a clone."""
+    EB, W, s = pspec.e_blk_cap, pspec.v_loc + 1, int(owner)
+
+    def graft(d: torch.Tensor, r: torch.Tensor, rows: int):
+        # every row range but the owner's: two slice copies, no temporary
+        r[:s * rows].copy_(d[:s * rows])
+        r[(s + 1) * rows:].copy_(d[(s + 1) * rows:])
+
+    for d, r in ((dst.out, src.out), (dst.inc, src.inc)):
+        for f in ("key", "other", "label", "alive", "props", "geid", "gperm"):
+            graft(getattr(d, f), getattr(r, f), EB)
+        graft(d.indptr, r.indptr, W)
+        graft(d.blk_len, r.blk_len, 1)
+        graft(d.csr_len, r.csr_len, 1)
+    return src

@@ -29,7 +29,17 @@ The loop (``serve_loop``) runs the serving life-cycle:
   compiles nothing, so the growth is the pad alone;
 - telemetry (``obs.ServeTelemetry``): latency histograms per traffic
   class, the owner-stage block of every batch, periodic snapshots and the
-  end-of-run report, as JSONL under ``--trace``.
+  end-of-run report, as JSONL under ``--trace``;
+- chaos (``--inject-crash SHARD:BATCH``, which needs the journal): the
+  shard's storage is lost from that batch on. A ``FailoverController``
+  probes every owner each batch; a batch that needs the dead owner before
+  the detector marks it down raises ``NodeFailure`` and counts unavailable
+  (it skips its CP and its commit); then reads serve degraded, their dead
+  owner's misses deferred, and commits queue in the journal unapplied;
+  ``--recover-after`` batches after the crash the owner is rebuilt by
+  replay and splice and the queued commits drain. A straggling owner's
+  reads are hedged after ``--hedge-after`` seconds. The ``failover:`` line
+  and ``total`` report it.
 
 ``main`` plugs in the reference's traffic: the ``config_plan_and_ttable``
 plan over a random graph, uniform (or ``--hot-frac`` hot) roots and eight
@@ -37,8 +47,8 @@ upserts a commit, all from ``--seed``. Another caller plugs in its own
 batches and commits through ``serve_loop``.
 
 Not ported yet, each raising ``NotImplementedError`` (``ROADMAP.md``,
-queue 1): ``--store-tier replicated`` (item 1), ``--inject-crash`` with
-``--recover-after`` / ``--hedge-after`` (item 8) and ``--migrate`` (item 9).
+queue 1): ``--store-tier replicated`` (it waits for the replicated tier)
+and ``--migrate`` (it waits for the migration tier).
 """
 
 from __future__ import annotations
@@ -53,21 +63,19 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-# the flags of slices not ported yet, and the ROADMAP.md queue-1 item each
-# waits for: flag -> (value that leaves it off, item)
+# the flags of slices not ported yet, and what each waits for in ROADMAP.md
+# queue 1: flag -> (value that leaves it off, what it waits for)
 UNPORTED = {
-    "store_tier": ("partitioned", "item 1, the replicated tier"),
-    "inject_crash": (None, "item 8, failover"),
-    "recover_after": (None, "item 8, failover"),
-    "hedge_after": (None, "item 8, failover"),
-    "migrate": (False, "item 9, routing and migration"),
+    "store_tier": ("partitioned", "the replicated tier"),
+    "migrate": (False, "the migration tier"),
 }
 CP_DRAIN_K = 512  # misses each owner's queue drains after a batch
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     """The reference's flags and ``--device``; those of unported slices
-    raise ``NotImplementedError``."""
+    raise ``NotImplementedError``, and ``--inject-crash`` without the
+    journal is an error, as in the reference."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--batches", type=int, default=10)
@@ -92,13 +100,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="reclaim tombstones at gated compactions when the liveness epoch "
                          "allows")
     ap.add_argument("--inject-crash", default=None, metavar="SHARD:BATCH",
-                    help="lose a shard's storage from a batch on (not ported yet)")
-    ap.add_argument("--recover-after", type=int, default=None,
-                    help="degraded batches before recovery (with --inject-crash; not ported "
-                         "yet)")
-    ap.add_argument("--hedge-after", type=float, default=None,
-                    help="straggler hedge deadline in seconds (with --inject-crash; not "
-                         "ported yet)")
+                    help="chaos: lose shard SHARD's storage from batch BATCH (serving "
+                         "degrades, writes queue, recovery replays; needs the journal)")
+    ap.add_argument("--recover-after", type=int, default=4,
+                    help="batches of degraded serving before the crashed shard recovers")
+    ap.add_argument("--hedge-after", type=float, default=0.05,
+                    help="straggler hedge deadline in seconds for the gR read path")
     ap.add_argument("--io-timeout", type=float, default=None,
                     help="wall-clock bound per journal flush / checkpoint write attempt")
     ap.add_argument("--full-checkpoints", action="store_true",
@@ -116,10 +123,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="emit a telemetry snapshot every N batches (0: none; the end-of-run "
                          "report is always emitted)")
     args = ap.parse_args(argv)
-    for name, (off, item) in UNPORTED.items():
+    for name, (off, waits) in UNPORTED.items():
         if getattr(args, name) != off:
             flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md queue 1, {item})")
+            raise NotImplementedError(f"{flag} is not ported yet: it waits for {waits} "
+                                      f"(ROADMAP.md queue 1)")
+    if args.inject_crash is not None and args.no_journal:
+        ap.error("--inject-crash requires the journal (degraded-mode writes queue there)")
     return args
 
 
@@ -145,9 +155,12 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
     ``next_commit(b)`` the mutation batch committed after it (every
     ``args.write_every`` batches); ``tpl_meta`` maps each cached template to
     its (direction, edge label) for CP. The journal (unless
-    ``args.no_journal``) lives at ``args.journal_dir``. Prints the
-    reference's lines through ``log``, closes ``telemetry`` and returns a
-    ``ServeOutcome``."""
+    ``args.no_journal``) lives at ``args.journal_dir``. With
+    ``args.inject_crash`` a ``FailoverController`` serves the batches and
+    commits (see the module docstring). Prints the reference's lines through
+    ``log``, closes ``telemetry`` and returns a ``ServeOutcome``."""
+    from repro_torch.distributed.failover import FailoverController
+    from repro_torch.distributed.fault import HedgedCalls, NodeFailure, ShardFaultPlan
     from repro_torch.distributed.graph_serve import ShardedMissDrain
     from repro_torch.graphstore import DeviceGate, MaintenancePolicy, WriteBehindJournal
     from repro_torch.obs.schema import LATENCY_CLASSES
@@ -170,8 +183,23 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
         journal.start()  # the coalescing flusher, behind the loop
         log(f"journal: {args.journal_dir} (checkpoint every {args.checkpoint_every} commits)")
 
+    failover = None
+    crash_shard = crash_batch = None
+    if args.inject_crash is not None:
+        if journal is None:
+            raise ValueError("--inject-crash requires the journal (degraded-mode writes queue "
+                             "there)")
+        crash_shard, crash_batch = (int(x) for x in args.inject_crash.split(":"))
+        failover = FailoverController(rt, journal, ttable,
+                                      plan=ShardFaultPlan(crash={crash_shard: crash_batch}),
+                                      hedge=HedgedCalls(), hedge_after=args.hedge_after)
+        log(f"chaos: shard {crash_shard} crashes at batch {crash_batch}, recovery after "
+            f"{args.recover_after} degraded batches")
+
     total = dict(requests=0, hits=0, misses=0, route_overflow=0, deferred=0,
                  locality_routed=0, locality_retry_rows=0)
+    avail = dict(unavailable_batches=0, degraded_batches=0, deferred_rows=0, queued_commits=0,
+                 recovery_seconds=0.0)
     maint = dict(device_compactions=0, growths=0, commits=0, append_overflow=0, purges=0)
     grow_to = None  # a growth due at the next batch boundary
     res = jm = None
@@ -186,7 +214,18 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
             log(f"batch {b}: grew to e_blk_cap={rt.pspec.e_blk_cap}")
             grow_to = None
         plan, roots = next_batch(b)
-        if journal is not None:
+        if failover is not None:
+            failover.probe(b)
+            try:
+                res, _deferred, misses, m = failover.run_gr(pstore, cache, plan, roots, b)
+            except NodeFailure:
+                # the detection gap: the dead owner is needed but not yet
+                # marked down; this batch is the unavailability window
+                avail["unavailable_batches"] += 1
+                continue
+            avail["deferred_rows"] += m["deferred_rows"]
+            avail["degraded_batches"] += int(bool(failover.detector.down()))
+        elif journal is not None:
             # pin the batch's read epoch: purge may not reclaim under it; the
             # scope releases on every exit path
             with journal.epochs.pin_scope():
@@ -202,6 +241,15 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
             drain.push(misses)
             cache = drain.drain(pstore, pstore, cache, ttable, CP_DRAIN_K)
         telemetry.record_cp_drain(time.perf_counter() - tcp)
+        if (failover is not None and crash_shard in failover.detector.down()
+                and b >= crash_batch + args.recover_after):
+            pstore, cache, rinfo = failover.recover(pstore, cache, crash_shard)
+            avail["queued_commits"] = rinfo["drained_commits"]
+            avail["recovery_seconds"] = round(rinfo["recovery_seconds"], 3)
+            log(f"batch {b}: recovered shard {crash_shard} — replayed "
+                f"{rinfo['replayed_commits']} commits to seq {rinfo['replayed_to_seq']}, "
+                f"drained {rinfo['drained_commits']} queued, "
+                f"{rinfo['recovery_seconds'] * 1e3:.0f} ms")
         wm = None
         if args.write_every and (b + 1) % args.write_every == 0:
             mb = next_commit(b)
@@ -213,15 +261,21 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
                 gate = gate_base._replace(purge=purge_ok)
                 maint["purges"] += int(purge_ok)
             tw = time.perf_counter()
-            pstore, cache, wm = rt.run_grw_tx(pstore, cache, ttable, mb, gate=gate,
-                                              journal=journal)
+            if failover is not None:
+                # degraded mode queues the commit durably instead of applying
+                # it (commit ids are order-dependent; see distributed.failover)
+                pstore, cache, wm = failover.run_grw(pstore, cache, mb, gate=gate)
+            else:
+                pstore, cache, wm = rt.run_grw_tx(pstore, cache, ttable, mb, gate=gate,
+                                                  journal=journal)
             telemetry.record_grw(time.perf_counter() - tw)
             # under --no-maintenance an overflow is the degradation the flag
             # shows: reported, not raised
             maint["append_overflow"] += wm.get("store_append_overflow", 0)
             maint["device_compactions"] += wm.get("device_compactions", 0)
             maint["commits"] += 1
-            if journal is not None and maint["commits"] % args.checkpoint_every == 0:
+            if (journal is not None and not wm.get("queued", 0)
+                    and maint["commits"] % args.checkpoint_every == 0):
                 ckpt = journal.checkpoint if args.full_checkpoints else \
                     journal.checkpoint_incremental
                 ckpt(pstore, e_blk_cap=rt.pspec.e_blk_cap,
@@ -257,6 +311,15 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
             f"flushed_records={jm['flushed_records']} checkpoint_seq={jm['checkpoint_seq']} "
             f"pinned_epoch_min={jm['pinned_epoch_min']} open_pins={jm['open_pins']} "
             f"leaked_pin_releases={jm['leaked_pin_releases']} swap_events={rt.swap_events}")
+    if failover is not None:
+        fm = failover.metrics()
+        total.update(avail)
+        total.update({k: fm[k] for k in ("detections", "recoveries", "hedge_rate") if k in fm})
+        log(f"failover: unavailable_batches={avail['unavailable_batches']} "
+            f"degraded_batches={avail['degraded_batches']} deferred_rows={avail['deferred_rows']} "
+            f"queued_commits_drained={avail['queued_commits']} "
+            f"recovery_seconds={avail['recovery_seconds']} detections={fm['detections']} "
+            f"recoveries={fm['recoveries']} hedge_rate={fm.get('hedge_rate', 0.0)}")
     # the end-of-run report, after journal.stop so the final flush is counted
     report = telemetry.report()
 

@@ -44,6 +44,6 @@ def swiglu(x, w1, w3, w2):
 
 def moe_ffn(x, router_w, we1, we3, we2, *, top_k: int, capacity_factor: float):
     raise NotImplementedError(
-        "moe_ffn is not ported yet (ROADMAP queue 1, item 12: MoE for the "
-        "Grok and Kimi configs)"
+        "moe_ffn is not ported yet: it waits for MoE, with the Grok and Kimi configs "
+        "(ROADMAP queue 1, the rest of the model families)"
     )

@@ -20,8 +20,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"two-tower {what} is not ported yet (ROADMAP queue 1, item 12: recsys "
-        "training with optim/)"
+        f"two-tower {what} is not ported yet: it waits for training, with optim/ "
+        "(ROADMAP queue 1, the rest of the model families)"
     )
 
 

@@ -184,5 +184,5 @@ def test_incremental_chain_restores_the_full_bytes(dw, tmp_path):
     tree_equal(interop.pstore_to_numpy(got), interop.pstore_to_numpy(ps), "chain")
     j.append_migrate([(5, 2)], epoch=1)
     j.flush()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="waits for the migration tier"):
         replay(j, rt, dw["ttable"])

@@ -5,7 +5,8 @@
 - The entry points default to CUDA and raise when it is absent, instead of
   falling back to the CPU.
 - The serve loop's flags of slices not ported yet raise
-  ``NotImplementedError``.
+  ``NotImplementedError``; the failover flags parse to the reference's
+  defaults, and a crash without the journal is an error, as there.
 """
 
 import ast
@@ -66,8 +67,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         # durability: a replayed commit and a restored checkpoint land on CUDA
         lambda: decode_commit(encode_commit(make_mutation_batch(spec, device="cpu"))),
         lambda: restore_checkpoint("unused", 0, None),
-        # the serve loop, with no flags
+        # the serve loop, with no flags, and the failover tier under it
         lambda: serve.main([]),
+        lambda: serve.main(["--inject-crash", "1:3", "--recover-after", "2"]),
     ]
     # the GNN serving path's entry points, each run on the CPU when asked
     cfg = GNNConfig(name="t", kind="pna", n_layers=1, d_hidden=4, d_in=3, n_classes=2)
@@ -106,13 +108,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
         assert call(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("flags", [["--store-tier", "replicated"], ["--inject-crash", "1:3"],
-                                   ["--recover-after", "2"], ["--hedge-after", "0.1"],
-                                   ["--migrate"]], ids=lambda f: f[0])
+@pytest.mark.parametrize("flags", [["--store-tier", "replicated"], ["--migrate"]],
+                         ids=lambda f: f[0])
 def test_unported_serve_flags_raise(flags):
-    """The serve loop's flags of slices not ported yet raise, naming their
-    ROADMAP.md item, before anything is built."""
+    """The serve loop's flags of slices not ported yet raise, naming what
+    they wait for in ROADMAP.md queue 1, before anything is built."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item \d"):
+    with pytest.raises(NotImplementedError,
+                       match=r"waits for the (replicated|migration) tier \(ROADMAP.md queue 1\)"):
         serve.main(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [["--inject-crash", "1:3"], ["--recover-after", "2"],
+                                   ["--hedge-after", "0.1"]], ids=lambda f: f[0])
+def test_failover_serve_flags_parse_as_the_reference(flags):
+    """The failover flags are ported: each parses to the reference's value
+    (defaults: no crash, recovery after 4 batches, a 0.05 s hedge), and a
+    crash without the journal is an argument error before anything is built."""
+    from repro_torch.launch import serve
+
+    args = serve.parse_args(flags)
+    want = {"inject_crash": None, "recover_after": 4, "hedge_after": 0.05}
+    name = flags[0][2:].replace("-", "_")
+    want[name] = type(want[name])(flags[1]) if want[name] is not None else flags[1]
+    assert {k: getattr(args, k) for k in want} == want
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--inject-crash", "1:3", "--no-journal"])

@@ -270,10 +270,10 @@ def test_flusher_thread_metrics_dirty_owners_and_reopen(tmp_path):
     m = j.metrics()
     assert m["journal_lag_batches"] == 0 and m["dirty_owners"] == 0 and m["durable_seq"] == 7
     assert [r.seq for r in j.read_records()] == list(range(1, 8))
-    # the reference's keys but the two of commits queued unapplied, which wait
-    # for degraded mode
-    assert set(m) == set(JJ.WriteBehindJournal(str(tmp_path / "ref"), 4).metrics()) - {
-        "applied_seq", "queued_commits"}
+    # the reference's keys, the applied watermark and the queued commits of
+    # degraded mode among them
+    assert set(m) == set(JJ.WriteBehindJournal(str(tmp_path / "ref"), 4).metrics())
+    assert m["applied_seq"] == 7 and m["queued_commits"] == 0
     # reopen: the log is the ground truth, not the meta file
     os.remove(j.meta_path)
     with open(j.log_path, "ab") as f:

@@ -9,7 +9,9 @@
   ``repro_torch.launch.serve`` in process with the same flags (the twin on
   the CPU) return the same ``total`` and report the same counters (but
   ``host_syncs``), owner-stage matrix, hit locality, latency-class counts
-  and span counts (but ``journal_flush``, whose count depends on timing).
+  and span counts (but ``journal_flush``, whose count depends on timing),
+  in three flag sets, one of them a crash of owner 1 with its recovery
+  (the ``failover:`` line's counts equal too).
 - **Growth through the loop**: blocks small enough that a commit crosses
   the 0.85 occupancy high-water grow at the next batch boundary with a
   GROW record after that commit's; every read equals a run that never
@@ -44,7 +46,13 @@ CASES = {
     "default": BASE,
     "writes_purge_hot": BASE + ["--write-every", "1", "--purge", "--full-checkpoints",
                                 "--hot-frac", "0.5", "--snapshot-every", "2"],
+    # owner 1 crashes at batch 3: batch 3 is unavailable, batches 4 and 5
+    # serve degraded, recovery runs after batch 5's reads
+    "crash_recover": BASE + ["--inject-crash", "1:3", "--recover-after", "2"],
 }
+# the failover line's counts, beside the total's
+FAILOVER_KEYS = ("unavailable_batches", "degraded_batches", "deferred_rows",
+                 "queued_commits_drained", "detections", "recoveries", "hedge_rate")
 # a column of the owner-stage block and the global metric it sums to
 COLUMN_SUMS = {"probe_hits": "hits", "miss_rows": "misses", "edges_scanned": "edges_scanned",
                "leaf_fetches": "leaf_fetches", "route_overflow": "route_overflow",
@@ -179,6 +187,15 @@ def _summary(stdout):
                                    .split())}
 
 
+def _failover_line(stdout):
+    """The failover line's counts (its seconds left out), or None."""
+    line = next((l for l in stdout.splitlines() if l.startswith("failover: ")), None)
+    if line is None:
+        return None
+    kv = dict(w.split("=") for w in line[len("failover: "):].split())
+    return {k: kv[k] for k in FAILOVER_KEYS}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_serve_loop_matches_the_reference(case, reference_runs, tmp_path, capsys):
     ref_total, ref_trace, ref_out = reference_runs[case]
@@ -188,8 +205,13 @@ def test_serve_loop_matches_the_reference(case, reference_runs, tmp_path, capsys
     out = capsys.readouterr().out
     for t in (total, ref_total):
         t.pop("trace_events")  # counts journal_flush spans: timing-dependent
+        t.pop("recovery_seconds", None)  # a timing
     assert total == ref_total
     assert _summary(out) == _summary(ref_out)
+    assert _failover_line(out) == _failover_line(ref_out)
+    if case == "crash_recover":
+        assert total["unavailable_batches"] == 1 and total["recoveries"] == 1
+        assert total["deferred_rows"] == total["deferred"] > 0
     for path in (trace, ref_trace):
         validate_file(str(path), expect_report=True)
     rep, ref_rep = (json.loads(open(p).read().splitlines()[-1]) for p in (trace, ref_trace))
