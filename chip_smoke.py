@@ -158,7 +158,28 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    repro_torch.launch.serve --inject-crash 1:3 --recover-after 2`` runs
    on the card and must recover once. Prints the unavailable, degraded and
    deferred counts, the queued and drained commits, the recovery's seconds
-   (replay, splice, drain) and the degraded and healthy gR step p50.
+   (replay, splice, drain) and the degraded and healthy gR step p50;
+14. hot-vertex migration, right after 13 on phase 7's store: 16 gR batches
+   of 512 roots, half drawn Zipf(1.2) from 16 vertices of owner 1 in the
+   plan's root range (the reference serve loop's ``--hot-frac`` rule at
+   0.5), the rest Zipf(1.3), with a ``RoutingTableHost`` attached and a
+   ``MigrationEngine`` (the reference's policy, the journal) stepping at
+   each batch boundary from batch 5 on; a per-owner CP drain after each
+   batch and a W-hat commit after every 2nd, aimed at a migrated vertex.
+   In batch 6 two hot roots read through cache homes away from their rows
+   (the locality retry and the CP split); one vertex moves away after
+   batch 9, is edited, and moves home after batch 11. A control runtime
+   with no table takes the same batches, drains and commits. Checks:
+   results equal to the control's, misses equal as sets, the placement
+   read back from the store equal to the table after every round, a round
+   that moved a vertex, the read after the move home equal to a fresh
+   execution, a crash and ``replay`` from the checkpoint taken before the
+   rounds equal to the live store field for field, every kernel call equal
+   to its plain version, and ``python -m repro_torch.launch.serve
+   --migrate --hot-frac 0.5`` on the card reporting a round. Prints each
+   round's moves and splice ms, the table epoch, the retry and CP-split
+   counts, owner 1's share of frontier rows and the gR step p50 before and
+   after the rounds, and ``block_gather`` timed at a post-migration call.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -167,7 +188,7 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
-Phase 11 runs right after 7, on its store, then 12 and 13, before 9.
+Phase 11 runs right after 7, on its store, then 12, 13 and 14, before 9.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -2573,6 +2594,370 @@ def run_failover(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inclu
     return report
 
 
+# Phase 14: hot-vertex migration and the routing overlays on the phase-7 store
+# (4 owners, EB 2^24, recent 1,024, cache 4 x 2^16) at the reference serve
+# loop's migration settings: MigrationPolicy() defaults, a table of 64, the
+# write-behind journal.
+M_BATCHES = 16  # gR batches of BATCH roots over the six plans in turn
+M_HOT_FRAC = 0.5  # the reference's --hot-frac rule: half the roots from a hot set
+M_HOT = 16  # the hot set: the first 16 vertices of owner 1 in each plan's root range
+M_WRITE_EVERY = 2  # a W-hat commit after every 2nd batch, aimed at a migrated vertex
+M_ROUNDS_AFTER = 5  # the engine steps from the boundary after batch 5: 6 batches before
+M_SPLIT_AT = 6  # two hot roots get a cache home away from their rows for this batch
+M_AWAY_AT, M_HOME_AT = 9, 11  # one vertex moved away (and edited) after batch 9, home after 11
+M_CP_PER_OWNER = 512  # each owner's CP drain after a batch
+
+
+def migration_write(rng, espec, hstore, mv, dev):
+    """A W-hat commit aimed at migrated vertex ``mv``: each kind of the write
+    mix on it at once, an append from it (to a Zipf listing), an edit of its
+    last_seen and the delete of one of its original edges."""
+    from repro_torch.graphstore import make_mutation_batch
+
+    e_len = int(hstore.e_len)
+    own = torch.nonzero(hstore.esrc[:e_len] == mv).flatten()
+    listing = int(hstore.edst[int(own[0])]) if own.numel() else mv
+    return make_mutation_batch(
+        espec.store, new_edges=[(mv, listing, E_INCLUDES, [1])],
+        set_vprops=[(mv, P_LAST_SEEN, int(rng.integers(1, 1 << 30)))],
+        del_edges=[int(own[-1])] if own.numel() else [], device=dev)
+
+
+def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
+    """Phase 14: M_BATCHES gR batches on the phase-7 partitioned store with
+    a ``RoutingTableHost`` attached and a ``MigrationEngine`` (the
+    reference serve loop's policy, the journal) stepping at each batch
+    boundary on the owner-stage block's ``frontier_rows``, half of each
+    batch's roots drawn Zipf(1.2) from 16 vertices of owner 1; each batch
+    followed by its per-owner CP drain and, every M_WRITE_EVERY batches, a
+    W-hat commit aimed at a migrated vertex. At batch M_SPLIT_AT two hot
+    roots read through cache homes away from their rows (the locality
+    retry, the CP split); one vertex moves away after batch M_AWAY_AT, is
+    edited, and moves home after M_HOME_AT. A control runtime with no table
+    takes the same batches, drains and commits, and drops the same
+    vertices' entries whenever a home changes. Checks: every batch's
+    results equal the control's and its misses the control's as sets; the
+    placement read back from the store equals the table after every round;
+    a round moved a vertex, the retry and the CP split ran; the first read
+    after the move home equals a fresh execution; a crash and ``replay``
+    from the checkpoint taken before the first round rebuild the live
+    store field for field; every kernel call equals its plain version;
+    ``python -m repro_torch.launch.serve --migrate --hot-frac 0.5`` on the
+    card reports a round. Returns the phase's report."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import repro_torch.core.cache as cache_mod
+    import repro_torch.graphstore.migration as mig
+    from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, base_owner, flat_mesh
+    from repro_torch.distributed.routing import RoutingTableHost
+    from repro_torch.graphstore import WriteBehindJournal, replay
+    from repro_torch.graphstore.migration import (
+        MigrationEngine, drop_cached_roots, infer_storage_exceptions, moved_away,
+    )
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 71)
+    kinds, wweights = zip(*WRITE_MIX)
+    wweights = np.array(wweights) / sum(wweights)
+    hot_incl = torch.as_tensor(includes, device=dev)
+    hot_incl = hot_incl[hstore.esrc[hot_incl] < ranges[L_WATCHLIST][0] + P_HOT_WATCHLISTS]
+    hot_incl = hot_incl.cpu().numpy()
+    plan_cycle = [(name, p, label) for name, p, label, _ in plans]
+    hot = {label: np.array([v for v in range(lo, min(hi, lo + 8 * M_HOT))
+                            if v % N_OWNERS == 1][:M_HOT], np.int64)
+           for label, (lo, hi) in ranges.items()}
+    FR = OWNER_STAGE_FIELDS.index("frontier_rows")
+    root = tempfile.mkdtemp(prefix="chip_smoke_migration_")
+    # rt serves with the table; rt_c is the control (no table); rt_f reads
+    # with an empty cache (a fresh execution)
+    rt, rt_c, rt_f = (ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev)
+                      for _ in range(3))
+    rhost = rt.attach_routing(RoutingTableHost(N_OWNERS, device=rt.device))
+    ps = ps_c = pstore  # commits and moves are functional: all start from the phase-7 store
+    cache, cache_c = rt.empty_cache(), rt_c.empty_cache()
+    drain, drain_c = ShardedMissDrain(rt, meta), ShardedMissDrain(rt_c, meta)
+    j = WriteBehindJournal(os.path.join(root, "journal"), rt.n)
+    t = time.perf_counter()
+    j.checkpoint(ps, e_blk_cap=rt.pspec.e_blk_cap, recent_blk_cap=rt.pspec.recent_blk_cap,
+                 store_version=int(ps.version))
+    ckpt_s = time.perf_counter() - t
+    j.start(interval=D_FLUSH_S)
+    engine = MigrationEngine(rt.pspec, rhost, journal=j)
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    checked = {"cache_probe": 0, "block_gather": 0}
+    largest_after = None  # (foreign roots, rows, call): the largest post-migration call
+
+    @contextlib.contextmanager
+    def uncounted():
+        # the checks' own launches stay out of the main path's counts
+        capture.__exit__(None, None, None)
+        saved = cp_ops.launches, bg_ops.launches
+        try:
+            yield
+        finally:
+            cp_ops.launches, bg_ops.launches = saved
+            capture.__enter__()
+
+    def check_calls(where):
+        nonlocal largest_after
+        with uncounted():
+            if capture.calls["cache_probe"]:
+                check_probe_calls(capture.calls["cache_probe"], where)
+            for a, kw in capture.calls["block_gather"]:
+                got, want = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+                for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+                    assert torch.equal(g, w), f"block_gather {name} disagrees with its plain " \
+                        f"version ({where})"
+                if rhost.storage_exceptions:
+                    # rvalid and not cvalid: roots migrated into this block
+                    rank = (int((a[13] & ~a[14]).sum()) > 0, a[11].shape[0])
+                    if largest_after is None or rank > largest_after[:2]:
+                        largest_after = (*rank, (a, kw))
+            for k in checked:
+                checked[k] += len(capture.calls[k])
+                capture.calls[k].clear()
+
+    def moved(vids):
+        # a home changed: the control drops the same vertices' entries at
+        # theirs (the base owner), so that both caches miss them alike
+        nonlocal cache_c
+        vids = np.asarray(vids, np.int64)
+        with uncounted():
+            cache_c = drop_cached_roots(cache_c, N_OWNERS, vids, base_owner(vids, N_OWNERS))
+
+    def write_batch():
+        exc = sorted(rhost.storage_exceptions)
+        if exc:
+            mv = exc[int(rng.integers(0, len(exc)))]
+            return migration_write(rng, espec, hstore, mv, dev), mv
+        while True:
+            mb = make_write(rng, espec, ranges, hot_incl,
+                            kinds[int(rng.choice(len(kinds), p=wweights))], dev)
+            if mb is not None:
+                return mb, None
+
+    rounds, step_ms, share = [], {"before": [], "after": []}, {"before": [], "after": []}
+    split, away, edited = None, None, []
+    fresh_checked = 0
+    locality = {"locality_routed": 0, "locality_retry_rows": 0}
+    # each round's splice (migrate_vertex_rows) timed apart from the round
+    splice_ms, splice = [], mig.migrate_vertex_rows
+
+    def timed_splice(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = splice(*a, **kw)
+        torch.cuda.synchronize()
+        splice_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    mig.migrate_vertex_rows = timed_splice
+    torch.cuda.synchronize()
+    cp_ops.launches = bg_ops.launches = 0
+    capture.__enter__()
+    t_loop = time.perf_counter()
+    for b in range(M_BATCHES):
+        name, plan, label = plan_cycle[b % len(plan_cycle)]
+        roots = zipf_pick(rng, *ranges[label], BATCH)
+        pick = rng.random(BATCH) < M_HOT_FRAC
+        roots = np.where(pick, hot[label][np.minimum(rng.zipf(1.2, BATCH) - 1, M_HOT - 1)],
+                         roots).astype(np.int32)
+        if away is not None and b == M_HOME_AT + 1:
+            roots[0] = away  # the vertex moved away, edited and moved home
+        if b == M_SPLIT_AT:
+            # two hot roots that kept their rows read through another home
+            cands = [int(v) for v in hot[label] if int(v) not in rhost.storage_exceptions]
+            split = cands[:2]
+            for v in split:
+                cache = drop_cached_roots(cache, N_OWNERS, [v], [rhost.cache_owner(v)])
+                rhost.set_cache_owner(v, (rhost.storage_owner(v) + 1) % N_OWNERS)
+            moved(split)
+        res, misses, m = rt.run_gr_tx_batch(ps, cache, ttable, plan, roots)
+        with uncounted():
+            res_c, misses_c, m_c = rt_c.run_gr_tx_batch(ps_c, cache_c, ttable, plan, roots)
+        assert np.array_equal(res, res_c), f"phase 14 batch {b}: results differ from the control"
+        assert set(miss_key(misses)) == set(miss_key(misses_c)), \
+            f"phase 14 batch {b}: misses differ from the control"
+        assert m["route_overflow"] == 0, f"phase 14 batch {b}: route_overflow"
+        for k in locality:
+            locality[k] += m[k]
+        fr = rt.last_owner_stage[:, FR]
+        # one batch of each plan before the rounds, and the last six
+        when = ("before" if b <= M_ROUNDS_AFTER
+                else "after" if b >= M_BATCHES - len(plan_cycle) else None)
+        if when is not None:
+            share[when].append(fr.tolist())
+            step_ms[when].append(rt.last_step_seconds * 1e3)
+        if b == M_SPLIT_AT:
+            assert m["locality_retry_rows"] > 0, f"phase 14: the split roots never retried {m}"
+        if away is not None and b == M_HOME_AT + 1:
+            # the first read after the move home: a fresh execution's rows
+            with uncounted():
+                res_f, _, _ = rt_f.run_gr_tx_batch(ps, rt_f.empty_cache(), ttable, plan, roots,
+                                                   rtable=rhost)
+            assert np.array_equal(res, res_f), "phase 14: the read after the move home " \
+                "differs from a fresh execution"
+            fresh_checked += 1
+        drain.push(misses)
+        cache = drain.drain(ps, ps, cache, ttable, M_CP_PER_OWNER)
+        with uncounted():
+            drain_c.push(misses_c)
+            cache_c = drain_c.drain(ps_c, ps_c, cache_c, ttable, M_CP_PER_OWNER)
+        if b == M_SPLIT_AT:
+            for v in split:
+                cache = drop_cached_roots(cache, N_OWNERS, [v], [rhost.cache_owner(v)])
+                rhost.clear_cache_owner(v)
+            moved(split)
+        # the batch boundary: the engine's round, then the forced away / home
+        engine.observe(roots)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mv = []
+        if b >= M_ROUNDS_AFTER:
+            ps, cache, mv = engine.step(ps, fr, cache=cache)
+        torch.cuda.synchronize()
+        if mv:
+            rounds.append(dict(batch=b, moves=mv, round_ms=(time.perf_counter() - t) * 1e3,
+                               splice_ms=splice_ms[-1], epoch=rhost.epoch))
+            moved([v for v, _ in mv])
+        if b in (M_AWAY_AT, M_HOME_AT):
+            if b == M_AWAY_AT:
+                cands = [int(v) for v in hot[L_WATCHLIST][::-1]
+                         if int(v) not in rhost.storage_exceptions]
+                away = cands[0]
+                force = [(away, (rhost.storage_owner(away) + 1) % N_OWNERS)]
+            else:
+                force = [(away, int(base_owner(away, N_OWNERS)))]
+            t = time.perf_counter()
+            ps, cache, _ = engine.apply(ps, force, cache=cache)
+            torch.cuda.synchronize()
+            rounds.append(dict(batch=b, moves=force, round_ms=(time.perf_counter() - t) * 1e3,
+                               splice_ms=splice_ms[-1], epoch=rhost.epoch, forced=True))
+            moved([away])
+        with uncounted():
+            assert infer_storage_exceptions(rt.pspec, ps) == rhost.storage_exceptions, \
+                f"phase 14 batch {b}: the store's placement is not the table's"
+        if (b + 1) % M_WRITE_EVERY == 0:
+            mb, mv_edit = write_batch()
+            if b == M_AWAY_AT:
+                mb, mv_edit = migration_write(rng, espec, hstore, away, dev), away
+            edited.append(mv_edit)
+            ps, cache, wm = rt.run_grw_tx(ps, cache, ttable, mb, journal=j)
+            assert wm["op_overflow"] == 0 and wm["store_append_overflow"] == 0, wm
+            with uncounted():
+                ps_c, cache_c, wm_c = rt_c.run_grw_tx(ps_c, cache_c, ttable, mb)
+            assert wm["impacted_keys"] == wm_c["impacted_keys"], (wm, wm_c)
+        check_calls(f"phase 14 batch {b}")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    capture.__exit__(None, None, None)
+    mig.migrate_vertex_rows = splice
+    launches = {"block_gather": bg_ops.launches, "cache_probe": cp_ops.launches}
+    assert min(launches.values()) > 0, f"phase 14 launched a kernel no time: {launches}"
+    assert min(checked.values()) > 0, f"phase 14 checked no call of a kernel: {checked}"
+    policy_rounds = [r for r in rounds if not r.get("forced")]
+    assert policy_rounds and all(r["moves"] for r in policy_rounds), \
+        f"phase 14: no migration round moved a vertex: {rounds}"
+    assert rt.locality_retries > 0 and rt.cp_splits > 0, (rt.locality_retries, rt.cp_splits)
+    assert fresh_checked == 1 and away in edited, (fresh_checked, away, edited)
+    assert any(e is not None and e != away for e in edited), edited
+
+    # a crash: the live runtime and journal dropped, replay from the
+    # checkpoint taken before the first round on a fresh runtime
+    j.stop(final_flush=True)
+    jm = j.metrics()
+    t = time.perf_counter()
+    rt_r = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev)
+    ps_r, _, info = replay(WriteBehindJournal(os.path.join(root, "journal"), N_OWNERS), rt_r,
+                           ttable)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t
+    pstores_equal(ps_r, ps, "phase 14: the replayed store against the live one")
+    assert info["replayed_migrations"] == len(rounds), (info, len(rounds))
+    assert rt_r.rhost is not None and rt_r.rhost.storage_exceptions == rhost.storage_exceptions
+    del ps_r, rt_r
+    shutil.rmtree(root)
+
+    # the post-migration block_gather call, timed beside its plain version
+    a, kw = largest_after[2]
+    want = block_gather_filter_ref(*a, **kw)
+    bg_t = timings(lambda: bg_ops.block_gather(*a, **kw),
+                   lambda: block_gather_filter_ref(*a, **kw))
+    nbytes, ops = block_gather_bound(a, kw, want)
+    bg_bound, bg_by = bound_ms(nbytes, ops)
+    B_, W_ = want[0].shape
+    foreign = int((a[13] & ~a[14]).sum())  # rvalid, not cvalid: migrated-in roots
+    bg_shape = f"rows={B_},lanes={W_},EB={kw['e_blk_cap']},foreign_roots={foreign}"
+
+    # the serve loop's migration flags, on the card
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--migrate",
+                           "--hot-frac", str(M_HOT_FRAC)], capture_output=True, text=True,
+                          env=env, timeout=300)
+    serve_s = time.perf_counter() - t
+    assert proc.returncode == 0, f"phase 14 serve loop failed: {proc.stderr[-3000:]}"
+    line = next(l for l in proc.stdout.splitlines() if l.startswith("routing: migration_rounds="))
+    kv = dict(w.split("=") for w in line[len("routing: "):].split())
+    assert int(kv["migration_rounds"]) >= 1, line
+
+    hot_share = lambda rows: float(np.asarray(rows)[:, 1].sum() / max(np.asarray(rows).sum(), 1))
+    card = card_line()
+    report = dict(
+        batches=M_BATCHES, batch=BATCH, hot_frac=M_HOT_FRAC, rounds=rounds,
+        engine=engine.metrics(), locality_retries=rt.locality_retries, cp_splits=rt.cp_splits,
+        **locality,
+        split_roots=split, away_vertex=away, edited=edited,
+        hot_owner_frontier_share=dict(before=hot_share(share["before"]),
+                                      after=hot_share(share["after"])),
+        step_p50_ms=dict(before=pct(step_ms["before"], 50), after=pct(step_ms["after"], 50)),
+        step_ms=step_ms, checkpoint_seconds=ckpt_s, replay_seconds=replay_s, replay=info,
+        launches=launches, kernel_calls_checked=checked, loop_seconds=loop_s,
+        block_gather_post_migration=dict(bg_t, bound_ms=bg_bound, bound_by=bg_by, shape=bg_shape,
+                                         nbytes=nbytes),
+        serve_subprocess=dict(seconds=serve_s, routing_line=line), journal=jm,
+        seconds=time.perf_counter() - t_phase,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("migration report: " + json.dumps(report), flush=True)
+    print("migration rounds: " + "; ".join(
+        f"after batch {r['batch']}{' (forced)' if r.get('forced') else ''} {r['moves']} "
+        f"round {r['round_ms']:.3f} ms (splice {r['splice_ms']:.3f}) -> epoch {r['epoch']}"
+        for r in rounds)
+          + f" | {card}", flush=True)
+    em = engine.metrics()
+    print(f"migration: rounds={em['migration_rounds']} moved_vertices={em['migrated_vertices']} "
+          f"moved_rows={em['migrated_rows']} table_epoch={em['table_epoch']} "
+          f"storage_exceptions={em['storage_exceptions']} locality_routed="
+          f"{locality['locality_routed']} locality_retry_rows={locality['locality_retry_rows']} "
+          f"locality_retries={rt.locality_retries} cp_splits={rt.cp_splits}; owner 1's share "
+          f"of frontier rows "
+          f"{report['hot_owner_frontier_share']['before']:.4f} over the 6 batches before the "
+          f"rounds, {report['hot_owner_frontier_share']['after']:.4f} over the last 6; gR step p50 "
+          f"{report['step_p50_ms']['before']:.3f} ms before (n={len(step_ms['before'])}), "
+          f"{report['step_p50_ms']['after']:.3f} ms after (n={len(step_ms['after'])}) | {card}",
+          flush=True)
+    print(f"kernel block_gather phase 14 post-migration {bg_shape} {fmt_us(bg_t)} "
+          f"bound_us={bg_bound * 1e3:.4f} ({bg_by}, {nbytes} B) launches={launches['block_gather']}"
+          f" | {card}", flush=True)
+    print(f"migration checks: {M_BATCHES} batches equal the control's (misses as sets), the "
+          f"placement read back equals the table after every round, the split batch retried "
+          f"{split}, the read after moving {away} home equals a fresh execution, replay "
+          f"({replay_s:.3f} s, {info}) equals the live store, kernel calls {checked} (all "
+          f"equal); serve loop --migrate --hot-frac {M_HOT_FRAC}: {line} ({serve_s:.1f} s); "
+          f"phase {report['seconds']:.1f}s, peak device memory "
+          f"{report['peak_device_gib']:.2f} GiB", flush=True)
+    return report
+
+
 # ------------------------------------------------------------ GNN serving
 # Phase 8: cached neighbour sampling over a graph sized like Reddit, the
 # dataset behind the minibatch_lg cell (src/repro/configs/gnn_shapes.py),
@@ -3461,7 +3846,7 @@ def phase_memory(tag):
 
 
 def run_graph(seed, dev):
-    """Phases 3-7 and 11-13, the graph-cache paths; returns their kernel
+    """Phases 3-7 and 11-14, the graph-cache paths; returns their kernel
     rows. Their worlds are locals, freed when it returns."""
     import repro_torch.core.cache as cache_mod
     from repro_torch.kernels.cache_probe import ops as cp_ops
@@ -3573,6 +3958,19 @@ def run_graph(seed, dev):
             row["launches"] += f_report["launches"][row["name"]]
             row["launches_by_path"]["phase 13"] = f_report["launches"][row["name"]]
     phase_memory("phase 13")
+
+    # 14. migration and the routing overlays on the phase-7 store; the two
+    # kernels' launches counted around the phase's batches, drains, rounds
+    # and commits (zeroed inside, just before; its checks' launches left out)
+    m_report = run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges,
+                             includes, dev)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            row["launches"] += m_report["launches"][row["name"]]
+            row["launches_by_path"]["phase 14"] = m_report["launches"][row["name"]]
+        if row["name"] == "block_gather":
+            row["post_migration"] = m_report["block_gather_post_migration"]
+    phase_memory("phase 14")
     return rows
 
 

@@ -24,6 +24,7 @@ from repro_torch.core.engine import EngineSpec
 from repro_torch.core.keys import PARAM_LEN
 from repro_torch.core.runtime import onehop_exec_view
 from repro_torch.core.templates import TemplateTable, pred_row
+from repro_torch.distributed.sharding import ALL_REDUCE_SUM
 from repro_torch.graphstore.store import GlobalStoreView, GraphStore
 from repro_torch.graphstore.txn import conflicts
 from repro_torch.utils import SyncCount, resolve_device
@@ -88,6 +89,31 @@ def populate_step(espec: EngineSpec, store_exec: GraphStore, store_commit: Graph
     ``store_exec`` / ``store_commit`` then supply only ``.version`` /
     ``.vversion``, which a ``PartitionedGraphStore`` has.
     """
+    program = populate_program(espec, store_exec, store_commit, cache, ttable, tpl_idx,
+                               direction, edge_label, roots, params, mask, read_versions,
+                               syncs=syncs, exec_view=exec_view)
+    try:
+        next(program)
+    except StopIteration as stop:
+        return stop.value
+    raise AssertionError("the fused CP step asks for no all-reduce")
+
+
+def populate_program(espec: EngineSpec, store_exec, store_commit, cache: CacheState,
+                     ttable: TemplateTable, tpl_idx: int, direction: int, edge_label: int,
+                     roots, params, mask, read_versions, syncs: SyncCount | None = None,
+                     exec_view=None, commit_mask=None):
+    """``populate_step`` as a per-rank program (a generator; see
+    ``distributed.sharding``). Returns (cache', committed[B], aborted[B]).
+
+    ``commit_mask`` splits the transaction across shards (the CP split of
+    the routing-table tier): ``mask`` then selects the rows this shard
+    *executes* (its storage holds them) and ``commit_mask`` those whose
+    entry it *inserts* (its cache block holds them). The executed bundle
+    (leaves, counts, the commit verdict) crosses shards in three
+    all-reduce sums: one shard executes each row and every other adds
+    zeros. Without it the program asks for nothing and is the fused
+    transaction."""
     pr, pe, pl = (pred_row(getattr(ttable, f), tpl_idx) for f in ("pr", "pe", "pl"))
     view = exec_view if exec_view is not None else GlobalStoreView(espec.store, store_exec)
     leaves, _lmask, n_true, trunc, stats = onehop_exec_view(
@@ -104,9 +130,15 @@ def populate_step(espec: EngineSpec, store_exec: GraphStore, store_commit: Graph
                          read_mask, axis=1)
     # populating is allowed only for read-enabled templates (§4.1 Phase 2)
     ok = cacheable & ~conflict & bool(ttable.read_enabled[tpl_idx])
+    insert_ok = ok
+    if commit_mask is not None:
+        # ship the executed bundle to the inserting shard
+        leaves = yield (ALL_REDUCE_SUM, torch.where(ok[:, None], leaves, 0))
+        n_true = yield (ALL_REDUCE_SUM, torch.where(ok, n_true, 0))
+        insert_ok = ((yield (ALL_REDUCE_SUM, ok.to(torch.int32))) > 0) & commit_mask
     cache = cache_insert(
         espec.cache, cache, tpl_idx, roots, params, leaves, n_true,
-        cp_read_version, ok, syncs=syncs,
+        cp_read_version, insert_ok, syncs=syncs,
     )
     return cache, ok, cacheable & conflict
 

@@ -58,8 +58,10 @@ class FailoverController:
 
     ``plan`` scripts faults for chaos runs (None: probes heartbeat from the
     runtime's measured step time); ``hedge_after`` is the straggler hedge's
-    deadline in seconds. The identity routing table routes every read and
-    write (the routing overlays wait for the migration tier)."""
+    deadline in seconds. The runtime's attached ``RoutingTableHost``, read
+    at each call, routes every read, write and recovery, so failover
+    composes with migrated placements and with a table attached after the
+    controller is built."""
 
     def __init__(self, rt, journal: Optional[WriteBehindJournal], ttable, *,
                  plan: Optional[ShardFaultPlan] = None,
@@ -121,7 +123,8 @@ class FailoverController:
             with (self.journal.epochs.pin_scope() if self.journal is not None
                   else contextlib.nullcontext()):
                 return rt.run_gr_tx_batch(pstore, cache, self.ttable, qplan, roots,
-                                          down=m if m.any() else None, return_deferred=True)
+                                          down=m if m.any() else None,
+                                          return_deferred=True)
 
         from_hedge = False
         if straggling and self.hedge is not None:
@@ -174,7 +177,10 @@ class FailoverController:
         not move (the module docstring says why every commit queues).
         Returns ``(pstore, cache, metrics)`` either way."""
         if self.detector.down():
-            self.journal.append_commit(batch, policy=policy, gate=gate, applied=False)
+            rhost = self.rt.rhost
+            self.journal.append_commit(
+                batch, policy=policy, gate=gate, applied=False,
+                route=rhost.storage_owner if rhost is not None else None)
             return pstore, cache, {"queued": 1, **self.journal.metrics()}
         pstore, cache, metrics = self.rt.run_grw_tx(
             pstore, cache, self.ttable, batch, policy=policy, gate=gate,

@@ -4,14 +4,14 @@ PyTorch twin of ``repro.distributed.graph_serve`` on the partitioned
 tier: the read path, CP population, the gRW-Tx commit under both
 policies with its maintenance gate and write-behind journal, and block
 maintenance between batches (compaction, capacity growth), the
-owner-stage telemetry with its tracer spans, and the degraded mode the
-failover tier drives. The overlapped schedule, the routing overlays (they
-wait for the migration tier) and the replicated tier are not ported yet.
+owner-stage telemetry with its tracer spans, the degraded mode the
+failover tier drives, and the routing overlays the migration tier sets.
+The overlapped schedule and the replicated tier are not ported yet.
 Vertex ownership is interleaved
-(shard ``v mod n`` owns ``v``) and the one-hop result cache is
-co-partitioned with it: the global cache of ``C`` slots is ``n`` blocks of
-``C // n`` slots, and a key's block is its root's owner, so a probe is
-always local to the owner.
+(shard ``v mod n`` owns ``v``) unless the routing table says otherwise,
+and the one-hop result cache is co-partitioned with it: the global cache
+of ``C`` slots is ``n`` blocks of ``C // n`` slots, and a key's block is
+its root's cache owner, so a probe is always local to that owner.
 
 A gR-Tx batch runs one per-rank program (``runtime.make_plan_fn`` over a
 ``_MeshTier``) on every rank of a ``LocalMesh``; rank ``r`` holds rows
@@ -32,6 +32,22 @@ After the hops, one all-reduce globalizes the additive metrics and the
 per-hop miss counts, so every metric equals the single-host engine's except
 ``route_overflow`` and ``locality_routed`` (sharded-only, both 0 with
 no-drop caps and the identity routing table) and ``host_syncs``.
+
+Routing overlays
+----------------
+
+``attach_routing(RoutingTableHost)`` makes placement data: every step then
+reads the host's device table (cached per epoch). A migrated vertex's rows
+live at its storage owner, which gR, commits and CP use; a cache exception
+sends a vertex's reads to another cache home. There a hit serves; a miss
+*defers* (the row is stored elsewhere) and the **locality retry** runs the
+deferred rows once more through the table's storage view, merging results,
+flags, misses and the additive metrics. CP queues each miss at its cache
+owner (``ShardedMissDrain``); a step whose rows execute or insert at
+another shard runs the **CP split** (``population.populate_program`` on
+every rank: execute at the storage owner, sum the bundle, insert at the
+cache owner). A table with no exception costs nothing: the same kernel
+calls, host reads and collectives as the identity table.
 
 A gRW-Tx commit is one per-rank program too (``grw_step``): each rank
 applies the batch to its own blocks (``apply_mutations_partitioned``), runs
@@ -124,6 +140,7 @@ from repro_torch.core.runtime import (
     unpack_result_frame,
 )
 from repro_torch.distributed.routing import (
+    RoutingTableHost,
     base_owner,
     cache_owner_of,
     identity_table,
@@ -202,7 +219,8 @@ class _MeshRead:
 
 # what a gR batch records on its runtime: a hedged read's racers keep these
 # apart, and the winner's are adopted (``ShardedTxnRuntime.racer``)
-_OBSERVED = ("last_step_seconds", "last_owner_stage", "last_step_owner_seconds")
+_OBSERVED = ("last_step_seconds", "last_owner_stage", "last_step_owner_seconds",
+             "locality_retries")
 
 
 class _SpanLog:
@@ -222,17 +240,19 @@ class _SpanLog:
 
 
 class _MeshTier:
-    """One rank's hooks of the hop driver: owner routing over all_to_all,
-    the one metrics all-reduce, owner-local block execution and, when
-    ``down`` (the host bool mask of owners marked down) is given, the
-    degraded-mode hook."""
+    """One rank's hooks of the hop driver under one routing table
+    ``rtable``: owner routing over all_to_all, the one metrics all-reduce,
+    owner-local block execution and, when ``down`` (the host bool mask of
+    owners marked down) is given or ``split`` (the table may hold cache
+    exceptions), the deferral hook."""
 
     routed = True
 
-    def __init__(self, rt: "ShardedTxnRuntime", caps, me: int, down=None):
+    def __init__(self, rt: "ShardedTxnRuntime", caps, me: int, rtable, down=None,
+                 split: bool = False):
         self.rt, self.caps, self.me = rt, caps, me
-        self.n, self.pspec, self.rtable = rt.n, rt.pspec, rt.rtable
-        self.down = down
+        self.n, self.pspec, self.rtable = rt.n, rt.pspec, rtable
+        self.down, self.split = down, split
         self._locality = 0  # rows the table routed away from their base owner
         # telemetry: the plan program counts owner-side frontier rows
         # (stage_rows) and reduce_metrics folds the owner-stage block into
@@ -240,12 +260,18 @@ class _MeshTier:
         self.telemetry = self.stage_rows = rt.telemetry
 
     def defer_fn(self):
-        if self.down is None:
+        if self.down is None and not self.split:
             return None
-        # every miss routed to a down owner defers; a live owner's never does
-        # (under the identity table a row routed here is stored here)
-        dead = bool(self.down[self.me])
-        return lambda roots_flat: torch.full_like(roots_flat, dead, dtype=torch.bool)
+        dead = self.down is not None and bool(self.down[self.me])
+        if not self.split:
+            # every miss routed to a down owner defers, a live owner's never
+            # (with no cache exception a row routed here is stored here)
+            return lambda roots_flat: torch.full_like(roots_flat, dead, dtype=torch.bool)
+        # a miss also defers where it was routed here for its cache home
+        # while its rows live at another shard: the locality retry runs it
+        # there through the table's storage view. Hits serve either way.
+        return lambda roots_flat: (storage_owner_of(self.rtable, roots_flat, self.n)
+                                   != self.me) | dead
 
     def exec_fn(self, hop):
         pspec, espec = self.pspec, self.rt.lspec
@@ -386,7 +412,12 @@ class ShardedTxnRuntime:
             if not route_cap_factor or not all(isinstance(f, int) for f in route_cap_factor):
                 raise ValueError("per-hop route_cap_factor entries must be ints")
         self.route_cap_factor = route_cap_factor
-        self.rtable = identity_table(n, device=self.device)
+        # the identity table, threaded through every step while no
+        # RoutingTableHost is attached (``attach_routing``)
+        self.identity = identity_table(n, device=self.device)
+        self.rhost = None
+        self.locality_retries = 0  # batches whose split rows were retried
+        self.cp_splits = 0  # CP steps that executed a row away from its insert
         # applied mutation rows since the last compaction (the policy's
         # latency-amortization input)
         self.mutation_rows_since_compact = 0
@@ -514,6 +545,30 @@ class ShardedTxnRuntime:
         for name, seconds, attrs in racer.tracer.spans:
             self.tracer.record(name, seconds, attrs)
 
+    # ---------------------------------------------------------- routing
+    def attach_routing(self, rhost: RoutingTableHost | None):
+        """Attach the host routing table: every serving, commit and CP step
+        then reads ``rhost.device_table()`` at dispatch (cached per epoch,
+        so an unchanged table costs a dict hit), and ``ShardedMissDrain``
+        queues misses at each root's cache owner. ``None`` detaches."""
+        if rhost is not None:
+            if rhost.n != self.n:
+                raise ValueError(f"a table of {rhost.n} owners on a runtime of {self.n}")
+            if rhost.device != self.device:
+                raise ValueError(f"the table stamps on {rhost.device}, the runtime runs on "
+                                 f"{self.device}")
+        self.rhost = rhost
+        return rhost
+
+    def _resolve_rtable(self, rhost: RoutingTableHost | None):
+        """A step's table and its host: a given ``RoutingTableHost``, else
+        the attached one, its current table; with neither, the identity
+        table. Returns ``(table, rhost)``."""
+        rhost = rhost if rhost is not None else self.rhost
+        if rhost is not None:
+            return rhost.device_table(), rhost
+        return self.identity, None
+
     # --------------------------------------------------------- gR-Tx path
     def _hop_route_caps(self, plan, Bloc: int):
         """Per-hop per-peer routing capacity: ``ceil(factor * rows / n)`` for
@@ -529,20 +584,57 @@ class ShardedTxnRuntime:
             A = min(F, A * RW)
         return caps
 
-    def run_gr_tx_batch(self, store, cache, ttable, plan, roots, *, down=None,
+    def run_gr_tx_batch(self, store, cache, ttable, plan, roots, *, down=None, rtable=None,
                         return_deferred: bool = False):
         """Pad, run every rank's program on the mesh, decode the misses.
         Same contract as ``GraphEngine.run``: (result, misses, metrics), and
         the per-row ``deferred`` flags fourth with ``return_deferred``.
 
         ``down`` (bool[n]) masks the named owners' miss segments: their
-        misses defer. With no owner down the batch does no deferral work.
+        misses defer. ``rtable`` is the routing table (a
+        ``RoutingTableHost``, or None: the attached host, else the identity
+        table). Under a table with cache exceptions, rows
+        routed to a split vertex's cache home that miss there defer, and
+        the **locality retry** runs them once more through the table's
+        storage view (``storage_table()``), merging results, deferred
+        flags, misses and the additive metrics (``locality_retry_rows``
+        counts the rows, ``locality_retries`` the batches). With no owner
+        down and no cache exception the batch does no deferral work.
 
         ``metrics["host_syncs"]`` counts each rank's miss-count read per hop,
         each rank's merge rounds and the one result copy. With telemetry on,
         the owner-stage block rides that copy and lands in
         ``last_owner_stage``, not in the metrics; ``last_step_owner_seconds``
         attributes ``last_step_seconds`` to the owners by their work."""
+        table, rhost = self._resolve_rtable(rtable)
+        split = rhost is not None and bool(rhost.cache_exceptions)
+        result, misses, metrics, deferred = self._gr_batch(store, cache, ttable, plan, roots,
+                                                           down, table, split)
+        metrics["locality_retry_rows"] = 0
+        if split and deferred.any():
+            roots = np.asarray(roots, np.int32)
+            idx = np.flatnonzero(deferred & rhost.is_split(roots))
+            if idx.size:
+                r2, mis2, m2, d2 = self._gr_batch(store, cache, ttable, plan, roots[idx], down,
+                                                  rhost.storage_table(), False)
+                result, deferred = result.copy(), deferred.copy()
+                result[idx] = r2
+                deferred[idx] = d2
+                misses = list(misses) + list(mis2)
+                for k, v in m2.items():
+                    if k in metrics:
+                        metrics[k] += int(v)
+                metrics["locality_retry_rows"] = int(idx.size)
+                self.locality_retries += 1
+        if return_deferred:
+            return result, misses, metrics, deferred
+        return result, misses, metrics
+
+    def _gr_batch(self, store, cache, ttable, plan, roots, down, rtable, split: bool):
+        """One gR batch under the routing table ``rtable`` (``split``: it
+        may hold cache exceptions, so rows routed to a split vertex's cache
+        home defer). Returns ``(result, misses, metrics, deferred)``, each
+        cut to the batch."""
         from repro_torch.core.engine import _to_host
 
         n, pspec, tr = self.n, self.pspec, self.tracer
@@ -563,13 +655,14 @@ class ShardedTxnRuntime:
         with tr.span("gr_dispatch"):
             programs = []
             for me in range(n):
-                steps = make_plan_fn(self.lspec, plan, True, _MeshTier(self, caps, me, down))
+                tier = _MeshTier(self, caps, me, rtable, down, split)
+                steps = make_plan_fn(self.lspec, plan, True, tier)
                 rows = slice(me * Bloc, (me + 1) * Bloc)
                 programs.append(steps(local_shard(pspec, store, me), cache_shard(cache, n, me),
                                       ttable, proots[rows], bvalid[rows], syncs))
             outs = self.mesh.run(programs)
             result = torch.cat([o[0] for o in outs])
-            row_def = torch.cat([o[1] for o in outs]) if down is not None else None
+            row_def = torch.cat([o[1] for o in outs]) if outs[0][1] is not None else None
             n_seg = len(outs[0][2])
             mroots = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
             mcounts = [torch.cat([o[3][i] for o in outs]) for i in range(n_seg)]
@@ -587,7 +680,6 @@ class ShardedTxnRuntime:
             version = metrics.pop("_version")
             metrics["host_syncs"] = syncs.n + 1
             metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
-            metrics["locality_retry_rows"] = 0  # no routing overlays yet
             misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
         if stage is not None:
             self.last_owner_stage = stage.astype(np.int64)
@@ -595,16 +687,15 @@ class ShardedTxnRuntime:
                                                                   self.last_owner_stage)
         else:
             self.last_owner_stage = self.last_step_owner_seconds = None
-        if return_deferred:
-            return result[:B], misses, metrics, deferred[:B]
-        return result[:B], misses, metrics
+        return result[:B], misses, metrics, deferred[:B]
 
     # -------------------------------------------------------- gRW-Tx path
-    def _route_and_apply_ops(self, cache, ops, sweeps, through: bool, syncs):
+    def _route_and_apply_ops(self, cache, ops, sweeps, through: bool, syncs, rtable):
         """One rank's maintenance apply, a per-rank program: compact the
         derived ops to ``OPS_CAP`` rows and route each, as one frame
         ``[flags | kind | tpl | root | params | vid | order]``, to the shard
-        holding its root's cache entries (``cache_owner_of``) in one
+        holding its root's cache entries (``cache_owner_of`` under
+        ``rtable``) in one
         all_to_all; all-gather the sweeps, which every rank applies whole (a
         sweep of another shard's root matches nothing here); then apply
         sweeps, then ops, to the rank's cache block. Returns (cache',
@@ -614,7 +705,7 @@ class ShardedTxnRuntime:
             ops.ok, OPS_CAP, (ops.kind, ops.tpl, ops.root, ops.params, ops.vid, ops.order),
             (0, -1, NULL_ID, 0, NULL_ID, 0),
         )
-        dest = torch.where(oroot != NULL_ID, cache_owner_of(self.rtable, oroot, n), -1)
+        dest = torch.where(oroot != NULL_ID, cache_owner_of(rtable, oroot, n), -1)
         flags = torch.full_like(oroot, WIRE_FLAG_VALID)
         col = lambda x: x[:, None]
         frame = torch.cat([col(flags), col(okind), col(otpl), col(oroot), oparams, col(ovid),
@@ -644,7 +735,7 @@ class ShardedTxnRuntime:
         return cache2._replace(n_delete=cache.n_delete + occ), occ, ovf_c + ovf_r + ovf_s
 
     def _grw_fn(self, through: bool, gate, store, cache, ttable, batch, me: int, syncs,
-                flags_read: _MeshRead):
+                flags_read: _MeshRead, rtable):
         """Rank ``me``'s gRW-Tx commit, a per-rank program: apply the batch to
         its blocks, derive the ops its storage owns; with a ``gate``,
         all-gather every rank's (out, inc) gate flags (read once for the
@@ -654,7 +745,7 @@ class ShardedTxnRuntime:
         fill) over the maintained blocks. Returns (the rank's store, its
         cache block, impacted, op_overflow, store_overflow, blk_max,
         rec_max, the blocks the gate compacted over the mesh)."""
-        pspec, rtable = self.pspec, self.rtable
+        pspec = self.pspec
         local = local_shard(pspec, store, me)
         store2, applied, store_ovf = yield from apply_mutations_partitioned(
             pspec, local, batch, me, rtable)
@@ -674,7 +765,7 @@ class ShardedTxnRuntime:
                                      inc=maintain(store2.inc, flags[me][1]))
             ncomp = sum(map(sum, flags))
         cache2, occ, ovf = yield from self._route_and_apply_ops(
-            cache_shard(cache, self.n, me), ops, sweeps, through, syncs)
+            cache_shard(cache, self.n, me), ops, sweeps, through, syncs, rtable)
         sums = yield (ALL_REDUCE_SUM, torch.stack([occ, ovf]))
         out, inc = store2.out, store2.inc
         fill = torch.stack([torch.maximum(out.blk_len[0], inc.blk_len[0]),
@@ -686,21 +777,23 @@ class ShardedTxnRuntime:
     def grw_step(self, policy: str = "write-around", gate: DeviceGate | None = None):
         """The partitioned gRW-Tx commit under ``policy`` (write-around or
         write-through) and ``gate`` (a ``DeviceGate`` or None):
-        ``step(store, cache, ttable, batch, syncs=None) -> (store', cache',
-        impacted, op_overflow, store_append_overflow, max_blk_len,
-        max_recent_fill, device_compactions)``, device scalars but the last,
-        a host int. Runs every rank's ``_grw_fn`` on the mesh and joins
-        their blocks in rank order; write-through's round reads and the
-        gate's one flag read are counted in ``syncs``."""
+        ``step(store, cache, ttable, batch, syncs=None, rtable=None) ->
+        (store', cache', impacted, op_overflow, store_append_overflow,
+        max_blk_len, max_recent_fill, device_compactions)``, device scalars
+        but the last, a host int. Runs every rank's ``_grw_fn`` on the mesh
+        under the routing table (resolved as ``run_gr_tx_batch``'s) and
+        joins their blocks in rank order; write-through's round reads and
+        the gate's one flag read are counted in ``syncs``."""
         if policy not in ("write-around", "write-through"):
             raise ValueError(f"unknown gRW policy {policy!r}")
         through = policy == "write-through"
 
-        def step(store, cache, ttable, batch, syncs=None):
+        def step(store, cache, ttable, batch, syncs=None, rtable=None):
             syncs = syncs if syncs is not None else SyncCount()
             flags_read = _MeshRead(syncs)
+            table, _ = self._resolve_rtable(rtable)
             outs = self.mesh.run([self._grw_fn(through, gate, store, cache, ttable, batch, me,
-                                               syncs, flags_read)
+                                               syncs, flags_read, table)
                                   for me in range(self.n)])
             store2 = join_shards([o[0] for o in outs])
             cache2 = _replicate_stats(cache, [o[1] for o in outs])
@@ -710,7 +803,7 @@ class ShardedTxnRuntime:
 
     def run_grw_tx(self, store, cache, ttable, batch, policy: str = "write-around", *,
                    gate: DeviceGate | None = None, occupancy_metrics: bool = True,
-                   journal=None):
+                   journal=None, rtable=None):
         """One gRW-Tx on the partitioned tier, mirroring
         ``core.engine.run_grw_tx``: (store', cache', metrics). Metrics:
         ``impacted_keys``, ``op_overflow``, ``store_append_overflow``;
@@ -724,12 +817,15 @@ class ShardedTxnRuntime:
 
         ``journal`` (a ``WriteBehindJournal``) makes the commit durable
         write-behind: the batch is appended with its policy and gate, and
-        the journal's metrics join the returned ones. The commit and its
-        metrics copy run in a ``grw_step`` span."""
+        the journal's metrics join the returned ones. ``rtable`` routes the
+        commit (resolved as ``run_gr_tx_batch``'s); a host table also routes
+        the journal's dirty owners. The commit and its metrics copy run in a
+        ``grw_step`` span."""
         syncs = SyncCount()
+        _, rhost = self._resolve_rtable(rtable)
         with self.tracer.span("grw_step"):
             store2, cache2, *scalars, ncomp = self.grw_step(policy, gate)(
-                store, cache, ttable, batch, syncs)
+                store, cache, ttable, batch, syncs, rtable)
             b = batch
             counts = [b.nv_n, b.ne_n, b.de_n, b.dv_n, b.sv_n, b.se_n]
             impacted, ovf, store_ovf, blk_max, rec_max, version, *rows = torch.stack(
@@ -747,15 +843,17 @@ class ShardedTxnRuntime:
         metrics["host_syncs"] = syncs.n + 1 + (journal is not None)
         if journal is not None:
             journal.append_commit(batch, policy=policy, gate=gate, commit_version=version,
-                                  device_compactions=ncomp)
+                                  device_compactions=ncomp,
+                                  route=rhost.storage_owner if rhost is not None else None)
             metrics.update(journal.metrics())
         return store2, cache2, metrics
 
     # ------------------------------------------------------ CP population
     def populator(self, templates_meta, owner: int, max_retries: int = 3):
-        """A ``CachePopulator`` for the misses of one owner shard: its CP
-        transactions execute against that owner's blocks and insert into its
-        cache block (rows of other owners are masked off)."""
+        """A ``CachePopulator`` for the misses queued at one owner shard
+        (their cache owner). Its CP transactions execute each row against
+        its storage owner's blocks and insert it into its cache owner's
+        block, under the table of the moment."""
         from repro_torch.core.population import CachePopulator
 
         return CachePopulator(self.espec, templates_meta, max_retries=max_retries,
@@ -763,28 +861,45 @@ class ShardedTxnRuntime:
                               step_builder=functools.partial(self._pop, templates_meta, owner))
 
     def _pop(self, templates_meta, me: int, tpl_idx: int, bucket: int):
-        from repro_torch.core.population import populate_step
+        from repro_torch.core.population import populate_program, populate_step
 
         del bucket  # eager torch compiles nothing per batch shape
-        n, lspec, rtable = self.n, self.lspec, self.rtable
+        n, lspec = self.n, self.lspec
         direction, edge_label = templates_meta[tpl_idx]
 
         def step(store_exec, store_commit, cache, ttable, roots, params, mask, read_versions):
-            # under the identity table the executing and the committing shard
-            # of a row are both its storage owner
-            mine = mask & (roots >= 0) & (storage_owner_of(rtable, roots, n) == me)
-            # the block layout at CALL time: a populator keeps this step across
-            # a capacity swap, after which the old spec would slice the
-            # grown blocks at the wrong rows
+            # the table and the block layout at CALL time: a populator keeps
+            # this step across moves and capacity swaps
+            rtable, rhost = self._resolve_rtable(None)
             pspec = self.pspec
-            view = BlockStoreView(pspec, local_shard(pspec, store_exec, me), me, rtable)
-            c2, ok, ab = populate_step(
-                lspec, store_exec, store_commit, cache_shard(cache, n, me), ttable,
-                tpl_idx, direction, edge_label, roots, params, mine, read_versions,
-                exec_view=view,
-            )
-            shards = [c2 if s == me else cache_shard(cache, n, s) for s in range(n)]
-            return _replicate_stats(cache, shards), ok, ab
+            valid = mask & (roots >= 0)
+            sown = storage_owner_of(rtable, roots, n)
+            view = lambda s: BlockStoreView(pspec, local_shard(pspec, store_exec, s), s, rtable)
+            cown = None
+            if rhost is not None and rhost.has_exceptions():
+                # one read decides: does a row execute or insert at another
+                # shard (a split vertex, or a vertex moved since it queued)?
+                cown = cache_owner_of(rtable, roots, n)
+                if not bool((valid & ((sown != me) | (cown != me))).any()):
+                    cown = None
+            if cown is None:
+                # every row executes and inserts here
+                c2, ok, ab = populate_step(
+                    lspec, store_exec, store_commit, cache_shard(cache, n, me), ttable,
+                    tpl_idx, direction, edge_label, roots, params, valid & (sown == me),
+                    read_versions, exec_view=view(me))
+                shards = [c2 if s == me else cache_shard(cache, n, s) for s in range(n)]
+                return _replicate_stats(cache, shards), ok, ab
+            # the CP split: each row executes at its storage owner and
+            # inserts at its cache owner, the bundle summed over the mesh
+            self.cp_splits += 1
+            outs = self.mesh.run([populate_program(
+                lspec, store_exec, store_commit, cache_shard(cache, n, s), ttable, tpl_idx,
+                direction, edge_label, roots, params, valid & (sown == s), read_versions,
+                exec_view=view(s), commit_mask=valid & (cown == s)) for s in range(n)])
+            ok = torch.stack([o[1] for o in outs]).any(dim=0)
+            ab = torch.stack([o[2] for o in outs]).any(dim=0)
+            return _replicate_stats(cache, [o[0] for o in outs]), ok, ab
 
         return step
 
@@ -792,11 +907,12 @@ class ShardedTxnRuntime:
 class ShardedMissDrain:
     """Per-shard CP drain loops over the runtime's per-shard miss records.
 
-    Each miss record lands in its root's owner queue, drained by that
-    owner's populator (the shard whose blocks execute it and whose cache
-    block receives the insert); ``drain`` walks the shards in order, so
-    every CP batch is single-owner and runs one owner's step (the
-    CP-per-shard layout of §4's population threads).
+    Each miss record lands in the queue of its root's cache owner (under
+    the attached routing table; its owner by the base rule without one),
+    drained by that owner's populator; ``drain`` walks the shards in order,
+    so every CP batch runs one owner's step (the CP-per-shard layout of
+    §4's population threads). A row whose rows live elsewhere executes at
+    its storage owner inside that step (the CP split).
     """
 
     def __init__(self, rt: ShardedTxnRuntime, templates_meta, max_retries: int = 3):
@@ -805,8 +921,11 @@ class ShardedMissDrain:
         self.pops = [rt.populator(templates_meta, s, max_retries) for s in range(rt.n)]
 
     def push(self, misses):
-        for m in misses:
-            self.pops[int(base_owner(m.root, self.n))].queue.push([m])
+        rhost = self.rt.rhost
+        roots = np.array([m.root for m in misses], np.int64)
+        owners = rhost.cache_owner(roots) if rhost is not None else base_owner(roots, self.n)
+        for m, owner in zip(misses, owners.tolist()):
+            self.pops[owner].queue.push([m])
 
     def drain(self, store_exec, store_commit, cache, ttable, k: int = 128):
         """Drain up to ``k`` misses per shard queue; returns the new cache."""

@@ -31,8 +31,8 @@ The crc covers the header fields too, so a flipped bit anywhere in a frame
   batch, gate), so replay reproduces the block layout too.
 - ``COMPACT`` (2): a host-scheduled compaction (its purge flag).
 - ``GROW`` (3): a capacity change (``e_blk_cap``, ``recent_blk_cap``).
-- ``MIGRATE`` (4): a hot-vertex migration round. Frames are written as the
-  reference writes them; replaying one waits for the migration tier.
+- ``MIGRATE`` (4): a hot-vertex migration round (its moves), replayed
+  through the same deterministic splice (``graphstore.migration``).
 
 A torn tail (a short frame or a crc mismatch) ends a scan: every complete
 frame before it replays, the partial one is dropped.
@@ -57,7 +57,11 @@ Flushes and checkpoints run in ``journal_flush`` and ``checkpoint`` spans
 of the journal's ``tracer`` (``repro_torch.obs.trace``; the flusher thread
 records into it too, so it must be thread-safe, as ``Tracer`` is).
 
-Replaying a MIGRATE record waits for the migration tier.
+Replay rebuilds the routing table's trajectory with the store: the
+restored checkpoint's placement is read back from its bytes
+(``migration.infer_storage_exceptions``), each MIGRATE advances it, and
+each replayed COMMIT routes its appends through the table of its point in
+the log.
 """
 
 from __future__ import annotations
@@ -313,14 +317,16 @@ class WriteBehindJournal:
     def append_commit(self, batch: MutationBatch, *, policy: str = "write-around",
                       gate: Optional[DeviceGate] = None,
                       commit_version: Optional[int] = None, device_compactions: int = 0,
-                      applied: bool = True) -> int:
+                      applied: bool = True, route: Optional[Callable] = None) -> int:
         """Queue one committed gRW batch and mark the owners it touches dirty.
 
         The batch crosses to the host in one copy (``batch_to_numpy``).
         ``device_compactions > 0`` marks every owner checkpoint-dirty (the
-        gate may rewrite any block). New edges mark their endpoints' owners
-        (``v mod n``); deletes and edge-prop edits name geids, whose owners
-        the host cannot tell, so they mark every owner dirty.
+        gate may rewrite any block). New edges mark their endpoints' owners:
+        ``route`` maps ids to owners (``RoutingTableHost.storage_owner`` once
+        vertices have moved; the base rule ``v mod n`` by default); deletes
+        and edge-prop edits name geids, whose owners the host cannot tell,
+        so they mark every owner dirty.
 
         ``applied=False`` is degraded mode's write: the record is durable like
         any other but was not applied to the live store, so ``applied_seq``
@@ -332,8 +338,9 @@ class WriteBehindJournal:
         owners = set()
         k = int(fields["ne_n"])
         if k:
+            route = route if route is not None else (lambda v: base_owner(v, self.n))
             for ids in (fields["ne_src"], fields["ne_dst"]):
-                owners.update(int(o) for o in np.unique(base_owner(ids[:k], self.n)))
+                owners.update(int(o) for o in np.unique(np.asarray(route(ids[:k]))))
         if int(fields["de_n"]) or int(fields["se_n"]) or int(device_compactions) > 0:
             owners.update(range(self.n))
         with self._lock:
@@ -710,15 +717,19 @@ def restore_chain(journal: WriteBehindJournal, rt):
     return tree_unflatten(pstore, leaves), seq, spec_meta
 
 
-def _apply_record(rt, ttable, pstore, cache, rec, default_policy: str, info: dict, tag: str):
+def _apply_record(rt, ttable, pstore, cache, rec, default_policy: str, info: dict, tag: str,
+                  rhost=None):
     """Re-run one journal record through the step family the live run
-    used (COMMIT: the recorded policy and gate; COMPACT: ``compact_step``;
-    GROW: ``grow_blocks``), counting it in ``info[f"{tag}_..."]``. Returns
-    ``(pstore, cache)``."""
+    used (COMMIT: the recorded policy and gate, routed through ``rhost``,
+    the table of the record's point in the log; COMPACT:
+    ``compact_step``; GROW: ``grow_blocks``; MIGRATE: the splice, the moved
+    vertices' entries dropped from their old cache homes in ``cache`` and
+    the moves applied to ``rhost``), counting it in ``info[f"{tag}_..."]``.
+    Returns ``(pstore, cache)``."""
     if rec.rtype == REC_COMMIT:
         batch, policy, gate = decode_commit(rec.payload, device=rt.device)
         pstore, cache, _ = rt.run_grw_tx(pstore, cache, ttable, batch, policy or default_policy,
-                                         gate=gate, occupancy_metrics=False)
+                                         gate=gate, occupancy_metrics=False, rtable=rhost)
         info[f"{tag}_commits"] += 1
     elif rec.rtype == REC_COMPACT:
         pstore = rt.compact_step(json.loads(rec.payload.decode())["purge"])(pstore)
@@ -728,9 +739,16 @@ def _apply_record(rt, ttable, pstore, cache, rec, default_policy: str, info: dic
         pstore = rt.grow_blocks(pstore, m["e_blk_cap"], recent_blk_cap=m["recent_blk_cap"])
         info[f"{tag}_growths"] += 1
     elif rec.rtype == REC_MIGRATE:
-        raise NotImplementedError(
-            f"journal record {rec.seq} is a MIGRATE: replaying migrations waits for the "
-            f"migration tier (ROADMAP.md queue 1)")
+        from repro_torch.graphstore.migration import (
+            drop_cached_roots, migrate_vertex_rows, moved_away,
+        )
+
+        moves = [(int(v), int(d)) for v, d in json.loads(rec.payload.decode())["moves"]]
+        pstore = migrate_vertex_rows(rt.pspec, pstore, moves)
+        cache = drop_cached_roots(cache, rt.n, *moved_away(rt.n, rhost, moves))
+        if rhost is not None:
+            rhost.apply_moves(moves)
+        info[f"{tag}_migrations"] += 1
     else:
         raise ValueError(f"journal record {rec.seq} has unknown type {rec.rtype}")
     return pstore, cache
@@ -742,26 +760,40 @@ def replay(journal: WriteBehindJournal, rt, ttable, *, default_policy: str = "wr
     newest checkpoint (``restore_chain``), then re-apply every durable
     record after it through the step family the live run used (COMMIT: the
     recorded policy and gate; COMPACT: ``compact_step``; GROW:
-    ``grow_blocks``). The store path of a commit does not depend on the
-    cache, so replay against an empty cache reproduces the pre-crash store
-    byte for byte. ``upto_seq`` stops at a watermark: recovery from a live
-    outage replays only what the dead store had applied
-    (``journal.applied_seq``); the queued rest is ``drain_queued``'s.
-    Returns ``(pstore, last_seq, info)``.
+    ``grow_blocks``; MIGRATE: ``migrate_vertex_rows``). The store path of a
+    commit does not depend on the cache, so replay against an empty cache
+    reproduces the pre-crash store byte for byte. ``upto_seq`` stops at a
+    watermark: recovery from a live outage replays only what the dead store
+    had applied (``journal.applied_seq``); the queued rest is
+    ``drain_queued``'s. Returns ``(pstore, last_seq, info)``.
 
-    MIGRATE records wait for the migration tier: replay raises
-    ``NotImplementedError`` on one.
+    The routing table's trajectory comes with it: the restored placement is
+    read from the bytes (``infer_storage_exceptions``), each MIGRATE
+    advances it, and each COMMIT routes its appends through it. A runtime
+    with no table attached gets the rebuilt one (serving a migrated store
+    without it would route moved vertices to owners that lack their rows);
+    one that has a table keeps it (its cache overlay is not in the bytes).
     """
+    from repro_torch.distributed.routing import RoutingTableHost
+    from repro_torch.graphstore.migration import infer_storage_exceptions
+
     info = {"replayed_commits": 0, "replayed_compactions": 0, "replayed_growths": 0,
             "replayed_migrations": 0}
     pstore, last, _ = restore_chain(journal, rt)
     cache = rt.empty_cache()
+    exc = infer_storage_exceptions(rt.pspec, pstore)
+    rhost = RoutingTableHost(rt.n, cap=max(64, len(exc)), device=rt.device)
+    if exc:
+        rhost.apply_moves(sorted(exc.items()))
     for rec in journal.read_records(after_seq=last):
         if upto_seq is not None and rec.seq > upto_seq:
             break
-        pstore, _ = _apply_record(rt, ttable, pstore, cache, rec, default_policy, info, "replayed")
+        pstore, cache = _apply_record(rt, ttable, pstore, cache, rec, default_policy, info,
+                                      "replayed", rhost)
         last = rec.seq
     journal.epochs.advance(int(pstore.version))
+    if rhost.has_exceptions() and rt.rhost is None:
+        rt.attach_routing(rhost)
     return pstore, last, info
 
 
@@ -797,17 +829,16 @@ def drain_queued(journal: WriteBehindJournal, rt, ttable, pstore, cache):
     cache, so the write policy and the maintenance listener see them as
     commits that landed late, which they are. Advances
     ``journal.applied_seq`` record by record and clears the queued count.
-    Returns ``(pstore, cache, info)``; ``info`` adds ``drain_seconds``.
-    A MIGRATE record raises ``NotImplementedError``, as in ``replay``.
-    (The reference's ``rhost=`` routes drained appends through a migrated
-    placement and waits for the migration tier.)"""
+    The runtime's attached ``RoutingTableHost`` routes the drained appends
+    and takes the moves of drained MIGRATE records. Returns ``(pstore,
+    cache, info)``; ``info`` adds ``drain_seconds``."""
     t0 = time.perf_counter()
     journal.flush()
     info = {"drained_commits": 0, "drained_compactions": 0, "drained_growths": 0,
             "drained_migrations": 0}
     for rec in journal.read_records(after_seq=journal.applied_seq):
         pstore, cache = _apply_record(rt, ttable, pstore, cache, rec, "write-around", info,
-                                      "drained")
+                                      "drained", rt.rhost)
         with journal._lock:
             journal.applied_seq = max(journal.applied_seq, rec.seq)
     with journal._lock:

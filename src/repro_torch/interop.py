@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.cache import CacheSpec, CacheState
 from repro_torch.core.engine import EngineSpec, Hop, QueryPlan
 from repro_torch.core.templates import PredSpec, TemplateTable
+from repro_torch.distributed.routing import RoutingTable, RoutingTableHost
 from repro_torch.gnn.graph import GraphBatch
 from repro_torch.graphstore.partition import EdgeBlock, PartitionedGraphStore
 from repro_torch.graphstore.store import GraphStore, StoreSpec
@@ -68,6 +69,32 @@ def pstore_to_numpy(ps: PartitionedGraphStore) -> dict:
     blk = lambda b: {f: _numpy(getattr(b, f)) for f in EdgeBlock._fields}
     return {f: blk(getattr(ps, f)) if f in ("out", "inc") else _numpy(getattr(ps, f))
             for f in PartitionedGraphStore._fields}
+
+
+def rtable_from_numpy(d: dict, device=None) -> RoutingTable:
+    """A stamped routing table from the reference's fields (numpy arrays)."""
+    dev = resolve_device(device)
+    return RoutingTable(**{f: _tensor(d[f], dev) for f in RoutingTable._fields})
+
+
+def rtable_to_numpy(t: RoutingTable) -> dict:
+    return {f: _numpy(getattr(t, f)) for f in RoutingTable._fields}
+
+
+def rhost_state(rhost) -> dict:
+    """A ``RoutingTableHost``'s placement, of either package, as plain
+    values: owners ``n``, capacity ``cap``, ``epoch`` and the two exception
+    maps."""
+    return dict(n=int(rhost.n), cap=int(rhost.cap), epoch=int(rhost.epoch),
+                storage=dict(rhost.storage_exceptions), cache=dict(rhost.cache_exceptions))
+
+
+def rhost_from_state(state: dict, device=None) -> RoutingTableHost:
+    """The port's ``RoutingTableHost`` holding ``state`` (``rhost_state``)."""
+    h = RoutingTableHost(state["n"], cap=state["cap"], device=device)
+    h._storage, h._cache = dict(state["storage"]), dict(state["cache"])
+    h.epoch = int(state["epoch"])
+    return h
 
 
 def cache_from_numpy(d: dict, device=None) -> CacheState:

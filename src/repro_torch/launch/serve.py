@@ -39,16 +39,22 @@ The loop (``serve_loop``) runs the serving life-cycle:
   ``--recover-after`` batches after the crash the owner is rebuilt by
   replay and splice and the queued commits drain. A straggling owner's
   reads are hedged after ``--hedge-after`` seconds. The ``failover:`` line
-  and ``total`` report it.
+  and ``total`` report it;
+- hot-vertex migration (``--migrate``): a ``RoutingTableHost`` is attached
+  and a ``MigrationEngine`` (its tracker, the journal, the failure
+  detector) runs at each batch boundary: it observes the batch's roots and
+  may run one round on the owner-stage block's ``frontier_rows``, whose
+  spliced store and bumped table the loop installs together; while an
+  owner is down the round waits. The ``routing:`` line and ``total``
+  report it.
 
 ``main`` plugs in the reference's traffic: the ``config_plan_and_ttable``
 plan over a random graph, uniform (or ``--hot-frac`` hot) roots and eight
 upserts a commit, all from ``--seed``. Another caller plugs in its own
 batches and commits through ``serve_loop``.
 
-Not ported yet, each raising ``NotImplementedError`` (``ROADMAP.md``,
-queue 1): ``--store-tier replicated`` (it waits for the replicated tier)
-and ``--migrate`` (it waits for the migration tier).
+Not ported yet, raising ``NotImplementedError`` (``ROADMAP.md``, queue 1):
+``--store-tier replicated`` (it waits for the replicated tier).
 """
 
 from __future__ import annotations
@@ -67,7 +73,6 @@ import numpy as np
 # queue 1: flag -> (value that leaves it off, what it waits for)
 UNPORTED = {
     "store_tier": ("partitioned", "the replicated tier"),
-    "migrate": (False, "the migration tier"),
 }
 CP_DRAIN_K = 512  # misses each owner's queue drains after a batch
 
@@ -112,7 +117,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="periodic checkpoints snapshot the whole store (default: "
                          "incremental, the dirty owners only)")
     ap.add_argument("--migrate", action="store_true",
-                    help="run the hot-vertex migration loop (not ported yet)")
+                    help="attach the routing table and run the hot-vertex migration policy "
+                         "at batch boundaries")
     ap.add_argument("--hot-frac", type=float, default=0.0,
                     help="fraction of each batch's roots drawn from a hot set on one owner "
                          "(0 = uniform)")
@@ -157,12 +163,16 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
     its (direction, edge label) for CP. The journal (unless
     ``args.no_journal``) lives at ``args.journal_dir``. With
     ``args.inject_crash`` a ``FailoverController`` serves the batches and
-    commits (see the module docstring). Prints the reference's lines through
-    ``log``, closes ``telemetry`` and returns a ``ServeOutcome``."""
+    commits, and with ``args.migrate`` a ``MigrationEngine`` runs at each
+    batch boundary (see the module docstring). Prints the reference's lines
+    through ``log``, closes ``telemetry`` and returns a ``ServeOutcome``."""
     from repro_torch.distributed.failover import FailoverController
     from repro_torch.distributed.fault import HedgedCalls, NodeFailure, ShardFaultPlan
     from repro_torch.distributed.graph_serve import ShardedMissDrain
+    from repro_torch.distributed.routing import RoutingTableHost
     from repro_torch.graphstore import DeviceGate, MaintenancePolicy, WriteBehindJournal
+    from repro_torch.graphstore.migration import HotSetTracker, MigrationEngine
+    from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
     from repro_torch.obs.schema import LATENCY_CLASSES
 
     cache = rt.empty_cache()
@@ -196,6 +206,16 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
         log(f"chaos: shard {crash_shard} crashes at batch {crash_batch}, recovery after "
             f"{args.recover_after} degraded batches")
 
+    engine = None
+    if args.migrate:
+        # the table is an input of every step: attaching it, and each later
+        # epoch, changes no program
+        rhost = rt.attach_routing(RoutingTableHost(rt.n, device=rt.device))
+        engine = MigrationEngine(rt.pspec, rhost, tracker=HotSetTracker(), journal=journal,
+                                 detector=failover.detector if failover is not None else None)
+        log("routing: table attached (epoch 0), migration policy loop on")
+    FR = OWNER_STAGE_FIELDS.index("frontier_rows")
+
     total = dict(requests=0, hits=0, misses=0, route_overflow=0, deferred=0,
                  locality_routed=0, locality_retry_rows=0)
     avail = dict(unavailable_batches=0, degraded_batches=0, deferred_rows=0, queued_commits=0,
@@ -213,6 +233,8 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
             maint["growths"] += 1
             log(f"batch {b}: grew to e_blk_cap={rt.pspec.e_blk_cap}")
             grow_to = None
+            if engine is not None:
+                engine.pspec = rt.pspec
         plan, roots = next_batch(b)
         if failover is not None:
             failover.probe(b)
@@ -250,6 +272,14 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
                 f"{rinfo['replayed_commits']} commits to seq {rinfo['replayed_to_seq']}, "
                 f"drained {rinfo['drained_commits']} queued, "
                 f"{rinfo['recovery_seconds'] * 1e3:.0f} ms")
+        if engine is not None:
+            # the batch boundary: observe the roots' heat, maybe run one
+            # journal-first round, and install the spliced store with the
+            # bumped table (the moved vertices' old cache homes swept)
+            engine.observe(roots)
+            pstore, cache, moves = engine.step(pstore, rt.last_owner_stage[:, FR], cache=cache)
+            if moves:
+                log(f"batch {b}: migrated {moves} (table epoch -> {engine.rhost.epoch})")
         wm = None
         if args.write_every and (b + 1) % args.write_every == 0:
             mb = next_commit(b)
@@ -320,6 +350,19 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
             f"queued_commits_drained={avail['queued_commits']} "
             f"recovery_seconds={avail['recovery_seconds']} detections={fm['detections']} "
             f"recoveries={fm['recoveries']} hedge_rate={fm.get('hedge_rate', 0.0)}")
+    if engine is not None:
+        mm = engine.metrics()
+        total.update({k: mm[k] for k in ("migration_rounds", "migrated_vertices",
+                                         "migrated_rows", "migration_deferred_rounds",
+                                         "table_epoch")})
+        total["route_cap_retries"] = 0  # the "auto" caps are not ported
+        log(f"routing: migration_rounds={mm['migration_rounds']} "
+            f"migrated_vertices={mm['migrated_vertices']} migrated_rows={mm['migrated_rows']} "
+            f"deferred_rounds={mm['migration_deferred_rounds']} "
+            f"table_epoch={mm['table_epoch']} storage_exceptions={mm['storage_exceptions']} "
+            f"cache_exceptions={mm['cache_exceptions']} "
+            f"locality_routed={total['locality_routed']} "
+            f"locality_retry_rows={total['locality_retry_rows']} route_cap_retries=0")
     # the end-of-run report, after journal.stop so the final flush is counted
     report = telemetry.report()
 
@@ -368,28 +411,14 @@ def reference_world(args, device):
     return espec, plan, ttable, store, rng
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    from repro_torch.utils import resolve_device
-
-    dev = resolve_device(args.device)
-    from repro_torch.distributed import flat_mesh
-    from repro_torch.distributed.graph_serve import ShardedTxnRuntime
+def reference_traffic(args, espec, plan, rng, device):
+    """The reference serve loop's traffic, drawn from ``rng``: uniform roots
+    (with ``--hot-frac``, that share drawn Zipf(1.2) from 16 hot vertices of
+    owner 1) and eight random upserts a commit. Returns ``(next_batch,
+    next_commit)`` for ``serve_loop``."""
     from repro_torch.graphstore import make_mutation_batch
-    from repro_torch.obs.telemetry import ServeTelemetry
 
-    espec, plan, ttable, store, rng = reference_world(args, dev)
     V = args.vertices
-    # the owner-stage block rides the runtime's one metrics all-reduce; the
-    # tracer times the host phases; JSONL only under --trace
-    telemetry = ServeTelemetry(args.shards, trace_path=args.trace)
-    rt = ShardedTxnRuntime(espec, flat_mesh(args.shards), device=dev, tracer=telemetry.tracer)
-    pstore = rt.partition_store(store, elastic=True)
-    rep = rt.store_bytes(pstore)
-    print(f"store tier: {rep['per_shard_bytes'] / 2**20:.2f} MiB/shard partitioned vs "
-          f"{rep['replicated_per_shard_bytes'] / 2**20:.2f} MiB/shard replicated "
-          f"(ratio {rep['ratio']:.3f}, ideal 1/n = {rep['ideal_ratio']:.3f})")
-    tpl_meta = {0: (plan.hops[0].direction, plan.hops[0].edge_label)}
     # hot roots all land on one owner under the modulo layout
     hot = (np.array([v for v in range(V) if v % args.shards == 1][:16], np.int64)
            if args.hot_frac > 0 else None)
@@ -406,8 +435,32 @@ def main(argv=None):
         # a small upsert burst that lands in the blocks' recent regions
         ne = [(int(rng.integers(0, V)), int(rng.integers(0, V)), 0, [int(rng.integers(0, 2))])
               for _ in range(8)]
-        return make_mutation_batch(espec.store, new_edges=ne, device=dev)
+        return make_mutation_batch(espec.store, new_edges=ne, device=device)
 
+    return next_batch, next_commit
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from repro_torch.utils import resolve_device
+
+    dev = resolve_device(args.device)
+    from repro_torch.distributed import flat_mesh
+    from repro_torch.distributed.graph_serve import ShardedTxnRuntime
+    from repro_torch.obs.telemetry import ServeTelemetry
+
+    espec, plan, ttable, store, rng = reference_world(args, dev)
+    # the owner-stage block rides the runtime's one metrics all-reduce; the
+    # tracer times the host phases; JSONL only under --trace
+    telemetry = ServeTelemetry(args.shards, trace_path=args.trace)
+    rt = ShardedTxnRuntime(espec, flat_mesh(args.shards), device=dev, tracer=telemetry.tracer)
+    pstore = rt.partition_store(store, elastic=True)
+    rep = rt.store_bytes(pstore)
+    print(f"store tier: {rep['per_shard_bytes'] / 2**20:.2f} MiB/shard partitioned vs "
+          f"{rep['replicated_per_shard_bytes'] / 2**20:.2f} MiB/shard replicated "
+          f"(ratio {rep['ratio']:.3f}, ideal 1/n = {rep['ideal_ratio']:.3f})")
+    tpl_meta = {0: (plan.hops[0].direction, plan.hops[0].edge_label)}
+    next_batch, next_commit = reference_traffic(args, espec, plan, rng, dev)
     tmp = None
     if not args.no_journal and args.journal_dir is None:
         tmp = tempfile.mkdtemp(prefix="serve-journal-")

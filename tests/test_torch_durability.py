@@ -11,8 +11,9 @@ objects, torn bytes at the log's tail) ``replay`` rebuilds the partitioned
 store byte for byte, through COMMIT, COMPACT and GROW records, and the gR
 batches after it equal the uninterrupted run's (results, misses, metrics);
 the first incremental checkpoint after it falls back to full. Also: an incremental chain restores to the same bytes as
-a full checkpoint of the same store, a MIGRATE record stops replay with
-``NotImplementedError``, and recovery without a checkpoint raises.
+a full checkpoint of the same store, a MIGRATE record after it replays
+through the migration splice (and attaches the placement it rebuilds),
+and recovery without a checkpoint raises.
 """
 
 import numpy as np
@@ -162,8 +163,8 @@ def test_crash_replay_is_byte_identical(dw, n, tmp_path):
 
 def test_incremental_chain_restores_the_full_bytes(dw, tmp_path):
     """full -> incremental -> incremental restores the same bytes as a full
-    checkpoint of the same store; a MIGRATE record stops replay; recovery
-    needs a checkpoint."""
+    checkpoint of the same store; a MIGRATE record replays through the
+    migration splice; recovery needs a checkpoint."""
     rt = _runtime(dw, 4)
     ps = rt.partition_store(dw["store"])
     cache = rt.empty_cache()
@@ -184,5 +185,11 @@ def test_incremental_chain_restores_the_full_bytes(dw, tmp_path):
     tree_equal(interop.pstore_to_numpy(got), interop.pstore_to_numpy(ps), "chain")
     j.append_migrate([(5, 2)], epoch=1)
     j.flush()
-    with pytest.raises(NotImplementedError, match="waits for the migration tier"):
-        replay(j, rt, dw["ttable"])
+    from repro_torch.graphstore.migration import migrate_vertex_rows
+
+    rt2 = _runtime(dw, 4)
+    got, last, info = replay(j, rt2, dw["ttable"])
+    assert info["replayed_migrations"] == 1 and last == 3
+    tree_equal(interop.pstore_to_numpy(got),
+               interop.pstore_to_numpy(migrate_vertex_rows(rt.pspec, ps, [(5, 2)])), "migrate")
+    assert rt2.rhost.storage_exceptions == {5: 2}

@@ -24,6 +24,12 @@
   packages, and the batch after it equals a runtime that never hedged.
 - **Healthy batch**: one whose down mask names no owner has the kernel
   calls, host reads and collectives of one with no mask.
+- **Failover with migration**: an owner lost after a migration round on
+  four shards: its moved-away vertices serve, the next round waits,
+  queued commits route through the table attached after the controller
+  was built, recovery (replaying a commit before the round and the
+  MIGRATE record) equals a control with no fault, and a whole replay on
+  the live runtime equals the live store.
 """
 
 import json
@@ -51,7 +57,7 @@ import repro_torch.distributed.fault as TF
 from repro_torch import interop
 from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_mesh
 from repro_torch.distributed.failover import FailoverController
-from repro_torch.graphstore import WriteBehindJournal, make_mutation_batch
+from repro_torch.graphstore import WriteBehindJournal, make_mutation_batch, replay
 from repro_torch.graphstore.partition import splice_owner_blocks
 from repro_torch.kernels.block_gather import ops as bg_ops
 from test_torch_partitioned_grw import tree_equal
@@ -531,6 +537,84 @@ def test_four_shard_crash_against_a_control_and_the_single_host(big, plan_name, 
         d.push(got[2])
         d_c.push(want[1])
         cache, cache_c = d.drain(ps, ps, cache, ttable), d_c.drain(ps_c, ps_c, cache_c, ttable)
+
+
+# ----------------------------------------------------- failover and migration
+def test_failover_composes_with_migration(big, tmp_path):
+    """Owner 1 crashes on a store whose vertices 9 and 13 (native to owner
+    1) migrated away before it: their misses serve from owners 2 and 3
+    while owner 1's other misses defer; a migration round waits while the
+    owner is down; a queued commit marks its new edges' table owners
+    dirty, though the controller was built before the table was attached
+    (the serve loop's order); recovery replays a commit of the moved
+    vertices and the MIGRATE record after it from the pre-migration
+    checkpoint, splices, and drains the queued commit through the table,
+    and the store and later batches equal a control that took the same
+    commits and round with no fault. A whole replay of the journal on the
+    live runtime, whose table holds the moves, equals the live store byte
+    for byte: the commit before the round routes through the table of its
+    point in the log."""
+    from repro_torch.distributed.routing import RoutingTableHost
+    from repro_torch.graphstore.migration import MigrationEngine, infer_storage_exceptions
+
+    plan = interop.plan_from_numpy(to_np(fig1_plan()))
+    roots = np.arange(8, 32, dtype=np.int32)
+    espec, ttable = big["tespec"], big["tttable"]
+    mk = lambda: ShardedTxnRuntime(espec, flat_mesh(4), route_cap_factor=None, device="cpu")
+    rt, rt_c = mk(), mk()
+    ps = ps_c = rt.partition_store(big["tstore"])
+    cache, cache_c = rt.empty_cache(), rt_c.empty_cache()
+    j = WriteBehindJournal(str(tmp_path / "j"), 4)
+    j.checkpoint(ps, e_blk_cap=rt.pspec.e_blk_cap, recent_blk_cap=rt.pspec.recent_blk_cap,
+                 store_version=int(ps.version))
+    ctl = FailoverController(rt, j, ttable, plan=TF.ShardFaultPlan(crash={1: 1}),
+                             detector=TF.FailureDetector(n=4, fail_threshold=1))
+    hosts = [r.attach_routing(RoutingTableHost(4, device="cpu")) for r in (rt, rt_c)]
+    eng = MigrationEngine(rt.pspec, hosts[0], journal=j, detector=ctl.detector)
+    # a commit of the vertices about to move, between the checkpoint and
+    # the round: it appends at their native owner
+    mb0 = make_mutation_batch(big["tspec"], new_edges=[(9, 21, 0, [1]), (13, 9, 0, [1])],
+                              device="cpu")
+    ps, cache, w0 = ctl.run_grw(ps, cache, mb0)
+    assert w0["queued"] == 0
+    ps_c, cache_c, _ = rt_c.run_grw_tx(ps_c, cache_c, ttable, mb0)
+    moves = [(9, 2), (13, 3)]
+    ps, cache, _ = eng.apply(ps, moves, cache=cache)
+    ps_c, cache_c, _ = MigrationEngine(rt.pspec, hosts[1]).apply(ps_c, moves, cache=cache_c)
+    j.flush()  # the flusher's work: recovery replays durable records only
+    ctl.probe(1)  # detected at once: batch 1 serves degraded
+    res, deferred, misses, m = ctl.run_gr(ps, cache, plan, roots, 1)
+    want = rt_c.run_gr_tx_batch(ps_c, cache_c, ttable, plan, roots, return_deferred=True)
+    lost = [r % 4 == 1 and r not in (9, 13) for r in roots]
+    assert deferred.tolist() == lost and m["deferred_rows"] == sum(lost)
+    np.testing.assert_array_equal(res[~deferred], want[0][~deferred])
+    assert sorted(x.root for x in misses if x.root % 4 == 1) == [9, 13]
+    # the round waits for the recovery
+    eng.observe([9] * 40)
+    ps_w, cache_w, mv = eng.step(ps, [0, 40, 0, 0], cache=cache)
+    assert mv == [] and ps_w is ps and eng.deferred_rounds == 1
+    mb = make_mutation_batch(big["tspec"], new_edges=[(1, 9, 0, [1]), (9, 20, 0, [1])],
+                             device="cpu")
+    j._dirty_owners.clear()
+    ps, cache, w = ctl.run_grw(ps, cache, mb)
+    assert w["queued"] == 1 and j._dirty_owners == {1, 0, 2}  # 9 -> its table owner 2
+    ps_c, cache_c, _ = rt_c.run_grw_tx(ps_c, cache_c, ttable, mb)
+    ps, cache, info = ctl.recover(ps, cache, 1)
+    assert info["replayed_migrations"] == 1 and info["drained_commits"] == 1
+    assert info["replayed_commits"] == 1
+    tree_equal(interop.pstore_to_numpy(ps), interop.pstore_to_numpy(ps_c))
+    assert infer_storage_exceptions(rt.pspec, ps) == hosts[0].storage_exceptions == dict(moves)
+    ps_r, _, rinfo = replay(j, rt, ttable)
+    assert (rinfo["replayed_commits"], rinfo["replayed_migrations"]) == (2, 1)
+    tree_equal(interop.pstore_to_numpy(ps_r), interop.pstore_to_numpy(ps))
+    assert rt.rhost is hosts[0]
+    ctl.probe(2)
+    got = ctl.run_gr(ps, cache, plan, roots, 2)
+    want = rt_c.run_gr_tx_batch(ps_c, cache_c, ttable, plan, roots, return_deferred=True)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert not got[1].any() and miss_key(got[2]) == miss_key(want[1])
+    assert {k: v for k, v in got[3].items() if k in want[2] and k != "host_syncs"} == \
+        {k: v for k, v in want[2].items() if k != "host_syncs"}
 
 
 # ----------------------------------------------------------------------- hedge

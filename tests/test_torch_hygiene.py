@@ -5,8 +5,9 @@
 - The entry points default to CUDA and raise when it is absent, instead of
   falling back to the CPU.
 - The serve loop's flags of slices not ported yet raise
-  ``NotImplementedError``; the failover flags parse to the reference's
-  defaults, and a crash without the journal is an error, as there.
+  ``NotImplementedError``, also beside a ported one; the failover and
+  migration flags parse to the reference's defaults, and a crash without
+  the journal is an error, as there.
 """
 
 import ast
@@ -38,11 +39,21 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", ["graphstore/migration.py", "distributed/routing.py",
+                                    "distributed/failover.py", "launch/serve.py"])
+def test_the_partitioned_tiers_twins_are_checked(module):
+    """The twins of the partitioned tier's reference modules are among the
+    files the import check walks (the migration tier since slice 12)."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES and (ROOT / "src" / "repro" / module).exists()
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.core import CacheSpec, EngineSpec, GraphEngine, QueryPlan, empty_cache
     from repro_torch.core.engine import build_grw_step
     from repro_torch.core.population import CachePopulator
     from repro_torch.distributed import ShardedTxnRuntime, flat_mesh
+    from repro_torch.distributed.routing import RoutingTableHost
     from repro_torch.gnn import CachedNeighborSampler, CSRGraph, FanoutSampler
     from repro_torch.gnn.config import GNNConfig
     from repro_torch.gnn.graph import random_graph_batch
@@ -67,9 +78,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         # durability: a replayed commit and a restored checkpoint land on CUDA
         lambda: decode_commit(encode_commit(make_mutation_batch(spec, device="cpu"))),
         lambda: restore_checkpoint("unused", 0, None),
-        # the serve loop, with no flags, and the failover tier under it
+        # the serve loop, with no flags, and the failover and migration
+        # tiers under it
         lambda: serve.main([]),
         lambda: serve.main(["--inject-crash", "1:3", "--recover-after", "2"]),
+        lambda: serve.main(["--migrate", "--hot-frac", "0.5"]),
+        lambda: RoutingTableHost(4),
     ]
     # the GNN serving path's entry points, each run on the CPU when asked
     cfg = GNNConfig(name="t", kind="pna", n_layers=1, d_hidden=4, d_in=3, n_classes=2)
@@ -108,16 +122,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
         assert call(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("flags", [["--store-tier", "replicated"], ["--migrate"]],
+@pytest.mark.parametrize("flags", [["--store-tier", "replicated"],
+                                   ["--migrate", "--store-tier", "replicated"]],
                          ids=lambda f: f[0])
 def test_unported_serve_flags_raise(flags):
     """The serve loop's flags of slices not ported yet raise, naming what
-    they wait for in ROADMAP.md queue 1, before anything is built."""
+    they wait for in ROADMAP.md queue 1, before anything is built; a ported
+    flag beside one (``--migrate``, ported in slice 12) does not hide it."""
     from repro_torch.launch import serve
 
     with pytest.raises(NotImplementedError,
-                       match=r"waits for the (replicated|migration) tier \(ROADMAP.md queue 1\)"):
+                       match=r"waits for the replicated tier \(ROADMAP.md queue 1\)"):
         serve.main(flags + ["--device", "cpu"])
+
+
+def test_migration_serve_flags_parse_as_the_reference():
+    """``--migrate`` and ``--hot-frac`` are ported: they parse to the
+    reference's values (defaults off and 0.0), and ``--migrate`` is no
+    longer among the unported flags."""
+    from repro_torch.launch import serve
+
+    assert "migrate" not in serve.UNPORTED
+    args = serve.parse_args([])
+    assert (args.migrate, args.hot_frac) == (False, 0.0)
+    args = serve.parse_args(["--migrate", "--hot-frac", "0.5"])
+    assert (args.migrate, args.hot_frac) == (True, 0.5)
 
 
 @pytest.mark.parametrize("flags", [["--inject-crash", "1:3"], ["--recover-after", "2"],

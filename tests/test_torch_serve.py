@@ -10,8 +10,15 @@
   the CPU) return the same ``total`` and report the same counters (but
   ``host_syncs``), owner-stage matrix, hit locality, latency-class counts
   and span counts (but ``journal_flush``, whose count depends on timing),
-  in three flag sets, one of them a crash of owner 1 with its recovery
-  (the ``failover:`` line's counts equal too).
+  in four flag sets, one of them a crash of owner 1 with its recovery
+  (the ``failover:`` line's counts equal too), one hot-vertex migration
+  with half the roots on a hot set of owner 1 (the ``routing:`` line and
+  the moves of every round equal too).
+- **A crash under migration**: ``--inject-crash 1:3 --migrate --hot-frac
+  0.5``, commits that touch the hot vertices: the commit queued while
+  owner 1 is down marks its new edges' table owners dirty (the table is
+  attached after the failover controller is built), and ``replay`` of the
+  journal, through its incremental checkpoints, equals the live store.
 - **Growth through the loop**: blocks small enough that a commit crosses
   the 0.85 occupancy high-water grow at the next batch boundary with a
   GROW record after that commit's; every read equals a run that never
@@ -49,6 +56,8 @@ CASES = {
     # owner 1 crashes at batch 3: batch 3 is unavailable, batches 4 and 5
     # serve degraded, recovery runs after batch 5's reads
     "crash_recover": BASE + ["--inject-crash", "1:3", "--recover-after", "2"],
+    # a round after every batch: 6 rounds moving owner 1's hot vertices
+    "migrate_hot": BASE + ["--migrate", "--hot-frac", "0.5"],
 }
 # the failover line's counts, beside the total's
 FAILOVER_KEYS = ("unavailable_batches", "degraded_batches", "deferred_rows",
@@ -187,6 +196,11 @@ def _summary(stdout):
                                    .split())}
 
 
+def _routing_lines(stdout):
+    """The ``routing:`` line and each round's ``migrated`` line."""
+    return [l for l in stdout.splitlines() if l.startswith("routing: ") or " migrated " in l]
+
+
 def _failover_line(stdout):
     """The failover line's counts (its seconds left out), or None."""
     line = next((l for l in stdout.splitlines() if l.startswith("failover: ")), None)
@@ -209,6 +223,9 @@ def test_serve_loop_matches_the_reference(case, reference_runs, tmp_path, capsys
     assert total == ref_total
     assert _summary(out) == _summary(ref_out)
     assert _failover_line(out) == _failover_line(ref_out)
+    assert _routing_lines(out) == _routing_lines(ref_out)
+    if case == "migrate_hot":
+        assert total["migration_rounds"] >= 1 and total["locality_routed"] > 0
     if case == "crash_recover":
         assert total["unavailable_batches"] == 1 and total["recoveries"] == 1
         assert total["deferred_rows"] == total["deferred"] > 0
@@ -287,6 +304,56 @@ def test_growth_at_the_next_batch_boundary_replays_and_reads_alike(world, tmp_pa
     ps2, _, info = replay(j, rt2, ttable)
     assert info["replayed_growths"] == 1 and info["replayed_commits"] == 8
     assert rt2.pspec == rt.pspec
+    for a, b in zip(tree_leaves(ps2), tree_leaves(out.pstore), strict=True):
+        assert torch.equal(a, b)
+
+
+def test_a_crash_under_migration_marks_table_owners_and_replays_alike(world, tmp_path,
+                                                                     monkeypatch):
+    args = serve.parse_args(BASE + ["--inject-crash", "1:3", "--recover-after", "2", "--migrate",
+                                    "--hot-frac", "0.5", "--write-every", "1", "--batches", "8",
+                                    "--device", "cpu", "--journal-dir", str(tmp_path / "j")])
+    espec, plan, ttable, store, rng = serve.reference_world(args, "cpu")
+    rt = ShardedTxnRuntime(espec, flat_mesh(4), device="cpu")
+    ps = rt.partition_store(store, elastic=True)
+    next_batch, _ = serve.reference_traffic(args, espec, plan, rng, "cpu")
+    hot = [v for v in range(args.vertices) if v % 4 == 1][:4]
+    from repro_torch.graphstore import make_mutation_batch
+
+    def next_commit(b):
+        # edges among the hottest vertices, which the rounds move away
+        ne = [(hot[0], hot[1], 0, [1]), (hot[2], hot[3], 0, [0]), (hot[1], hot[2], 0, [1])]
+        return make_mutation_batch(espec.store, new_edges=ne, device="cpu")
+
+    # the owners each commit marks dirty, beside its new edges' table owners
+    marked = []
+    inner = WriteBehindJournal.append_commit
+
+    def recorded(self, batch, **kw):
+        before = set(self._dirty_owners)
+        self._dirty_owners.clear()
+        seq = inner(self, batch, **kw)
+        ends = np.concatenate([batch.ne_src[:int(batch.ne_n)].cpu().numpy(),
+                               batch.ne_dst[:int(batch.ne_n)].cpu().numpy()])
+        marked.append((kw.get("applied", True), set(self._dirty_owners),
+                       {int(o) for o in rt.rhost.storage_owner(ends)},
+                       {int(o) for o in base_owner(ends, 4)}))
+        self._dirty_owners |= before
+        return seq
+
+    monkeypatch.setattr(WriteBehindJournal, "append_commit", recorded)
+    out = serve.serve_loop(args, rt, ps, ttable, _tpl_meta(plan), next_batch, next_commit,
+                           ServeTelemetry(4), log=lambda _: None)
+    assert out.total["recoveries"] == 1 and out.total["migration_rounds"] >= 1
+    queued = [m for m in marked if not m[0]]
+    assert queued and any(want != base for _, _, want, base in queued)
+    for _, got, want, _ in marked:
+        assert want <= got, (got, want)
+    monkeypatch.undo()
+    j = WriteBehindJournal(args.journal_dir, 4)
+    # the newest checkpoint is incremental and follows the drained commit
+    assert j.latest_checkpoint()[1]["kind"] == "incremental"
+    ps2, _, info = replay(j, ShardedTxnRuntime(espec, flat_mesh(4), device="cpu"), ttable)
     for a, b in zip(tree_leaves(ps2), tree_leaves(out.pstore), strict=True):
         assert torch.equal(a, b)
 
