@@ -179,7 +179,20 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    --migrate --hot-frac 0.5`` on the card reporting a round. Prints each
    round's moves and splice ms, the table epoch, the retry and CP-split
    counts, owner 1's share of frontier rows and the gR step p50 before and
-   after the rounds, and ``block_gather`` timed at a post-migration call.
+   after the rounds, and ``block_gather`` timed at a post-migration call;
+15. the replicated store tier, right after 14 on phase 7's stores: a ``ShardedTxnRuntime(store_tier="replicated")``
+   over the single-host store serves 12 batches of 512 Zipf(1.3) roots of
+   the six read plans, each followed by a CP drain of 512 misses an owner,
+   beside phase 4's engine with the same cache history (results, and while
+   no cache evicted metrics and miss multisets, equal), then 8 W-hat
+   commits a policy beside the single host's (store field for field,
+   entries with their leaf order, ``impacted_keys``); the partitioned
+   runtime serves the same batches (results equal the replicated tier's);
+   then ``python -m repro_torch.launch.serve --store-tier replicated`` on
+   the card. Every kernel call of the phase is held to its plain version.
+   Prints the gR step p50 of both tiers, the replicated gRW p50 a policy, a
+   rank's replica bytes beside a partitioned shard's, the serve loop's
+   total and the phase's seconds and peak memory.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -188,7 +201,7 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
-Phase 11 runs right after 7, on its store, then 12, 13 and 14, before 9.
+Phase 11 runs right after 7, on its store, then 12, 13, 14 and 15, before 9.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -2958,6 +2971,245 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
     return report
 
 
+# Phase 15: the replicated store tier on the phase-7 stores (one chip's share of ecommerce_graph FULL: v_cap 2^22, e_cap
+# 2^25, max_deg 64, the cache in 4 blocks of 2^16, 4 owner ranks).
+R_BATCHES = 12  # gR batches of BATCH Zipf(1.3) roots, the six read plans twice
+R_CP_PER_OWNER = 512  # each owner's CP drain after a batch
+R_GRW_COMMITS = 8  # W-hat gRW-Txs of each policy on the replicated tier
+
+
+def run_replicated(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
+    """Phase 15. (a) ``ShardedTxnRuntime(store_tier="replicated")`` over the
+    single-host store ``hstore``, cold: R_BATCHES batches, each followed by
+    a CP drain of R_CP_PER_OWNER misses an owner, beside phase 4's
+    single-host engine on the same store with the same cache history (its
+    populators drain the same misses an owner, pushed in key order on both
+    sides). Each batch's results must equal, and while neither cache
+    evicted its metrics (but the sharded-only keys and ``host_syncs``) and
+    miss multisets too. Then R_GRW_COMMITS W-hat commits a policy through
+    ``run_grw_tx`` on the replicated tier beside the single host's: the
+    store equal field for field after every commit, the cache entries
+    equal with their leaf order, ``impacted_keys`` equal. (b) The
+    partitioned runtime over ``pstore``, with its own cache and the same
+    drains: the same batches must give the replicated tier's results; its
+    step is the one the replicated baseline is held against. (c) ``python
+    -m repro_torch.launch.serve --store-tier replicated`` at its defaults
+    must exit 0 with the reference's lines. The replicated runtime is the
+    phase's main path (its misses run the full-store exec, so it launches
+    no ``block_gather``); the single host and the partitioned runtime are
+    its controls, their launches left out of the counts. Every kernel call of the phase, the controls'
+    too, is held to its plain version. Returns the phase's report."""
+    import contextlib
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.core import CachePopulator, GraphEngine, empty_cache, run_grw_tx
+    from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, base_owner, flat_mesh
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 81)
+    plan_cycle = [(name, p, label) for name, p, label, _ in plans]
+    mkey = lambda m: miss_key([m])
+    # rt_r: the replicated tier; rt_d: the partitioned one (a control)
+    rt_r = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), store_tier="replicated", device=dev)
+    rt_d = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev)
+    engines = {name: GraphEngine(espec, p, use_cache=True, device=dev)
+               for name, p, _ in plan_cycle}
+    hcache = empty_cache(espec.cache, device=dev)
+    hpops = [CachePopulator(espec, meta, device=dev) for _ in range(N_OWNERS)]
+    caches = {k: rt.empty_cache() for k, rt in (("r", rt_r), ("d", rt_d))}
+    drains = {k: ShardedMissDrain(rt, meta) for k, rt in (("r", rt_r), ("d", rt_d))}
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    checked = {"cache_probe": 0, "block_gather": 0}
+
+    @contextlib.contextmanager
+    def uncounted():
+        # a control's launches stay out of the main path's counts (its
+        # calls are still kept and checked)
+        saved = cp_ops.launches, bg_ops.launches
+        try:
+            yield
+        finally:
+            cp_ops.launches, bg_ops.launches = saved
+
+    def check_calls(where):
+        # the checks' own calls are neither kept nor counted
+        capture.__exit__(None, None, None)
+        with uncounted():
+            if capture.calls["cache_probe"]:
+                check_probe_calls(capture.calls["cache_probe"], where)
+            for a, kw in capture.calls["block_gather"]:
+                got, want = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+                for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+                    assert torch.equal(g, w), f"block_gather {name} disagrees with its plain " \
+                        f"version ({where})"
+            for k in checked:
+                checked[k] += len(capture.calls[k])
+                capture.calls[k].clear()
+        capture.__enter__()
+
+    def no_evict(*cs):
+        return all(int(c.n_evict) == 0 for c in cs)
+
+    def strip(m):
+        return {k: v for k, v in m.items() if k not in SHARDED_ONLY}
+
+    def drain_single(misses):
+        # the single host's CP, per owner as the runtime's: the same
+        # misses in the same order reach the same owner's queue
+        nonlocal hcache
+        for mrec in sorted(misses, key=mkey):
+            hpops[int(base_owner(mrec.root, N_OWNERS))].queue.push([mrec])
+        for pop in hpops:
+            hcache = pop.drain(hstore, hstore, hcache, ttable, R_CP_PER_OWNER)
+
+    step_ms = {"replicated": [], "partitioned": []}
+    batches, equal_metrics = [], 0
+    torch.cuda.synchronize()
+    cp_ops.launches = bg_ops.launches = 0
+    capture.__enter__()
+    # (a) the replicated tier against the single host
+    for b in range(R_BATCHES):
+        name, plan, label = plan_cycle[b % len(plan_cycle)]
+        roots = zipf_pick(rng, *ranges[label], BATCH)
+        res, misses, m = rt_r.run_gr_tx_batch(hstore, caches["r"], ttable, plan, roots)
+        batches.append((name, plan, roots, res))
+        step_ms["replicated"].append(rt_r.last_step_seconds * 1e3)
+        with uncounted():
+            rh, mh, meth = engines[name].run(hstore, hcache, ttable, roots)
+        assert np.array_equal(res, rh), f"phase 15 replicated batch {b} ({name}): result differs"
+        assert m["route_overflow"] == 0, f"phase 15 replicated batch {b}: route_overflow"
+        if no_evict(hcache, caches["r"]):
+            meth.pop("host_syncs")
+            assert strip(m) == meth, f"phase 15 replicated batch {b}: metrics {m} != {meth}"
+            assert miss_key(misses) == miss_key(mh), f"phase 15 replicated batch {b}: misses"
+            equal_metrics += 1
+        drains["r"].push(sorted(misses, key=mkey))
+        caches["r"] = drains["r"].drain(hstore, hstore, caches["r"], ttable, R_CP_PER_OWNER)
+        with uncounted():
+            drain_single(mh)
+        check_calls(f"phase 15 replicated batch {b}")
+    assert (drains["r"].committed, drains["r"].aborted) == (
+        sum(p.committed for p in hpops), sum(p.aborted for p in hpops)), "phase 15: CP outcomes"
+    entries_equal = None
+    if no_evict(hcache, caches["r"]):
+        entries_equal = entries_equal_on_card(espec, hcache, caches["r"])
+        assert entries_equal, "phase 15: replicated cache entries differ from the single host's"
+
+    # the replicated commits beside the single host's
+    kinds, wweights = zip(*WRITE_MIX)
+    wweights = np.array(wweights) / sum(wweights)
+    hot = torch.as_tensor(includes, device=dev)
+    hot = hot[hstore.esrc[hot] < ranges[L_WATCHLIST][0] + P_HOT_WATCHLISTS].cpu().numpy()
+
+    def write_batch():
+        while True:
+            mb = make_write(rng, espec, ranges, hot,
+                            kinds[int(rng.choice(len(kinds), p=wweights))], dev)
+            if mb is not None:
+                return mb
+
+    rs, rc, hs, hc = hstore, caches["r"], hstore, hcache
+    grw_ms, grw_equal, impacted = {}, {}, {}
+    for policy in ("write-around", "write-through"):
+        grw_ms[policy], grw_equal[policy], impacted[policy] = [], 0, 0
+        for i in range(R_GRW_COMMITS):
+            mb = write_batch()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rs, rc, mr = rt_r.run_grw_tx(rs, rc, ttable, mb, policy)
+            grw_ms[policy].append((time.perf_counter() - t) * 1e3)
+            with uncounted():
+                hs, hc, mh = run_grw_tx(espec, hs, hc, ttable, mb, policy, device=dev)
+            assert mr["impacted_keys"] == mh["impacted_keys"], \
+                f"phase 15 {policy} commit {i}: impacted {mr} != {mh}"
+            assert mr["op_overflow"] == mh["op_overflow"] == 0, f"phase 15 {policy} commit {i}"
+            for f in hs._fields:
+                assert torch.equal(getattr(rs, f), getattr(hs, f)), \
+                    f"phase 15 {policy} commit {i}: store field {f} differs"
+            if no_evict(rc, hc):
+                assert entries_equal_on_card(espec, hc, rc), \
+                    f"phase 15 {policy} commit {i}: cache entries differ"
+                grw_equal[policy] += 1
+            impacted[policy] += mr["impacted_keys"]
+            check_calls(f"phase 15 {policy} commit {i}")
+    del rs, rc, hs, hc
+
+    # (b) the partitioned tier on the same batches, the step the replicated
+    # baseline is held against
+    for b, (name, plan, roots, res) in enumerate(batches):
+        with uncounted():
+            rd, md, _ = rt_d.run_gr_tx_batch(pstore, caches["d"], ttable, plan, roots)
+            step_ms["partitioned"].append(rt_d.last_step_seconds * 1e3)
+            assert np.array_equal(rd, res), \
+                f"phase 15 partitioned batch {b} ({name}): result differs from the replicated tier's"
+            drains["d"].push(sorted(md, key=mkey))
+            caches["d"] = drains["d"].drain(pstore, pstore, caches["d"], ttable, R_CP_PER_OWNER)
+        check_calls(f"phase 15 partitioned batch {b}")
+    torch.cuda.synchronize()
+    capture.__exit__(None, None, None)
+    launches = {"block_gather": bg_ops.launches, "cache_probe": cp_ops.launches}
+    assert launches["cache_probe"] > 0 and launches["block_gather"] == 0, \
+        f"phase 15: the replicated tier's launches {launches}"
+    assert min(checked.values()) > 0, f"phase 15 checked no call of a kernel: {checked}"
+    rep = rt_d.store_bytes(pstore)
+
+    # (c) the serve loop on the replicated tier, on the card
+    t = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                   "src"))
+    code = ("import json, sys; from repro_torch.launch.serve import main; "
+            "print(json.dumps(main(sys.argv[1:])))")
+    proc = subprocess.run([sys.executable, "-c", code, "--store-tier", "replicated"],
+                          capture_output=True, text=True, env=env, timeout=300)
+    serve_s = time.perf_counter() - t
+    assert proc.returncode == 0, f"phase 15 serve loop failed: {proc.stderr[-3000:]}"
+    lines = proc.stdout.splitlines()
+    summary = next(l for l in lines if " gR-Txs on " in l)
+    assert "[replicated]" in summary and "route_overflow=0" in summary, summary
+    for head in ("store tier:", "journal:", "maintenance:", "durability:"):
+        assert not any(l.startswith(head) for l in lines), f"phase 15 serve loop printed {head}"
+    assert sum(l.startswith("latency[") for l in lines) == 4 and any(
+        l.startswith("hit_locality per shard:") for l in lines), proc.stdout[-2000:]
+    serve_total = json.loads(lines[-1])
+
+    card = card_line()
+    p50 = {k: pct(v, 50) for k, v in step_ms.items()}
+    report = dict(
+        batches=R_BATCHES, batch=BATCH, cp_per_owner=R_CP_PER_OWNER, step_p50_ms=p50,
+        step_ms=step_ms, batches_metrics_equal=equal_metrics, entries_equal=entries_equal,
+        cp=dict(committed=drains["r"].committed, aborted=drains["r"].aborted),
+        n_evict=dict(single=int(hcache.n_evict), replicated=int(caches["r"].n_evict)),
+        grw_commits=R_GRW_COMMITS, grw_p50_ms={k: pct(v, 50) for k, v in grw_ms.items()},
+        grw_ms=grw_ms, grw_entries_equal=grw_equal, grw_impacted=impacted,
+        per_shard_bytes=rep["per_shard_bytes"],
+        replicated_per_shard_bytes=rep["replicated_per_shard_bytes"], bytes_ratio=rep["ratio"],
+        launches=launches, kernel_calls_checked=checked,
+        serve_subprocess=dict(seconds=serve_s, summary=summary, total=serve_total),
+        seconds=time.perf_counter() - t_phase,
+        peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("replicated report: " + json.dumps(report), flush=True)
+    print(f"replicated: gR step p50 replicated {p50['replicated']:.3f} ms, partitioned "
+          f"{p50['partitioned']:.3f} ms (n={R_BATCHES} each); replicated gRW p50 "
+          f"write-around {report['grw_p50_ms']['write-around']:.3f} ms, write-through "
+          f"{report['grw_p50_ms']['write-through']:.3f} ms (n={R_GRW_COMMITS} each); a rank's "
+          f"replica {rep['replicated_per_shard_bytes'] / 2**20:.1f} MiB against "
+          f"{rep['per_shard_bytes'] / 2**20:.1f} MiB a partitioned shard | {card}", flush=True)
+    print(f"replicated serve loop --store-tier replicated ({serve_s:.1f} s): {summary}; total "
+          f"{json.dumps(serve_total)}", flush=True)
+    print(f"replicated checks: {R_BATCHES} batches equal the single host ("
+          f"{equal_metrics} with metrics and misses) and the partitioned tier, "
+          f"{R_GRW_COMMITS} commits a policy with the store field for field and the entries "
+          f"{grw_equal}, kernel calls {checked} (all "
+          f"equal), launches {launches}; phase {report['seconds']:.1f}s, peak device memory "
+          f"{report['peak_device_gib']:.2f} GiB", flush=True)
+    return report
+
+
 # ------------------------------------------------------------ GNN serving
 # Phase 8: cached neighbour sampling over a graph sized like Reddit, the
 # dataset behind the minibatch_lg cell (src/repro/configs/gnn_shapes.py),
@@ -3846,7 +4098,7 @@ def phase_memory(tag):
 
 
 def run_graph(seed, dev):
-    """Phases 3-7 and 11-14, the graph-cache paths; returns their kernel
+    """Phases 3-7 and 11-15, the graph-cache paths; returns their kernel
     rows. Their worlds are locals, freed when it returns."""
     import repro_torch.core.cache as cache_mod
     from repro_torch.kernels.cache_probe import ops as cp_ops
@@ -3971,6 +4223,17 @@ def run_graph(seed, dev):
         if row["name"] == "block_gather":
             row["post_migration"] = m_report["block_gather_post_migration"]
     phase_memory("phase 14")
+
+    # 15. the replicated tier on the phase-7 stores; the two kernels'
+    # launches counted around the replicated runtime (zeroed inside, just
+    # before; the controls' left out)
+    r_report = run_replicated(seed, espec, hstore, pstore, ttable, plans, meta, ranges,
+                              includes, dev)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            row["launches"] += r_report["launches"][row["name"]]
+            row["launches_by_path"]["phase 15"] = r_report["launches"][row["name"]]
+    phase_memory("phase 15")
     return rows
 
 

@@ -52,7 +52,11 @@ from repro_torch.utils import (
 # op kinds of the collected maintenance stream
 OP_DELETE, OP_VAL_ADD, OP_VAL_REMOVE = 0, 1, 2
 
-# order = serial * _ORDER_STRIDE + row-major position within the emission
+# order = serial * _ORDER_STRIDE + *global* row-major position within the
+# emission (global mutation row x gather width + lane), so a routed stream
+# sorts back into the single-host application order. A round-robin slice of
+# the batch (``row_stride`` ranks) keeps the bound: its global rows stay below
+# ``row_stride * ceil(K / row_stride)``, about the section cap K
 _ORDER_STRIDE = 1 << 22
 
 
@@ -406,7 +410,7 @@ def _sec(n, ids):
 
 
 def _run_policy(espec, view_pre, view_post, sink, ttable, applied: AppliedMutations, *,
-                through: bool):
+                through: bool, row_offset: int = 0, row_stride: int = 1):
     """Drive Algorithms 1–4 over every (mutation, template) pair into ``sink``.
 
     ``view_pre``/``view_post`` are storage views of the pre-/post-commit
@@ -417,6 +421,11 @@ def _run_policy(espec, view_pre, view_post, sink, ttable, applied: AppliedMutati
     root's owner). ``through`` turns the leaf-side deletes into value edits.
     Emission order matches the reference exactly, so the op-order keys agree
     with it.
+
+    ``row_offset`` / ``row_stride`` turn each section row of a round-robin
+    slice of the batch (``mutations.shard_mutation_rows``) back into its
+    global row, ``row_offset + row_stride * j``, which the op-order keys
+    use; the default (0, 1) is the identity.
     """
     b = applied.batch
     own = view_post.own
@@ -425,7 +434,9 @@ def _run_policy(espec, view_pre, view_post, sink, ttable, applied: AppliedMutati
     nv = espec.store.n_vprops
 
     def rows_of(ids):
-        return torch.arange(ids.shape[0], dtype=torch.int32, device=dev), ids.shape[0]
+        # (global rows, their static bound)
+        rows = row_offset + row_stride * torch.arange(ids.shape[0], dtype=torch.int32, device=dev)
+        return rows, row_stride * ids.shape[0]
 
     ne_m, de_m = _sec(b.ne_n, b.ne_src), _sec(b.de_n, b.de_eid)
     se_m, sv_m, dv_m = _sec(b.se_n, b.se_eid), _sec(b.sv_n, b.sv_vid), _sec(b.dv_n, b.dv_vid)
@@ -527,19 +538,25 @@ def write_through_update(espec, store_pre, store_post, cache, ttable, applied):
     return _apply_policy(espec, store_pre, store_post, cache, ttable, applied, True)
 
 
-def derive_cache_ops(espec, store_pre, store_post, ttable, applied, *, through: bool):
+def derive_cache_ops(espec, store_pre, store_post, ttable, applied, *, through: bool,
+                     row_offset: int = 0, row_stride: int = 1):
     """Run the mutation listener without touching any cache, returning the
-    impacted keys as tensor streams ``(CacheOpStream, SweepStream)``."""
+    impacted keys as tensor streams ``(CacheOpStream, SweepStream)``.
+    ``row_offset`` / ``row_stride`` give the global rows of a round-robin
+    slice of the batch (``shard_mutation_rows``) for the op-order keys."""
     return derive_cache_ops_views(
         espec, GlobalStoreView(espec.store, store_pre),
         GlobalStoreView(espec.store, store_post), ttable, applied, through=through,
+        row_offset=row_offset, row_stride=row_stride,
     )
 
 
-def derive_cache_ops_views(espec, view_pre, view_post, ttable, applied, *, through: bool):
+def derive_cache_ops_views(espec, view_pre, view_post, ttable, applied, *, through: bool,
+                           row_offset: int = 0, row_stride: int = 1):
     """``derive_cache_ops`` over storage views, under either policy. On the
     partitioned tier each shard passes its ``BlockStoreView``s and derives
     exactly the ops whose storage it owns, with global op-order keys."""
     sink = _CollectSink()
-    _run_policy(espec, view_pre, view_post, sink, ttable, applied, through=through)
+    _run_policy(espec, view_pre, view_post, sink, ttable, applied, through=through,
+                row_offset=row_offset, row_stride=row_stride)
     return sink.streams(applied.batch.sv_vid.device)

@@ -61,12 +61,17 @@ class FailoverController:
     deadline in seconds. The runtime's attached ``RoutingTableHost``, read
     at each call, routes every read, write and recovery, so failover
     composes with migrated placements and with a table attached after the
-    controller is built."""
+    controller is built. It needs the partitioned store tier (a replicated
+    runtime raises ``ValueError``)."""
 
     def __init__(self, rt, journal: Optional[WriteBehindJournal], ttable, *,
                  plan: Optional[ShardFaultPlan] = None,
                  detector: Optional[FailureDetector] = None,
                  hedge: Optional[HedgedCalls] = None, hedge_after: float = 0.05):
+        if rt.pspec is None:
+            # recovery replays and splices an owner's blocks
+            raise ValueError("failover needs the partitioned store tier; this runtime serves "
+                             "the replicated one")
         self.rt = rt
         self.journal = journal
         self.ttable = ttable

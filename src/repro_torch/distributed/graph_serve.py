@@ -1,12 +1,11 @@
-"""The partitioned gR-Tx serving tier: owner shards over a mesh.
+"""The sharded gR-Tx serving tier: owner shards over a mesh.
 
-PyTorch twin of ``repro.distributed.graph_serve`` on the partitioned
-tier: the read path, CP population, the gRW-Tx commit under both
-policies with its maintenance gate and write-behind journal, and block
-maintenance between batches (compaction, capacity growth), the
-owner-stage telemetry with its tracer spans, the degraded mode the
-failover tier drives, and the routing overlays the migration tier sets.
-The overlapped schedule and the replicated tier are not ported yet.
+PyTorch twin of ``repro.distributed.graph_serve`` on both storage tiers:
+the read path, CP population, the gRW-Tx commit under both policies, and, on the
+partitioned tier, its maintenance gate and write-behind journal, block
+maintenance between batches (compaction, capacity growth), the degraded
+mode the failover tier drives and the routing overlays the migration
+tier sets; the owner-stage telemetry with its tracer spans on both.
 Vertex ownership is interleaved
 (shard ``v mod n`` owns ``v``) unless the routing table says otherwise,
 and the one-hop result cache is co-partitioned with it: the global cache
@@ -48,6 +47,31 @@ another shard runs the **CP split** (``population.populate_program`` on
 every rank: execute at the storage owner, sum the bundle, insert at the
 cache owner). A table with no exception costs nothing: the same kernel
 calls, host reads and collectives as the identity table.
+
+Storage tiers
+-------------
+
+``store_tier="partitioned"`` (the default) keeps each owner's dual-CSR
+blocks (``graphstore.partition``): a miss executes through the
+``block_gather`` kernel over the owner-local blocks after routing.
+``store_tier="replicated"`` is the reference's baseline, a full read
+snapshot per rank: every rank executes any miss over the whole single-host
+``GraphStore`` (the full-store ``onehop_exec``), so nothing defers and
+there are no blocks to maintain. The ranks of a ``LocalMesh`` share one
+process and one card, so the tier keeps ONE store that every rank's program
+reads and applies each commit to it once; four copies would give the same
+results for four times the bytes and four applies. Routing, the probe on
+the owner's cache block, unroute and merge are those of the partitioned
+tier; an attached ``RoutingTableHost`` routes rows and CP inserts to their
+cache owner, and nothing splits or retries. A commit applies the batch
+once, then each rank runs the listener over a round-robin slice of it
+(``mutations.shard_mutation_rows``, global rows restored by
+``row_offset`` / ``row_stride``) and the ops route as on the partitioned
+tier. CP runs each row whole at its cache owner over the full store. The
+partitioned tier's own entry points (``partition_store``, ``store_bytes``,
+``store_occupancy``, ``compact_step``, ``grow_blocks``,
+``set_block_capacity``, ``maintenance_tick``, a commit's ``gate``) raise
+``ValueError`` on it, where the reference asserts.
 
 A gRW-Tx commit is one per-rank program too (``grw_step``): each rank
 applies the batch to its own blocks (``apply_mutations_partitioned``), runs
@@ -122,6 +146,7 @@ from repro_torch.core.invalidation import (
     apply_op_stream_batched,
     apply_op_stream_segmented,
     apply_sweeps,
+    derive_cache_ops,
     derive_cache_ops_views,
 )
 from repro_torch.core.runtime import (
@@ -162,6 +187,7 @@ from repro_torch.graphstore.maintenance import (
     decide_maintenance,
     grow_store,
 )
+from repro_torch.graphstore.mutations import apply_mutations, shard_mutation_rows
 from repro_torch.graphstore.partition import (
     BlockCapacityError,
     BlockStoreView,
@@ -260,7 +286,9 @@ class _MeshTier:
         self.telemetry = self.stage_rows = rt.telemetry
 
     def defer_fn(self):
-        if self.down is None and not self.split:
+        if self.pspec is None or (self.down is None and not self.split):
+            # the replicated store: every rank executes any miss over its
+            # full snapshot, so nothing defers (the reference's pspec None)
             return None
         dead = self.down is not None and bool(self.down[self.me])
         if not self.split:
@@ -275,6 +303,8 @@ class _MeshTier:
 
     def exec_fn(self, hop):
         pspec, espec = self.pspec, self.rt.lspec
+        if pspec is None:
+            return None  # the replicated store: the full-store onehop_exec
 
         def exec_fn(store, roots_f, params, miss_m):
             view = BlockStoreView(pspec, store, self.me, rtable=self.rtable)
@@ -361,7 +391,9 @@ class _MeshTier:
 
 class ShardedTxnRuntime:
     """One transaction runtime spread over the ``n`` ranks of a mesh, on the
-    partitioned storage tier.
+    partitioned storage tier (``store_tier="partitioned"``, the default) or
+    the replicated one (``"replicated"``: one single-host ``GraphStore``
+    that every rank reads whole; see the module docstring).
 
     ``espec`` is the *global* spec: ``espec.cache.capacity`` is the fleet
     cache capacity, split into ``n`` co-partitioned blocks of
@@ -376,7 +408,8 @@ class ShardedTxnRuntime:
 
     The maintenance ops and sweeps each rank derives per commit, and the
     ops it routes to each peer, are bounded by the single host's caps
-    (``OPS_CAP`` / ``SWEEP_CAP``); ops they drop count in ``op_overflow``.
+    (``OPS_CAP`` / ``SWEEP_CAP``) on both tiers; ops they drop count in
+    ``op_overflow``.
 
     ``telemetry`` (default on) assembles the owner-stage block of every gR
     batch into ``last_owner_stage``; ``last_step_seconds`` is the batch's
@@ -392,9 +425,11 @@ class ShardedTxnRuntime:
     every step, as the reference does by default.
     """
 
-    def __init__(self, espec, mesh: LocalMesh, *,
-                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR, device=None,
-                 telemetry: bool = True, tracer=None):
+    def __init__(self, espec, mesh: LocalMesh, *, store_tier: str = "partitioned",
+                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR,
+                 device=None, telemetry: bool = True, tracer=None):
+        if store_tier not in ("partitioned", "replicated"):
+            raise ValueError(f"unknown store tier {store_tier!r}")
         self.device = resolve_device(device)
         self.mesh = mesh
         n = self.n = mesh.n
@@ -406,7 +441,9 @@ class ShardedTxnRuntime:
             raise ValueError(f"cache capacity {C} does not shard into power-of-two blocks")
         self.espec = espec
         self.lspec = espec._replace(cache=espec.cache._replace(capacity=Cloc))
-        self.pspec = default_pspec(espec.store, n)
+        self.store_tier = store_tier
+        # the block layout; None on the replicated tier, which has no blocks
+        self.pspec = default_pspec(espec.store, n) if store_tier == "partitioned" else None
         if isinstance(route_cap_factor, (list, tuple)):
             route_cap_factor = tuple(route_cap_factor)
             if not route_cap_factor or not all(isinstance(f, int) for f in route_cap_factor):
@@ -431,6 +468,12 @@ class ShardedTxnRuntime:
         self.swap_events = 0  # capacity growths (``grow_blocks``)
 
     # ------------------------------------------------------------ state
+    def _require_blocks(self, what: str):
+        """``what`` reads or writes owner blocks: the partitioned tier's."""
+        if self.pspec is None:
+            raise ValueError(f"{what} needs the partitioned store tier; this runtime serves "
+                             f"the replicated one")
+
     def partition_store(self, store, *, elastic: bool = False):
         """Partition a single-host ``GraphStore`` (on this runtime's device)
         into the owner-local blocks of every rank.
@@ -439,6 +482,7 @@ class ShardedTxnRuntime:
         ``e_blk_cap`` (25 % over the reported need) and retries, where it
         would raise ``BlockCapacityError``: the ingest-time half of capacity
         growth (``maintenance_tick`` is the online half)."""
+        self._require_blocks("partition_store")
         if store.esrc.device.type != self.device.type:
             raise ValueError(f"the store lies on {store.esrc.device}, the runtime on {self.device}")
         while True:
@@ -452,6 +496,7 @@ class ShardedTxnRuntime:
 
     def store_bytes(self, pstore) -> dict:
         """Per-shard bytes vs the replicated snapshot."""
+        self._require_blocks("store_bytes")
         return store_bytes_report(self.pspec, pstore)
 
     def empty_cache(self) -> CacheState:
@@ -468,12 +513,14 @@ class ShardedTxnRuntime:
     def set_block_capacity(self, e_blk_cap: int, *, recent_blk_cap: int | None = None):
         """Adopt a block layout without a store in hand: recovery restores a
         checkpoint taken under a recorded capacity."""
+        self._require_blocks("set_block_capacity")
         rb = self.pspec.recent_blk_cap if recent_blk_cap is None else int(recent_blk_cap)
         self._set_pspec(self.pspec._replace(e_blk_cap=int(e_blk_cap),
                                             recent_blk_cap=min(rb, int(e_blk_cap))))
 
     def store_occupancy(self, pstore) -> dict:
         """Per-shard / per-block occupancy and recent fill."""
+        self._require_blocks("store_occupancy")
         return block_occupancy(self.pspec, pstore)
 
     def compact_step(self, purge: bool = False):
@@ -481,6 +528,7 @@ class ShardedTxnRuntime:
         ``step(pstore) -> pstore'``: each shard merges its blocks' recent
         regions into their sorted bodies and rebuilds its geid indexes, with
         no collectives. The pass runs in a ``compact_store`` span."""
+        self._require_blocks("compact_step")
         pspec, tracer = self.pspec, self.tracer
         return lambda ps: compact_store(pspec, ps, purge=purge, tracer=tracer)
 
@@ -491,6 +539,7 @@ class ShardedTxnRuntime:
         the swap (``precompile_next_tier`` / ``swap_to_next_tier``); eager
         torch compiles nothing, so the swap is this pad alone, counted in
         ``swap_events`` and timed in a ``hot_swap_pause`` span."""
+        self._require_blocks("grow_blocks")
         with self.tracer.span("hot_swap_pause"):
             new, grown = grow_store(self.pspec, pstore, e_blk_cap, recent_blk_cap=recent_blk_cap)
             self._set_pspec(new)
@@ -505,6 +554,7 @@ class ShardedTxnRuntime:
         so replay repeats it at the same point. Returns ``(pstore', info)``.
         (The reference's ``occupancy=``, a report the caller holds already,
         waits for a caller: its serve loop does not tick.)"""
+        self._require_blocks("maintenance_tick")
         with self.tracer.span("compaction_tick"):
             policy = MaintenancePolicy() if policy is None else policy
             occ = self.store_occupancy(pstore)
@@ -658,8 +708,10 @@ class ShardedTxnRuntime:
                 tier = _MeshTier(self, caps, me, rtable, down, split)
                 steps = make_plan_fn(self.lspec, plan, True, tier)
                 rows = slice(me * Bloc, (me + 1) * Bloc)
-                programs.append(steps(local_shard(pspec, store, me), cache_shard(cache, n, me),
-                                      ttable, proots[rows], bvalid[rows], syncs))
+                # the replicated tier's ranks all read the one full store
+                shard = store if pspec is None else local_shard(pspec, store, me)
+                programs.append(steps(shard, cache_shard(cache, n, me), ttable, proots[rows],
+                                      bvalid[rows], syncs))
             outs = self.mesh.run(programs)
             result = torch.cat([o[0] for o in outs])
             row_def = torch.cat([o[1] for o in outs]) if outs[0][1] is not None else None
@@ -734,6 +786,24 @@ class ShardedTxnRuntime:
         occ = occ0 - head(cache2)
         return cache2._replace(n_delete=cache.n_delete + occ), occ, ovf_c + ovf_r + ovf_s
 
+    def _grw_replicated_fn(self, through: bool, store, store2, applied, cache, ttable, me: int,
+                           syncs, rtable):
+        """Rank ``me``'s share of a replicated-tier commit, a per-rank
+        program: the listener over its round-robin slice of the applied
+        batch (its rows' global indices restored for the op-order keys)
+        against the full pre and post store, then the ops routed and
+        applied as on the partitioned tier, and one all-reduce sum of
+        (impacted, overflow). Returns (its cache block, impacted,
+        op_overflow)."""
+        n = self.n
+        ops, sweeps = derive_cache_ops(self.espec, store, store2, ttable,
+                                       shard_mutation_rows(applied, n, me), through=through,
+                                       row_offset=me, row_stride=n)
+        cache2, occ, ovf = yield from self._route_and_apply_ops(
+            cache_shard(cache, n, me), ops, sweeps, through, syncs, rtable)
+        sums = yield (ALL_REDUCE_SUM, torch.stack([occ, ovf]))
+        return cache2, sums[0], sums[1]
+
     def _grw_fn(self, through: bool, gate, store, cache, ttable, batch, me: int, syncs,
                 flags_read: _MeshRead, rtable):
         """Rank ``me``'s gRW-Tx commit, a per-rank program: apply the batch to
@@ -783,15 +853,30 @@ class ShardedTxnRuntime:
         but the last, a host int. Runs every rank's ``_grw_fn`` on the mesh
         under the routing table (resolved as ``run_gr_tx_batch``'s) and
         joins their blocks in rank order; write-through's round reads and
-        the gate's one flag read are counted in ``syncs``."""
+        the gate's one flag read are counted in ``syncs``.
+
+        On the replicated tier the step applies the batch to the one store
+        once, then runs every rank's ``_grw_replicated_fn``; its store
+        overflow, block maxima and compactions are 0, and a ``gate`` raises
+        (the gate compacts blocks)."""
         if policy not in ("write-around", "write-through"):
             raise ValueError(f"unknown gRW policy {policy!r}")
         through = policy == "write-through"
+        if gate is not None:
+            self._require_blocks("the maintenance gate")
 
         def step(store, cache, ttable, batch, syncs=None, rtable=None):
             syncs = syncs if syncs is not None else SyncCount()
             flags_read = _MeshRead(syncs)
             table, _ = self._resolve_rtable(rtable)
+            if self.pspec is None:
+                store2, applied = apply_mutations(self.espec.store, store, batch)
+                outs = self.mesh.run([
+                    self._grw_replicated_fn(through, store, store2, applied, cache, ttable, me,
+                                            syncs, table) for me in range(self.n)])
+                z = torch.zeros((), dtype=torch.int32, device=self.device)
+                return (store2, _replicate_stats(cache, [o[0] for o in outs]), outs[0][1],
+                        outs[0][2], z, z, z, 0)
             outs = self.mesh.run([self._grw_fn(through, gate, store, cache, ttable, batch, me,
                                                syncs, flags_read, table)
                                   for me in range(self.n)])
@@ -815,6 +900,10 @@ class ShardedTxnRuntime:
         of the metrics (the commit version and the batch's section counts
         ride it) and, with a ``journal``, its one copy of the batch.
 
+        On the replicated tier the store is the single-host ``GraphStore``,
+        ``store_append_overflow`` and the occupancy metrics read 0 and a
+        ``gate`` raises.
+
         ``journal`` (a ``WriteBehindJournal``) makes the commit durable
         write-behind: the batch is appended with its policy and gate, and
         the journal's metrics join the returned ones. ``rtable`` routes the
@@ -832,13 +921,16 @@ class ShardedTxnRuntime:
                 [x.to(torch.int64) for x in scalars + [store2.version] + counts]).tolist()
         metrics = {"impacted_keys": impacted, "op_overflow": ovf,
                    "store_append_overflow": store_ovf}
-        self.mutation_rows_since_compact += sum(rows)
+        if self.pspec is not None:
+            self.mutation_rows_since_compact += sum(rows)
         if gate is not None:
             metrics["device_compactions"] = ncomp
             if ncomp:
                 self.mutation_rows_since_compact = 0
         if occupancy_metrics:
-            metrics["store_occupancy_max"] = round(blk_max / self.pspec.e_blk_cap, 4)
+            # the replicated tier has no blocks: both read 0
+            metrics["store_occupancy_max"] = (0.0 if self.pspec is None
+                                              else round(blk_max / self.pspec.e_blk_cap, 4))
             metrics["store_recent_fill_max"] = rec_max
         metrics["host_syncs"] = syncs.n + 1 + (journal is not None)
         if journal is not None:
@@ -853,7 +945,9 @@ class ShardedTxnRuntime:
         """A ``CachePopulator`` for the misses queued at one owner shard
         (their cache owner). Its CP transactions execute each row against
         its storage owner's blocks and insert it into its cache owner's
-        block, under the table of the moment."""
+        block, under the table of the moment; on the replicated tier each
+        row executes and inserts whole at its cache owner, over the full
+        store."""
         from repro_torch.core.population import CachePopulator
 
         return CachePopulator(self.espec, templates_meta, max_retries=max_retries,
@@ -873,6 +967,15 @@ class ShardedTxnRuntime:
             rtable, rhost = self._resolve_rtable(None)
             pspec = self.pspec
             valid = mask & (roots >= 0)
+            if pspec is None:
+                # the replicated store: a row executes where it inserts, at
+                # its cache owner, over the full store (no split)
+                c2, ok, ab = populate_step(
+                    lspec, store_exec, store_commit, cache_shard(cache, n, me), ttable,
+                    tpl_idx, direction, edge_label, roots, params,
+                    valid & (cache_owner_of(rtable, roots, n) == me), read_versions)
+                shards = [c2 if s == me else cache_shard(cache, n, s) for s in range(n)]
+                return _replicate_stats(cache, shards), ok, ab
             sown = storage_owner_of(rtable, roots, n)
             view = lambda s: BlockStoreView(pspec, local_shard(pspec, store_exec, s), s, rtable)
             cown = None

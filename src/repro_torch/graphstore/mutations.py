@@ -6,6 +6,8 @@ structure-of-arrays with one fixed-capacity section per change type of §3.2.
 old state the mutation listener needs, writes copies of the changed fields
 (the caller's store is left intact; the gRW step needs both states at once),
 and bumps per-vertex versions, the conflict ranges of CP population commits.
+``shard_mutation_rows`` slices an applied batch round-robin over the ranks
+of the replicated tier's commit.
 """
 
 from __future__ import annotations
@@ -144,6 +146,49 @@ def _set_cells(table, rows, cols, vals, keep):
     flat = rows * C + cols.long()
     keep = keep_last_occurrence(flat, keep)
     return scatter_drop(table.reshape(-1), flat, vals, keep).reshape(R, C)
+
+
+def shard_mutation_rows(applied: AppliedMutations, n: int, me: int) -> AppliedMutations:
+    """Round-robin slice of every change section for rank ``me`` of ``n``:
+    rows ``me, me + n, me + 2n, ...`` of both the batch arrays and the
+    listener's pre-image snapshots, each section's live count recomputed
+    for the slice (the replicated tier's gRW listener splits its work over
+    the ranks this way). Local row ``j`` of rank ``me`` is global row
+    ``me + n * j``: ``derive_cache_ops``' ``row_offset`` / ``row_stride``
+    turn it back into the global order key. Every section keeps
+    ``ceil(K / n)`` rows, gathered with the index clipped, so the shapes
+    depend on ``n`` alone, as in the reference."""
+
+    def sl(count, *arrs):
+        K = arrs[0].shape[0]
+        idx = me + n * torch.arange(-(-K // n), dtype=torch.int32, device=arrs[0].device)
+        return [(idx < count).sum(dtype=torch.int32)] + [take_along0(a, idx) for a in arrs]
+
+    b = applied.batch
+    nv_n, nv_label, nv_props, nv_vid = sl(b.nv_n, b.nv_label, b.nv_props, applied.nv_vid)
+    ne_n, ne_src, ne_dst, ne_label, ne_props, ne_eid = sl(
+        b.ne_n, b.ne_src, b.ne_dst, b.ne_label, b.ne_props, applied.ne_eid)
+    de_n, de_eid, de_src, de_dst, de_label, de_props = sl(
+        b.de_n, b.de_eid, applied.de_src, applied.de_dst, applied.de_label, applied.de_props)
+    dv_n, dv_vid = sl(b.dv_n, b.dv_vid)
+    sv_n, sv_vid, sv_pid, sv_val, sv_old = sl(b.sv_n, b.sv_vid, b.sv_pid, b.sv_val,
+                                              applied.sv_old)
+    se_n, se_eid, se_pid, se_val, se_old, se_src, se_dst, se_label, se_props = sl(
+        b.se_n, b.se_eid, b.se_pid, b.se_val, applied.se_old, applied.se_src, applied.se_dst,
+        applied.se_label, applied.se_props)
+    batch = MutationBatch(
+        nv_label=nv_label, nv_props=nv_props, nv_n=nv_n,
+        ne_src=ne_src, ne_dst=ne_dst, ne_label=ne_label, ne_props=ne_props, ne_n=ne_n,
+        de_eid=de_eid, de_n=de_n, dv_vid=dv_vid, dv_n=dv_n,
+        sv_vid=sv_vid, sv_pid=sv_pid, sv_val=sv_val, sv_n=sv_n,
+        se_eid=se_eid, se_pid=se_pid, se_val=se_val, se_n=se_n,
+    )
+    return AppliedMutations(
+        batch=batch, ne_eid=ne_eid, nv_vid=nv_vid,
+        de_src=de_src, de_dst=de_dst, de_label=de_label, de_props=de_props,
+        sv_old=sv_old, se_old=se_old, se_src=se_src, se_dst=se_dst, se_label=se_label,
+        se_props=se_props, commit_version=applied.commit_version,
+    )
 
 
 def apply_mutations(spec: StoreSpec, store: GraphStore, batch: MutationBatch):

@@ -1,5 +1,6 @@
 """The serving entry point of the PyTorch port: the sharded transaction runtime —
-owner-routed gR-Txs over the partitioned dual-CSR storage tier with the
+owner-routed gR-Txs over the partitioned dual-CSR storage tier (or, with
+``--store-tier replicated``, a full store every rank reads) with the
 co-partitioned cache — on a process-local mesh, with real data, reporting
 hit / overflow statistics, the storage tier's bytes, durability and
 telemetry. Twin of ``repro.launch.serve``: the same flags and the same
@@ -7,6 +8,7 @@ telemetry. Twin of ``repro.launch.serve``: the same flags and the same
 
   PYTHONPATH=src python -m repro_torch.launch.serve --shards 4 --batches 10
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --trace t.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.serve --store-tier replicated
 
 The loop (``serve_loop``) runs the serving life-cycle:
 
@@ -48,13 +50,16 @@ The loop (``serve_loop``) runs the serving life-cycle:
   owner is down the round waits. The ``routing:`` line and ``total``
   report it.
 
+On the replicated tier (``--store-tier replicated``, the reference's
+baseline) the loop serves the gR batches and their CP drains only, as the
+reference's does: no maintenance, no journal, no commits and no store-tier
+bytes line; ``--migrate`` and ``--inject-crash`` (which needs the journal)
+are argument errors there.
+
 ``main`` plugs in the reference's traffic: the ``config_plan_and_ttable``
 plan over a random graph, uniform (or ``--hot-frac`` hot) roots and eight
 upserts a commit, all from ``--seed``. Another caller plugs in its own
 batches and commits through ``serve_loop``.
-
-Not ported yet, raising ``NotImplementedError`` (``ROADMAP.md``, queue 1):
-``--store-tier replicated`` (it waits for the replicated tier).
 """
 
 from __future__ import annotations
@@ -69,18 +74,14 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-# the flags of slices not ported yet, and what each waits for in ROADMAP.md
-# queue 1: flag -> (value that leaves it off, what it waits for)
-UNPORTED = {
-    "store_tier": ("partitioned", "the replicated tier"),
-}
 CP_DRAIN_K = 512  # misses each owner's queue drains after a batch
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The reference's flags and ``--device``; those of unported slices
-    raise ``NotImplementedError``, and ``--inject-crash`` without the
-    journal is an error, as in the reference."""
+    """The reference's flags and ``--device``. As in the reference,
+    ``--inject-crash`` without the journal (``--no-journal``, or the
+    replicated tier, which keeps none) and ``--migrate`` on the replicated
+    tier are argument errors."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=4)
     ap.add_argument("--batches", type=int, default=10)
@@ -90,7 +91,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; raises without it)")
     ap.add_argument("--store-tier", default="partitioned", choices=("partitioned", "replicated"),
-                    help="storage tier (replicated: not ported yet)")
+                    help="storage tier (replicated: reads and CP only, the baseline)")
     ap.add_argument("--write-every", type=int, default=2,
                     help="apply a small gRW commit every N batches (0 disables writes)")
     ap.add_argument("--no-maintenance", action="store_true",
@@ -129,19 +130,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="emit a telemetry snapshot every N batches (0: none; the end-of-run "
                          "report is always emitted)")
     args = ap.parse_args(argv)
-    for name, (off, waits) in UNPORTED.items():
-        if getattr(args, name) != off:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: it waits for {waits} "
-                                      f"(ROADMAP.md queue 1)")
-    if args.inject_crash is not None and args.no_journal:
+    replicated = args.store_tier == "replicated"
+    if args.inject_crash is not None and (args.no_journal or replicated):
         ap.error("--inject-crash requires the journal (degraded-mode writes queue there)")
+    if args.migrate and replicated:
+        ap.error("--migrate requires the partitioned store tier")
     return args
 
 
 class ServeOutcome(NamedTuple):
     total: dict  # the reference's run totals
-    pstore: object  # the partitioned store after the run
+    pstore: object  # the store after the run (the single-host one on the replicated tier)
     cache: object  # the cache after the run
     drain: object  # the ShardedMissDrain (populated / aborted / pending)
     report: dict  # the telemetry report event
@@ -155,7 +154,8 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
                telemetry, *, log=print) -> ServeOutcome:
     """The reference serve loop over ``args.batches`` batches on ``rt``, a
     ``ShardedTxnRuntime`` whose tracer is ``telemetry.tracer``, from the
-    partitioned store ``pstore``.
+    partitioned store ``pstore`` (on the replicated tier, the single-host
+    store: reads and CP drains only, as the reference's loop there).
 
     ``next_batch(b)`` gives batch ``b``'s ``(plan, roots)`` and
     ``next_commit(b)`` the mutation batch committed after it (every
@@ -178,11 +178,14 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
     cache = rt.empty_cache()
     drain = ShardedMissDrain(rt, tpl_meta)
     policy = MaintenancePolicy(recent_fill_frac=0.5, grow_occupancy_frac=0.85)
-    maintain = not args.no_maintenance
+    # the replicated tier has no blocks to maintain, keeps no journal and
+    # takes no commits, as in the reference
+    partitioned = rt.pspec is not None
+    maintain = partitioned and not args.no_maintenance
     gate_base = DeviceGate(recent_fill_frac=policy.recent_fill_frac)
 
     journal = None
-    if not args.no_journal:
+    if partitioned and not args.no_journal:
         if args.journal_dir is None:
             raise ValueError("the journal needs args.journal_dir")
         journal = WriteBehindJournal(args.journal_dir, rt.n, io_timeout=args.io_timeout,
@@ -281,7 +284,7 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
             if moves:
                 log(f"batch {b}: migrated {moves} (table epoch -> {engine.rhost.epoch})")
         wm = None
-        if args.write_every and (b + 1) % args.write_every == 0:
+        if partitioned and args.write_every and (b + 1) % args.write_every == 0:
             mb = next_commit(b)
             gate = None
             if maintain:
@@ -320,15 +323,17 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
     dt = time.time() - t0
     if res is not None:
         assert len(res) == len(roots), res.shape
-    log(f"{args.batches} batches x {args.batch} gR-Txs on {rt.n} shards [partitioned]: "
+    log(f"{args.batches} batches x {args.batch} gR-Txs on {rt.n} shards [{rt.store_tier}]: "
         f"requests={total['requests']} hits={total['hits']} misses={total['misses']} "
         f"populated={drain.committed} route_overflow={total['route_overflow']} "
         f"({dt / max(args.batches, 1) * 1e3:.1f} ms/batch)")
-    occ = rt.store_occupancy(pstore)
-    log(f"maintenance: {maint['commits']} gRW commits, {maint['device_compactions']} device "
-        f"compactions ({maint['purges']} purge-enabled), {maint['growths']} growths, "
-        f"{maint['append_overflow']} appends dropped; occupancy max {occ['max_occupancy']:.3f}, "
-        f"recent fill max {occ['max_recent_fill']}/{occ['recent_blk_cap']}")
+    if partitioned:
+        occ = rt.store_occupancy(pstore)
+        log(f"maintenance: {maint['commits']} gRW commits, {maint['device_compactions']} "
+            f"device compactions ({maint['purges']} purge-enabled), {maint['growths']} growths, "
+            f"{maint['append_overflow']} appends dropped; occupancy max "
+            f"{occ['max_occupancy']:.3f}, recent fill max "
+            f"{occ['max_recent_fill']}/{occ['recent_blk_cap']}")
     if journal is not None:
         journal.stop(final_flush=True)
         jm = journal.metrics()
@@ -453,16 +458,20 @@ def main(argv=None):
     # the owner-stage block rides the runtime's one metrics all-reduce; the
     # tracer times the host phases; JSONL only under --trace
     telemetry = ServeTelemetry(args.shards, trace_path=args.trace)
-    rt = ShardedTxnRuntime(espec, flat_mesh(args.shards), device=dev, tracer=telemetry.tracer)
-    pstore = rt.partition_store(store, elastic=True)
-    rep = rt.store_bytes(pstore)
-    print(f"store tier: {rep['per_shard_bytes'] / 2**20:.2f} MiB/shard partitioned vs "
-          f"{rep['replicated_per_shard_bytes'] / 2**20:.2f} MiB/shard replicated "
-          f"(ratio {rep['ratio']:.3f}, ideal 1/n = {rep['ideal_ratio']:.3f})")
+    rt = ShardedTxnRuntime(espec, flat_mesh(args.shards), store_tier=args.store_tier, device=dev,
+                           tracer=telemetry.tracer)
+    partitioned = rt.pspec is not None
+    pstore = store
+    if partitioned:
+        pstore = rt.partition_store(store, elastic=True)
+        rep = rt.store_bytes(pstore)
+        print(f"store tier: {rep['per_shard_bytes'] / 2**20:.2f} MiB/shard partitioned vs "
+              f"{rep['replicated_per_shard_bytes'] / 2**20:.2f} MiB/shard replicated "
+              f"(ratio {rep['ratio']:.3f}, ideal 1/n = {rep['ideal_ratio']:.3f})")
     tpl_meta = {0: (plan.hops[0].direction, plan.hops[0].edge_label)}
     next_batch, next_commit = reference_traffic(args, espec, plan, rng, dev)
     tmp = None
-    if not args.no_journal and args.journal_dir is None:
+    if partitioned and not args.no_journal and args.journal_dir is None:
         tmp = tempfile.mkdtemp(prefix="serve-journal-")
         args.journal_dir = os.path.join(tmp, "journal")
     try:

@@ -245,6 +245,7 @@ def test_elastic_runner_matches_reference(tmp_path):
 def test_probe_heartbeats_from_measured_step_time():
     class _Rt:
         n = 4
+        pspec = object()  # a partitioned runtime's block layout
         last_step_seconds = 0.0
         last_step_owner_seconds = None
 

@@ -4,10 +4,10 @@
   imports ``jax`` or anything of the JAX package ``repro``.
 - The entry points default to CUDA and raise when it is absent, instead of
   falling back to the CPU.
-- The serve loop's flags of slices not ported yet raise
-  ``NotImplementedError``, also beside a ported one; the failover and
-  migration flags parse to the reference's defaults, and a crash without
-  the journal is an error, as there.
+- Every serve-loop flag is ported: the failover and migration flags parse
+  to the reference's defaults, and a crash without the journal, or a crash
+  or a migration on the replicated store tier, is an argument error, as
+  there.
 """
 
 import ast
@@ -40,10 +40,13 @@ def test_no_jax_or_reference_imports(path):
 
 
 @pytest.mark.parametrize("module", ["graphstore/migration.py", "distributed/routing.py",
-                                    "distributed/failover.py", "launch/serve.py"])
+                                    "distributed/failover.py", "launch/serve.py",
+                                    "graphstore/mutations.py", "core/invalidation.py",
+                                    "core/runtime.py", "distributed/graph_serve.py"])
 def test_the_partitioned_tiers_twins_are_checked(module):
-    """The twins of the partitioned tier's reference modules are among the
-    files the import check walks (the migration tier since slice 12)."""
+    """The twins of the sharded tiers' reference modules are among the
+    files the import check walks (the migration tier since slice 12, the
+    replicated tier since slice 13)."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES and (ROOT / "src" / "repro" / module).exists()
 
@@ -83,6 +86,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: serve.main([]),
         lambda: serve.main(["--inject-crash", "1:3", "--recover-after", "2"]),
         lambda: serve.main(["--migrate", "--hot-frac", "0.5"]),
+        lambda: serve.main(["--store-tier", "replicated"]),
+        lambda: ShardedTxnRuntime(espec, flat_mesh(2), store_tier="replicated"),
         lambda: RoutingTableHost(4),
     ]
     # the GNN serving path's entry points, each run on the CPU when asked
@@ -122,27 +127,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
         assert call(device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("flags", [["--store-tier", "replicated"],
-                                   ["--migrate", "--store-tier", "replicated"]],
+@pytest.mark.parametrize("flags", [["--migrate", "--store-tier", "replicated"],
+                                   ["--inject-crash", "1:3", "--store-tier", "replicated"]],
                          ids=lambda f: f[0])
-def test_unported_serve_flags_raise(flags):
-    """The serve loop's flags of slices not ported yet raise, naming what
-    they wait for in ROADMAP.md queue 1, before anything is built; a ported
-    flag beside one (``--migrate``, ported in slice 12) does not hide it."""
+def test_unported_serve_flags_raise(flags, capsys):
+    """The flags the replicated store tier cannot serve exit as the
+    reference's ``ap.error`` does (status 2, its message), before anything
+    is built: ``--migrate`` needs the partitioned tier, ``--inject-crash``
+    the journal, which the replicated tier keeps none of."""
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError,
-                       match=r"waits for the replicated tier \(ROADMAP.md queue 1\)"):
+    with pytest.raises(SystemExit) as e:
         serve.main(flags + ["--device", "cpu"])
+    assert e.value.code == 2
+    want = {"--migrate": "--migrate requires the partitioned store tier",
+            "--inject-crash": "--inject-crash requires the journal (degraded-mode writes queue "
+                              "there)"}[flags[0]]
+    assert f"error: {want}" in capsys.readouterr().err
 
 
 def test_migration_serve_flags_parse_as_the_reference():
     """``--migrate`` and ``--hot-frac`` are ported: they parse to the
-    reference's values (defaults off and 0.0), and ``--migrate`` is no
-    longer among the unported flags."""
+    reference's values (defaults off and 0.0)."""
     from repro_torch.launch import serve
 
-    assert "migrate" not in serve.UNPORTED
     args = serve.parse_args([])
     assert (args.migrate, args.hot_frac) == (False, 0.0)
     args = serve.parse_args(["--migrate", "--hot-frac", "0.5"])

@@ -10,10 +10,11 @@
   the CPU) return the same ``total`` and report the same counters (but
   ``host_syncs``), owner-stage matrix, hit locality, latency-class counts
   and span counts (but ``journal_flush``, whose count depends on timing),
-  in four flag sets, one of them a crash of owner 1 with its recovery
+  in five flag sets, one of them a crash of owner 1 with its recovery
   (the ``failover:`` line's counts equal too), one hot-vertex migration
   with half the roots on a hot set of owner 1 (the ``routing:`` line and
-  the moves of every round equal too).
+  the moves of every round equal too), and one on the replicated store
+  tier (no store-tier, maintenance or durability line on either side).
 - **A crash under migration**: ``--inject-crash 1:3 --migrate --hot-frac
   0.5``, commits that touch the hot vertices: the commit queued while
   owner 1 is down marks its new edges' table owners dirty (the table is
@@ -58,6 +59,8 @@ CASES = {
     "crash_recover": BASE + ["--inject-crash", "1:3", "--recover-after", "2"],
     # a round after every batch: 6 rounds moving owner 1's hot vertices
     "migrate_hot": BASE + ["--migrate", "--hot-frac", "0.5"],
+    # the replicated baseline: reads and CP drains only, no journal
+    "replicated": BASE + ["--store-tier", "replicated"],
 }
 # the failover line's counts, beside the total's
 FAILOVER_KEYS = ("unavailable_batches", "degraded_batches", "deferred_rows",
@@ -229,6 +232,11 @@ def test_serve_loop_matches_the_reference(case, reference_runs, tmp_path, capsys
     if case == "crash_recover":
         assert total["unavailable_batches"] == 1 and total["recoveries"] == 1
         assert total["deferred_rows"] == total["deferred"] > 0
+    if case == "replicated":
+        # the baseline serves reads and CP only: no blocks, no journal
+        for head in ("store tier:", "journal:", "maintenance:", "durability:"):
+            assert not any(l.startswith(head) for l in out.splitlines() + ref_out.splitlines())
+        assert "[replicated]" in next(l for l in out.splitlines() if " gR-Txs on " in l)
     for path in (trace, ref_trace):
         validate_file(str(path), expect_report=True)
     rep, ref_rep = (json.loads(open(p).read().splitlines()[-1]) for p in (trace, ref_trace))
