@@ -192,7 +192,24 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    the card. Every kernel call of the phase is held to its plain version.
    Prints the gR step p50 of both tiers, the replicated gRW p50 a policy, a
    rank's replica bytes beside a partitioned shard's, the serve loop's
-   total and the phase's seconds and peak memory.
+   total and the phase's seconds and peak memory;
+16. training, right after 10 (its Yi-6B freed first): (a) the
+   flash-attention backward kernels (``csrc/flash_attention_bwd.cu``)
+   against their plain version on Gemma3-4B's global and local layers and
+   on shapes the path does not reach, bf16 (against an fp32 yardstick) and
+   fp32, with times beside the bound and SDPA's backward; (b)
+   ``repro_torch.launch.train.main`` on Gemma3-4B FULL (34 layers, bf16,
+   remat): 3 steps of 1 x 4,096 tokens, losses, grad norms and parameters
+   finite, peak memory, the attention kernels' launches counted around the
+   run (forward, remat's recompute and backward, one each a layer a step),
+   and a fourth step under the profiler; (c) the ~100M LM of
+   ``examples/train_lm_100m_torch.py``: 60 steps with a checkpoint at 30
+   (the loss over steps 51-60 below that over 1-10), a run resumed from it
+   (its losses the uninterrupted run's within 1e-4 relative), then
+   ``--compress-grads`` at ``--smoke`` for 20 steps; (d), after phase 8 on
+   its batch: 5 PNA ``train_step``s at FULL widths, ``segment_spmm``
+   counted forward and backward (the gradient is the same kernel over the
+   transposed edge list), every backward call held to its plain version.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -201,7 +218,8 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
-Phase 11 runs right after 7, on its store, then 12, 13, 14 and 15, before 9.
+Phase 11 runs right after 7, on its store, then 12, 13, 14 and 15, before 9;
+16 runs after 10, and its part (d) after 8.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -4091,6 +4109,369 @@ def flash_sass_counts():
     return counts
 
 
+# ---------------------------------------------------------------- 16. training
+TRAIN_SEQ = 4096  # train_4k's sequence
+TRAIN_ARGV = ["--arch", "gemma3-4b", "--steps", "3", "--batch", "1", "--seq", str(TRAIN_SEQ),
+              "--log-every", "1"]
+FA_BWD_CASES = [  # name, B, Sq, Sk, H, KV, dh, causal, window, q_offset, timed
+    ("gemma3 global", 1, 4096, 4096, 8, 4, 256, True, None, 0, True),
+    ("gemma3 local", 1, 4096, 4096, 8, 4, 256, True, 1024, 0, True),
+    ("GQA dh 128", 2, 1000, 1000, 32, 4, 128, True, None, 0, False),
+    ("ragged non-causal", 1, 333, 517, 4, 2, 64, False, None, 0, False),
+    ("q_offset window", 1, 100, 700, 8, 2, 128, True, 256, 600, False),
+    ("negative q_offset, empty rows", 1, 130, 80, 2, 1, 32, True, None, -70, False),
+]
+# the backward kernels against their plain version on the same inputs: fp32
+# max-abs within 1e-4 of the largest plain value (fp32 sums in another
+# order over up to 4,096 keys); bf16 (accumulated in fp32, rounded once to
+# bf16 at the end, as the plain version) within 2e-2 relative norm of the
+# fp32 yardstick: the plain backward of the same values in fp32
+FA_BWD_F32_TOL = 1e-4
+FA_BWD_BF16_REL = 2e-2
+# the with-lse forward's row lse against the plain one's: both sum the same
+# fp32 scores, and the lse is ~ln(Sk) + 1 (8-12 here), where one fp32 step is
+# 9.5e-7; measured on an H100 at most 1.9e-6 bf16 and 9.5e-7 fp32 over these
+# cases. A row with no allowed key is -1e30 on both sides. Its output o is
+# held to phase 10's FLASH_TOL / FLASH_F32_TOL.
+FA_LSE_TOL = 1e-5
+LM100M_STEPS, LM100M_CKPT_AT = 60, 30
+RESUME_REL_TOL = 1e-4  # a resumed run's losses against the uninterrupted run's
+COMPRESS_STEPS = 20
+PNA_TRAIN_STEPS = 5
+PNA_BWD_TOL = 1e-5  # fp32 segment sums in another order, as phase 8's
+
+
+def attn_bwd_cost(b, sq, sk, h, kv, dh, es, causal, window, q_offset, dev):
+    """(FLOPs, bytes) the backward needs: 5 products over the allowed
+    scores (recompute s, dp = do v^T, dv, dk, dq); q, k, v, o, do and lse
+    read once, dq, dk, dv written once."""
+    from repro_torch.kernels.flash_attention.ref import band_mask
+
+    allowed = int(band_mask(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                            device=dev).sum())
+    flops = 10 * b * h * allowed * dh
+    nbytes = 4 * b * sq * h * dh * es + 4 * b * sk * kv * dh * es + 4 * b * h * sq
+    return flops, nbytes
+
+
+def check_attention_backward(seed, dev):
+    """Phase 16 (a): the backward kernels against their plain version on
+    the path's shapes (Gemma3-4B's global and local layers) and on shapes
+    it does not reach, bf16 and fp32; times at the path's two shapes beside
+    the bound and SDPA's backward. Returns (worst max abs error, timed rows)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import (band_mask, flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 71)
+    bf, f32 = torch.bfloat16, torch.float32
+    worst, rows = 0.0, []
+    for name, b, sq, sk, h, nkv, dh, causal, window, off, timed in FA_BWD_CASES:
+        for dt in (bf, f32):
+            q = torch.randn(b, sq, h, dh, generator=gen, device=dev).to(dt)
+            k = torch.randn(b, sk, nkv, dh, generator=gen, device=dev).to(dt)
+            v = torch.randn(b, sk, nkv, dh, generator=gen, device=dev).to(dt)
+            do = torch.randn(b, sq, h, dh, generator=gen, device=dev).to(dt)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window or 0,
+                                          q_offset=off, with_lse=True)
+            p_o, p_lse = flash_attention_ref(q, k, v, with_lse=True, **kw)
+            lse_err = float((lse - p_lse).abs().max())
+            o_tol = FLASH_F32_TOL if dt == f32 else FLASH_TOL
+            o_err = float((o.float() - p_o.float()).abs().max())
+            got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            want = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+            worst = max(worst, err)
+            if dt == f32:
+                # and from the plain forward's o and lse, so that a wrong
+                # forward lse cannot pass through both sides alike
+                p_err = max(float((a - w).abs().max()) for a, w in
+                            zip(got, flash_attention_bwd_ref(q, k, v, p_o, do, p_lse, **kw)))
+                worst = max(worst, p_err)
+                scale = max(float(w.abs().max()) for w in want)
+                ok = max(err, p_err) <= FA_BWD_F32_TOL * scale
+                what = (f"max abs err {err:.3e}, {p_err:.3e} from the plain forward's o and lse "
+                        f"(tol {FA_BWD_F32_TOL} x {scale:.3e})")
+            else:
+                x32 = [t.float() for t in (q, k, v)]
+                o32, lse32 = flash_attention_ref(*x32, with_lse=True, **kw)
+                yard = flash_attention_bwd_ref(*x32, o32, do.float(), lse32, **kw)
+                rels = [rel_norm(a, w) for a, w in zip(got, yard)]
+                ok = max(rels) <= FA_BWD_BF16_REL
+                what = (f"relative norm vs fp32 yardstick dq/dk/dv {rels[0]:.3e} / {rels[1]:.3e}"
+                        f" / {rels[2]:.3e} (tol {FA_BWD_BF16_REL}); max abs err vs bf16 plain "
+                        f"{err:.3e}")
+                del o32, lse32, yard, x32
+            print(f"kernel flash_attention_bwd case {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
+                  f"{str(dt)[6:]} causal={causal} window={window} q_offset={off}: {what}; "
+                  f"forward with lse: lse max abs err {lse_err:.3e} (tol {FA_LSE_TOL}), o max "
+                  f"abs err {o_err:.3e} (tol {o_tol})", flush=True)
+            assert lse.dtype == f32 and lse.shape == p_lse.shape and lse_err <= FA_LSE_TOL, \
+                f"the forward's lse disagrees with its plain version: {name} {dt}"
+            assert o.dtype == dt and torch.allclose(o.float(), p_o.float(), rtol=o_tol,
+                                                    atol=o_tol), \
+                f"the with-lse forward's o disagrees with its plain version: {name} {dt}"
+            assert all(a.dtype == dt and a.shape == w.shape for a, w in zip(got, want))
+            assert ok, f"flash_attention_bwd disagrees with its plain version: {name} {dt}"
+            del got, want, p_o, p_lse
+            if timed and dt == bf:
+                t = timings(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+                            lambda: flash_attention_bwd_ref(q, k, v, o, do, lse, **kw),
+                            iters=(5, 2))
+                qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                              for x in (q, k, v))
+                mask = None
+                if window:
+                    mask = band_mask(sq, sk, causal=True, window=window, q_offset=0, device=dev)
+                lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                    is_causal=mask is None, enable_gqa=True)
+                dot = do.transpose(1, 2).contiguous()
+                lib = lambda: torch.autograd.grad(lo, (qt, kt, vt), dot, retain_graph=True)
+                lib_ms, lib_dev = cuda_ms(lib, iters=5, warmup=2), device_ms(lib, iters=5)
+                flops, nbytes = attn_bwd_cost(b, sq, sk, h, nkv, dh, 2, causal, window, off, dev)
+                tb, to = nbytes / HBM_BYTES_S * 1e3, flops / BF16_TENSOR_FLOPS * 1e3
+                bms, by = (tb, "bytes") if tb >= to else (to, "operations")
+                us = lambda x: "not measured" if x is None else f"{x * 1e3:.3f}"
+                print(f"kernel flash_attention_bwd {name} q={tuple(q.shape)} k={tuple(k.shape)} "
+                      f"bf16 {fmt_us(t)} sdpa_backward_us={us(lib_ms)} (device {us(lib_dev)}"
+                      f"{', boolean band mask' if mask is not None else ''}) "
+                      f"bound_us={bms * 1e3:.4f} ({by}: {flops:.4e} FLOP at the bf16 tensor "
+                      f"peak; {nbytes} B)", flush=True)
+                rows.append(dict(shape=name, **t, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                                 library_device_ms=lib_dev, flops=flops, bytes=nbytes))
+                del qt, kt, vt, lo, dot
+            del q, k, v, do, o, lse
+    return worst, rows
+
+
+REMAT_AB_STEPS = 3  # a policy's steps in each of its two turns; the first is left out
+
+
+def compare_remat_policies(step, params, opt_state, tokens, labels):
+    """The port's remat (each block recomputed whole, its GEMMs included)
+    against the reference's policy, ``dots_with_no_batch_dims_saveable``,
+    written in torch as a selective checkpoint that keeps every ``aten.mm``
+    output of a block: ms a step and peak memory, in the order port,
+    reference, reference, port. Returns {policy: (median ms, peak GiB)}."""
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    from repro_torch.lm import model as lm_model
+
+    keep_mm = functools.partial(create_selective_checkpoint_contexts, [torch.ops.aten.mm.default])
+
+    def saving_mm(fn, *a, **kw):
+        if fn is lm_model._block:
+            kw["context_fn"] = keep_mm
+        return checkpoint(fn, *a, **kw)
+
+    ms, peak = {"port": [], "keep_mm": []}, {}
+    for name in ("port", "keep_mm", "keep_mm", "port"):
+        lm_model.checkpoint = saving_mm if name == "keep_mm" else checkpoint
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for i in range(REMAT_AB_STEPS):
+                t = time.perf_counter()
+                step(params, opt_state, tokens, labels)
+                torch.cuda.synchronize()
+                if i:
+                    ms[name].append((time.perf_counter() - t) * 1e3)
+        finally:
+            lm_model.checkpoint = checkpoint
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    out = {k: (float(np.median(v)), peak[k]) for k, v in ms.items()}
+    print(f"train remat policy (port, keep_mm, keep_mm, port; {REMAT_AB_STEPS - 1} timed steps "
+          f"a turn): whole blocks {out['port'][0]:.3f} ms a step, peak {out['port'][1]:.2f} GiB; "
+          f"keeping the GEMM outputs {out['keep_mm'][0]:.3f} ms, peak {out['keep_mm'][1]:.2f} "
+          f"GiB; steps {json.dumps(ms)}", flush=True)
+    return out
+
+
+def run_train(seed, dev):
+    """Phase 16: (a) the attention backward kernels; (b) Gemma3-4B FULL,
+    3 training steps of 1 x 4,096 tokens through ``launch.train.main``, the
+    attention kernels' launches counted around it, then one more step
+    under the profiler; (c) the ~100M LM of
+    ``examples/train_lm_100m_torch.py``, 60 steps with a checkpoint at 30,
+    a run resumed from it, and ``--compress-grads`` at ``--smoke``.
+    Returns the backward kernel's row and the flash_attention forward's
+    launches in training."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.ckpt import tree_leaves
+    from repro_torch.configs import gemma3_4b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.lm import model as lm_model
+
+    t_phase = time.perf_counter()
+    err, timed = check_attention_backward(seed, dev)
+    free_device()
+
+    # (b) Gemma3-4B FULL through the training entry point, counted
+    cfg = gemma3_4b.FULL
+    print(f"train: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads} KV, head dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab:,}, window {cfg.sliding_window} in a {cfg.local_global_pattern}:1 "
+          f"local:global pattern), {cfg.dtype}, remat; reduced: train_4k's global batch 256 "
+          f"-> 1 sequence of {TRAIN_SEQ:,}, 3 steps", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.launches = fa_ops.launches_bf16_tc = fa_ops.launches_f32_simt = 0
+    fa_ops.launches_fwd_lse = fa_ops.launches_bwd = 0
+    keep = {}
+    t0 = time.perf_counter()
+    losses = train_mod.main(TRAIN_ARGV, keep=keep)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    steps = len(losses)
+    counts = dict(forward=fa_ops.launches, forward_with_lse=fa_ops.launches_fwd_lse,
+                  backward=fa_ops.launches_bwd, bf16_tc=fa_ops.launches_bf16_tc)
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state = keep["params"], keep["opt_state"]
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    report = dict(losses=losses, grad_norm=keep["grad_norm"],
+                  step_ms=[x * 1e3 for x in keep["step_s"]], run_s=run_s, peak_gib=peak / 2**30, launches=counts,
+                  launches_per_step={k: v / steps for k, v in counts.items()},
+                  params_finite=finite)
+    print("train gemma3-4b: " + json.dumps(report), flush=True)
+    assert steps == 3 and all(np.isfinite(losses)) and all(np.isfinite(keep["grad_norm"])), report
+    assert finite, "non-finite parameters after the steps"
+    assert counts["backward"] == steps * cfg.n_layers, counts
+    assert counts["forward_with_lse"] == 2 * steps * cfg.n_layers == counts["forward"] == \
+        counts["bf16_tc"], counts  # the forward and remat's recompute, all on the tensor cores
+
+    # one more step under the profiler; the forward's launches split from
+    # the recompute's by a count taken as the loss returns
+    _, step = train_mod.build(cfg, 3e-3, 3, compress=False)
+    tokens, labels = next(train_mod.synthetic_batches(cfg.vocab, 1, TRAIN_SEQ, seed=seed + 1,
+                                                      device=dev))
+    split = {}
+    inner = lm_model.loss_fn
+
+    def loss_counted(*a, **kw):
+        out = inner(*a, **kw)
+        split["forward"] = fa_ops.launches_fwd_lse
+        return out
+
+    fa_ops.launches_fwd_lse = fa_ops.launches_bwd = 0
+    lm_model.loss_fn = loss_counted
+    try:
+        wall, busy = profiled(" train", "one gemma3-4b training step (1 x 4,096)",
+                              lambda: step(params, opt_state, tokens, labels), host_ops=False)
+    finally:
+        lm_model.loss_fn = inner
+    split.update(recompute=fa_ops.launches_fwd_lse - split["forward"], backward=fa_ops.launches_bwd)
+    report["profiled_step"] = dict(wall_ms=wall, busy_ms=busy, launches=split,
+                                   idle_share=None if busy is None else 1 - busy / wall)
+    print(f"train step launches: forward {split['forward']}, recompute {split['recompute']}, "
+          f"backward {split['backward']} (flash_attention / its backward kernels, "
+          f"{cfg.n_layers} layers)", flush=True)
+    assert split == {"forward": cfg.n_layers, "recompute": cfg.n_layers,
+                     "backward": cfg.n_layers}, split
+    report["remat_policy"] = compare_remat_policies(step, params, opt_state, tokens, labels)
+    del params, opt_state, keep, step, tokens, labels
+    free_device()
+
+    # (c) the ~100M LM: the loss falls, a resume repeats the losses
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_100m_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                            "examples", "train_lm_100m_torch.py"))
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    tmp = tempfile.mkdtemp(prefix="lm100m_")
+    try:
+        t0 = time.perf_counter()
+        full = ex.run(LM100M_STEPS, ckpt=os.path.join(tmp, "a"), ckpt_every=LM100M_CKPT_AT,
+                      device=dev, log_every=10)
+        full_s = time.perf_counter() - t0
+        shutil.copytree(os.path.join(tmp, "a", f"step_{LM100M_CKPT_AT}"),
+                        os.path.join(tmp, "b", f"step_{LM100M_CKPT_AT}"))
+        resumed = ex.run(LM100M_STEPS, ckpt=os.path.join(tmp, "b"), ckpt_every=LM100M_CKPT_AT,
+                         resume=True, device=dev, log_every=10)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    head, tail = float(np.mean(full[:10])), float(np.mean(full[-10:]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[LM100M_CKPT_AT:]))
+    report["lm100m"] = dict(loss_first10=head, loss_last10=tail, resume_max_rel=rel,
+                            s=full_s, ms_per_step=full_s * 1e3 / LM100M_STEPS)
+    print(f"train lm-100m: {LM100M_STEPS} steps in {full_s:.1f}s, mean loss steps 1-10 "
+          f"{head:.4f} -> {LM100M_STEPS - 9}-{LM100M_STEPS} {tail:.4f}; resumed from step "
+          f"{LM100M_CKPT_AT}: steps "
+          f"{LM100M_CKPT_AT + 1}-{LM100M_STEPS} within {rel:.3e} relative of the uninterrupted "
+          f"run (tol {RESUME_REL_TOL})", flush=True)
+    assert len(full) == LM100M_STEPS and all(np.isfinite(full)) and tail < head, report["lm100m"]
+    assert len(resumed) == LM100M_STEPS - LM100M_CKPT_AT and rel <= RESUME_REL_TOL, rel
+    comp = train_mod.main(["--arch", "gemma3-4b", "--smoke", "--steps", str(COMPRESS_STEPS),
+                           "--compress-grads", "--log-every", "10"])
+    print(f"train --compress-grads --smoke: {len(comp)} steps, losses {comp[0]:.4f} -> "
+          f"{comp[-1]:.4f}", flush=True)
+    assert len(comp) == COMPRESS_STEPS and all(np.isfinite(comp)), comp
+    report["compress_losses"] = comp
+    print(f"train phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+
+    big = timed[0]
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="none: the JAX package differentiates the plain-JAX "
+                        "src/repro/lm/attention.py:33",
+               launches=counts["backward"], max_abs_err=err,
+               **{k: big[k] for k in ("ms", "plain_ms", "device_ms", "plain_device_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "library_device_ms")},
+               library="SDPA backward (flash, is_causal, enable_gqa)",
+               shape="gemma3 global: q=(1, 4096, 8, 256), k=(1, 4096, 4, 256), causal",
+               timed_shapes=timed, kernels_per_launch=2)
+    return report, row, counts["forward"]
+
+
+def run_pna_train(cfg, params, g):
+    """Phase 16 (d): PNA ``train_step``s on phase 8's minibatch_lg batch at
+    FULL widths (d_in 602, 41 classes), ``segment_spmm``'s launches
+    counted forward and backward around them; every backward call held to
+    its plain version over the transposed CSR. Returns the launches."""
+    from repro_torch.gnn.models import train_step
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref
+    from repro_torch.optim import adamw, chain, clip_by_global_norm
+    from repro_torch.optim.adamw import tree_map
+
+    params = tree_map(torch.clone, params)  # phase 8's stay as they were
+    opt = chain(clip_by_global_norm(1.0), adamw(1e-3))
+    state, step = opt.init(params), train_step(cfg, opt)
+    capture = CallCapture((ss_ops, "csr_sum"))
+    ss_ops.launches = ss_ops.launches_backward = 0
+    losses, ms = [], []
+    with capture:
+        for _ in range(PNA_TRAIN_STEPS):
+            t = time.perf_counter()
+            params, state, m = step(params, state, g)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t) * 1e3)
+    bwd, fwd = ss_ops.launches_backward, ss_ops.launches - ss_ops.launches_backward
+    calls = [(a, kw) for a, kw in capture.calls["csr_sum"] if kw.get("backward")]
+    err = 0.0
+    for (x, csr, *_), _ in calls:
+        got, want = ss_ops.csr_sum(x, csr), segment_spmm_csr_ref(x, csr.src_sorted, csr.offsets)
+        assert torch.allclose(got, want, rtol=PNA_BWD_TOL, atol=PNA_BWD_TOL), \
+            "segment_spmm backward call disagrees with its plain version"
+        err = max(err, float((got - want).abs().max()))
+    report = dict(losses=losses, step_ms=ms, segment_spmm_forward=fwd, segment_spmm_backward=bwd,
+                  backward_calls_checked=len(calls), backward_max_abs_err=err)
+    print("gnn train (phase 16 d): " + json.dumps(report), flush=True)
+    per_step = 5 * cfg.n_layers, 2 * cfg.n_layers  # every sum forward; m and m^2 backward
+    assert all(np.isfinite(losses)) and len(losses) == PNA_TRAIN_STEPS, losses
+    assert (fwd, bwd) == (PNA_TRAIN_STEPS * per_step[0], PNA_TRAIN_STEPS * per_step[1]), (fwd, bwd)
+    assert len(calls) == bwd, (len(calls), bwd)
+    return report
+
+
 def phase_memory(tag):
     """Prints the phase's peak device memory and starts the next phase's count."""
     print(f"peak device memory {tag}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -4253,6 +4634,16 @@ def run_gnn_phase(seed, dev):
     profile_windows()
     print(f"gnn phase: {time.perf_counter() - t0:.1f}s", flush=True)
     phase_memory("phase 8")
+    # 16 (d). PNA training on the same batch
+    t0 = time.perf_counter()
+    tr = run_pna_train(*model)
+    row["launches_by_path"] = {"phase 8 forwards": row["launches"],
+                               "phase 16 training forwards": tr["segment_spmm_forward"],
+                               "phase 16 training backwards": tr["segment_spmm_backward"]}
+    row["launches"] += tr["segment_spmm_forward"] + tr["segment_spmm_backward"]
+    row["backward_max_abs_err"] = tr["backward_max_abs_err"]
+    print(f"gnn train phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 16 d")
     return row
 
 
@@ -4316,7 +4707,20 @@ def main():
     phase_memory("phase 10")
     free_device()
 
-    # 8. GNN serving, last
+    # 16. training: the attention backward, Gemma3-4B FULL steps through
+    # launch.train (flash_attention and its backward counted around them),
+    # the 100M LM's checkpoint and resume
+    _, bwd_row, train_fwd = run_train(args.seed, dev)
+    for row in rows:
+        if row["name"] == "flash_attention":
+            row["launches_by_path"] = {"phase 10 prefill": row["launches"],
+                                       "phase 16 training (forward and recompute)": train_fwd}
+            row["launches"] += train_fwd
+    rows.append(bwd_row)
+    phase_memory("phase 16")
+    free_device()
+
+    # 8. GNN serving, then 16 (d), PNA training on its batch; last
     rows.append(run_gnn_phase(args.seed, dev))
 
     print(f"total: {time.perf_counter() - t_all:.1f}s", flush=True)

@@ -13,7 +13,8 @@ package restores a checkpoint the other wrote; only ``manifest.json``'s
 ``treedef`` string differs, and neither package reads it.
 
 ``restore_checkpoint`` takes a ``device`` where the reference takes
-``shardings``.
+``shardings``. A bf16 leaf is written as its raw 2-byte values under the
+dtype name ``bfloat16``, as the reference's ``ml_dtypes`` leaves are.
 """
 
 from __future__ import annotations
@@ -84,8 +85,15 @@ def tree_unflatten(template, leaves):
     return out
 
 
-def _host(leaf) -> np.ndarray:
-    return leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
+def _host(leaf):
+    """``(the leaf's bytes as a numpy array, its dtype name)``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:  # numpy has no bf16: its bits
+            return t.view(torch.int16).numpy(), "bfloat16"
+        arr = t.numpy()
+        return arr, str(arr.dtype)
+    return leaf, str(leaf.dtype)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
@@ -100,8 +108,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
     # the reference writes jax's treedef string here; neither package reads it
     manifest = {"step": step, "treedef": type(tree).__name__, "leaves": []}
     for i, leaf in enumerate(leaves):
-        arr = _host(leaf)
-        manifest["leaves"].append({"shape": list(arr.shape), "dtype": str(arr.dtype)})
+        arr, dtype = _host(leaf)
+        manifest["leaves"].append({"shape": list(arr.shape), "dtype": dtype})
         with open(os.path.join(tmp, f"{i}.zst"), "wb") as f:
             f.write(_comp(np.ascontiguousarray(arr).tobytes()))
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -135,10 +143,13 @@ def restore_checkpoint(ckpt_dir: str, step: int, template, device=None):
                          f"the template {len(t_leaves)}")
     out = []
     for i, (tmpl, meta) in enumerate(zip(t_leaves, manifest["leaves"])):
+        bf16 = meta["dtype"] == "bfloat16"
         with open(os.path.join(path, f"{i}.zst"), "rb") as f:
-            arr = np.frombuffer(_decomp(f.read()), dtype=np.dtype(meta["dtype"]))
+            raw = _decomp(f.read())
+        arr = np.frombuffer(raw, dtype=np.int16 if bf16 else np.dtype(meta["dtype"]))
         arr = arr.reshape(meta["shape"])
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(f"leaf {i} of {path}: shape {arr.shape} != {tuple(tmpl.shape)}")
-        out.append(torch.from_numpy(arr.copy()).to(dev))
+        t = torch.from_numpy(arr.copy())
+        out.append((t.view(torch.bfloat16) if bf16 else t).to(dev))
     return tree_unflatten(template, out)

@@ -13,7 +13,7 @@ FULL = LMConfig(
 
 SMOKE = LMConfig(
     name="yi-6b-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
-    d_ff=96, vocab=512,
+    d_ff=96, vocab=512, loss_chunk=16,
 )
 
 SHAPES = LM_SHAPES

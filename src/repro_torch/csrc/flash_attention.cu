@@ -19,6 +19,16 @@
 // them unrounded); the output is acc / max(l, 1e-30) in q's type. Keys
 // past Sk (the ragged last tile) are left out entirely (probability 0).
 //
+// The row log-sum-exp, for the backward (csrc/flash_attention_bwd.cu):
+// when the caller passes an lse pointer (the autograd path), both kernels
+// also write lse [B, H, Sq] fp32 = m + ln(l), in natural-log units of the
+// scaled scores s = (q * scale) . k, so that the backward recomputes each
+// probability as exp(s - lse). The bf16 kernel's exponentials run in base
+// 2 (exp2f((s - m) * log2 e)), but its m and l are those of base e: m is
+// the largest scaled score and l the sum of e^(s - m). A row with no
+// allowed key gets lse = -1e30 (its m; ln l vanishes beside it). Prefill
+// passes a null pointer and writes nothing more.
+//
 // Tile skipping and fully masked rows: a CTA walks only the key range
 // [lo, hi) that can hold an allowed key of one of its rows. A skipped key
 // would only add -1e30 scores, which give such a row exactly nothing: once
@@ -117,8 +127,8 @@ constexpr size_t simt_smem_bytes() {
 template <int DHP>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int sq, int sk, int n_heads, int n_kv, int dh,
-    int causal, int window, int q_offset, float scale) {
+    float* __restrict__ out, float* __restrict__ lse, int sq, int sk, int n_heads, int n_kv,
+    int dh, int causal, int window, int q_offset, float scale) {
   constexpr int LD = DHP + 1;  // row stride of Qs and Ks: keys land in distinct banks
   constexpr int NC = DHP / 16;  // output columns a thread owns per row
   extern __shared__ float smem[];
@@ -236,11 +246,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
       const int col = tx + 16 * c;
       if (col < dh) orow[col] = o[i][c] / denom;
     }
+    if (lse != nullptr && tx == 0) lse[((long long)b * n_heads + head) * sq + row] = m[i] + logf(l[i]);
   }
 }
 
 template <int DHP>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq, int sk,
                int h, int kv, int dh, int causal, int window, int q_offset, float scale,
                cudaStream_t stream) {
   constexpr size_t smem = simt_smem_bytes<DHP>();
@@ -254,19 +265,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b, in
   }
   const dim3 grid((sq + kRows - 1) / kRows, h, b);
   flash_attention_f32_kernel<DHP><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk, h, kv, dh, causal,
-      window, q_offset, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, sq, sk, h, kv, dh,
+      causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
+int dispatch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq, int sk,
                  int h, int kv, int dh, int causal, int window, int q_offset, float scale,
                  cudaStream_t s) {
-  if (dh <= 16) return launch_f32<16>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  if (dh <= 32) return launch_f32<32>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  if (dh <= 64) return launch_f32<64>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  if (dh <= 128) return launch_f32<128>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  return launch_f32<256>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  if (dh <= 16) return launch_f32<16>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  if (dh <= 32) return launch_f32<32>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  if (dh <= 64) return launch_f32<64>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  if (dh <= 128) return launch_f32<128>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  return launch_f32<256>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
 }
 
 // ------------------------------------------------- bf16, tensor cores
@@ -481,8 +492,9 @@ struct TcShape {
 template <int DHP>
 __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_bf16_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int sq, int sk,
-    int n_heads, int n_kv, int dh, int causal, int window, int q_offset, float scale) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int sq, int sk, int n_heads, int n_kv, int dh, int causal,
+    int window, int q_offset, float scale) {
   using C = TcShape<DHP>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -660,6 +672,7 @@ __global__ void __launch_bounds__(kTcThreads, 1) flash_attention_bf16_kernel(
     const int row = row0 + 8 * r;
     if (row >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && cq == 0) lse[((long long)b * n_heads + head) * sq + row] = m[r] + logf(l[r]);
     __nv_bfloat16* orow = out + ((long long)b * sq + row) * q_stride + (long long)head * dh;
 #pragma unroll
     for (int j = 0; j < DHP / 8; ++j) {
@@ -713,7 +726,7 @@ int encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int b, int s,
 }
 
 template <int DHP>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq, int sk,
                 int h, int kv, int dh, int causal, int window, int q_offset, float scale,
                 cudaStream_t stream) {
   using C = TcShape<DHP>;
@@ -734,27 +747,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b, i
   if (err) return err;
   const dim3 grid((sq + kTcRows - 1) / kTcRows, h, b);
   flash_attention_bf16_kernel<DHP><<<grid, kTcThreads, C::SMEM, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, sq, sk, h, kv, dh, causal, window, q_offset, scale);
+      tq, tk, tv, (__nv_bfloat16*)out, lse, sq, sk, h, kv, dh, causal, window, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch_bf16(const void* q, const void* k, const void* v, void* out, int b, int sq, int sk,
+int dispatch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int b, int sq, int sk,
                   int h, int kv, int dh, int causal, int window, int q_offset, float scale,
                   cudaStream_t s) {
-  if (dh <= 64) return launch_bf16<64>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  if (dh <= 128) return launch_bf16<128>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  return launch_bf16<256>(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  if (dh <= 64) return launch_bf16<64>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  if (dh <= 128) return launch_bf16<128>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+  return launch_bf16<256>(q, k, v, out, lse, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
 }
 
 }  // namespace
 
-// q [b, sq, h, dh]; k, v [b, sk, kv, dh]; out [b, sq, h, dh]; dh <= 256, a
-// multiple of 8. window <= 0: none. scale_bits: the fp32 bits of the
+// q [b, sq, h, dh]; k, v [b, sk, kv, dh]; out [b, sq, h, dh]; lse null, or
+// [b, h, sq] fp32 (see the header); dh <= 256, a multiple of 8. window <= 0:
+// none. scale_bits: the fp32 bits of the
 // softmax scale. is_bf16: 1 for bf16 tensors (the tensor-core kernel; q,
 // k, v 16-byte aligned), 0 for fp32 (the SIMT kernel). Returns a
 // cudaError_t code, or 10000 + the CUresult of a refused tensor map.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, void* lse,
     int b, int sq, int sk, int h, int kv, int dh, int causal, int window, int q_offset,
     int scale_bits, int is_bf16, void* stream) {
   if (b <= 0 || sq <= 0 || h <= 0 || dh <= 0) return 0;
@@ -763,6 +777,8 @@ extern "C" int flash_attention_launch(
   memcpy(&scale, &scale_bits, sizeof scale);
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return dispatch_bf16(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
-  return dispatch_f32(q, k, v, out, b, sq, sk, h, kv, dh, causal, window, q_offset, scale, s);
+    return dispatch_bf16(q, k, v, out, (float*)lse, b, sq, sk, h, kv, dh, causal, window,
+                         q_offset, scale, s);
+  return dispatch_f32(q, k, v, out, (float*)lse, b, sq, sk, h, kv, dh, causal, window, q_offset,
+                      scale, s);
 }

@@ -1061,7 +1061,7 @@ class GraphServeConfig:
     max_deg: int  # per-hop gather window
     max_leaves: int  # cache value width
     cache_slots_total: int  # cache capacity across the fleet
-    recent_cap: int  # append-region scan window
+    recent_cap: int = 1024  # append-region scan window
     n_vprops: int = 2
     n_eprops: int = 1
     # the served template instance (Figure 1): edge prop0 == 1, leaf prop0 == 0

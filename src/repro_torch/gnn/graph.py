@@ -4,12 +4,13 @@ PyTorch twin of ``repro.gnn.graph``. Message passing runs directly over an
 edge-index list; this IS the SpMM/SDDMM layer of the system. Every segment
 *sum* (``scatter_sum``, the sums and counts of ``scatter_mean``,
 ``degrees``) goes through the ``segment_spmm`` op, which launches the
-hand-written kernel on the card. Each takes an optional ``csr``, the
-edges sorted by destination once (``edge_csr``), so that a forward sorts
-its edges once instead of once a sum. Segment max / min and the edge
-softmax stay plain torch (``scatter_reduce``), as the reference leaves
-them to ``jax.ops.segment_max``. All shapes are static (padded with
-masks).
+hand-written kernel on the card, forward and, in training, backward (over
+the transposed edge list). Each takes an optional ``csr``, the edges
+sorted by destination once (``edge_csr``), so that a forward sorts its
+edges once instead of once a sum. Segment max / min and the edge softmax
+stay plain torch (``scatter_reduce``), as the reference leaves them to
+``jax.ops.segment_max``, and take autograd's gradient (a tie splits it
+evenly, as jax's does). All shapes are static (padded with masks).
 
 The reference's ``_npin`` / ``constrain`` are sharding hints for a device
 mesh; on one card they have nothing to do and are left out.
@@ -88,10 +89,14 @@ def _segment_ids(dst, n_nodes, edge_mask):
     return torch.where(keep, dst.to(torch.int64), n_nodes)
 
 
-def edge_csr(dst, n_nodes, edge_mask) -> SegmentCSR:
+def edge_csr(dst, n_nodes, edge_mask, transpose: bool = False) -> SegmentCSR:
     """The CSR of per-edge rows (row ``e`` of a [E, D] message tensor) by
-    destination, for the segment sums below: built once, used by all."""
-    return prepare_edges(_edge_ids(dst), dst, n_nodes, dst.shape[0], edge_mask)
+    destination, for the segment sums below: built once, used by all. With
+    ``transpose`` (training), it carries the transposed CSR too, which
+    every sum's backward walks: one edge a row, the row of its
+    destination."""
+    return prepare_edges(_edge_ids(dst), dst, n_nodes, dst.shape[0], edge_mask,
+                         transpose=transpose)
 
 
 def scatter_sum(messages, dst, n_nodes, edge_mask, csr: Optional[SegmentCSR] = None):

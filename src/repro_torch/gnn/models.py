@@ -1,18 +1,23 @@
-"""GNN models: init / forward / loss dispatched on ``config.kind``.
+"""GNN models: init / forward / loss / train_step dispatched on
+``config.kind``.
 
-PyTorch twin of ``repro.gnn.models`` for ``kind="pna"``, the path that
+PyTorch twin of ``repro.gnn.models`` for ``kind="pna"``: the path that
 serves (cached sampling, then the forward pass and its loss as
-evaluation). The other kinds and ``train_step`` are not ported yet: they
-raise ``NotImplementedError`` naming the ROADMAP item.
+evaluation) and trains (``train_step``, whose backward runs every segment
+sum's gradient through the ``segment_spmm`` kernel too). The other kinds
+are not ported yet: they raise ``NotImplementedError`` naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.gnn.config import GNNConfig
 from repro_torch.gnn.graph import GraphBatch, edge_csr
 from repro_torch.gnn.layers import mlp, mlp_init, pna_layer, pna_layer_init
+from repro_torch.optim.adamw import apply_updates, value_and_grad
 from repro_torch.utils import resolve_device
 
 
@@ -38,11 +43,14 @@ def init_params(cfg: GNNConfig, generator: torch.Generator, device=None):
 def forward(cfg: GNNConfig, params, g: GraphBatch):
     """Returns node logits [N, n_classes]. The edges are sorted by
     destination once (``edge_csr``) and that CSR serves every layer's
-    segment sums."""
+    segment sums; when a gradient will be taken, its transpose (built with
+    it) serves their backward."""
     src, dst, em, nm = g.edge_src, g.edge_dst, g.edge_mask, g.node_mask
     if cfg.kind == "pna":
         h = g.node_feat
-        csr = edge_csr(dst, h.shape[0], em)
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in [h] + tree_leaves(params))
+        csr = edge_csr(dst, h.shape[0], em, transpose=grad)
         for lp in params["layers"]:
             h = pna_layer(lp, cfg, h, src, dst, em, nm, csr)
         return mlp(params["head"], h)
@@ -58,3 +66,19 @@ def loss_fn(cfg: GNNConfig, params, g: GraphBatch, targets=None):
     gold = torch.take_along_dim(logits, g.labels.long()[:, None], -1)[:, 0]
     per = (logz - gold) * g.node_mask
     return per.sum() / g.node_mask.sum().clamp(min=1)
+
+
+def train_step(cfg: GNNConfig, optimizer):
+    """The step ``(params, opt_state, g, targets=None) -> (params,
+    opt_state, {"loss"})`` for ``optimizer``, a ``repro_torch.optim``
+    GradientTransform. The parameters move by ``p + u.to(p.dtype)`` as in
+    the reference, in place: the returned tree is ``params`` itself."""
+    if cfg.kind != "pna":
+        raise _not_ported(cfg)
+
+    def step(params, opt_state, g: GraphBatch, targets=None):
+        loss, grads = value_and_grad(lambda p: loss_fn(cfg, p, g, targets), params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, {"loss": loss}
+
+    return step

@@ -191,6 +191,33 @@ def params_from_numpy(tree, device=None):
     return conv(tree)
 
 
+def opt_state_from_numpy(state, device=None):
+    """An optimizer state from the reference's: ``AdamWState``s (their
+    ``_asdict()``, each tree of moments as nested numpy arrays) inside the
+    tuples of ``chain``, the ``()`` of a stateless transform kept as it is.
+    ``step`` becomes an int32 scalar tensor."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    if isinstance(state, dict) and set(state) == set(AdamWState._fields):
+        return AdamWState(step=_tensor(np.asarray(state["step"], np.int32), dev),
+                          m=params_from_numpy(state["m"], dev),
+                          v=params_from_numpy(state["v"], dev))
+    if isinstance(state, (tuple, list)):
+        return tuple(opt_state_from_numpy(s, dev) for s in state)
+    raise TypeError(f"not an optimizer state: {type(state).__name__}")
+
+
+def opt_state_to_numpy(state):
+    """The port's optimizer state as the reference's, each ``AdamWState`` as
+    its ``_asdict()`` of numpy arrays (the inverse of
+    ``opt_state_from_numpy``)."""
+    if hasattr(state, "_fields"):
+        return {"step": _numpy(state.step), "m": params_to_numpy(state.m),
+                "v": params_to_numpy(state.v)}
+    return tuple(opt_state_to_numpy(s) for s in state)
+
+
 def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}

@@ -1,44 +1,50 @@
-"""Public flash_attention wrapper, in the LM layout.
+"""Public flash_attention wrapper, in the LM layout, with its gradient.
 
-CPU tensors take the plain PyTorch version (``ref.py``); CUDA tensors launch
-a hand-written kernel or raise. The dtype picks the kernel: bf16 runs on the
-tensor cores (wgmma, TMA-staged tiles), fp32 on the SIMT kernel (tensor
-cores would be TF32). There is no fallback between the three.
-``launches`` counts kernel launches (never the plain version's calls), so a
-run can show that its prefill went through the kernel; ``launches_bf16_tc``
-and ``launches_f32_simt`` split it by route. The kernels' tiles are their own
-constants: the reference's ``q_chunk`` / ``k_chunk`` have no counterpart
-here.
+CPU tensors take the plain PyTorch versions (``ref.py``); CUDA tensors
+launch a hand-written kernel or raise. The dtype picks the forward kernel:
+bf16 runs on the tensor cores (wgmma, TMA-staged tiles), fp32 on the SIMT
+kernel (tensor cores would be TF32). There is no fallback between them.
+
+Where q, k or v requires a gradient (and autograd is on), the call goes
+through ``FlashAttentionFn``: its forward also writes the row log-sum-exp,
+and its backward launches the backward kernels (``csrc/flash_attention_bwd.cu``;
+on the CPU, ``flash_attention_bwd_ref``). Otherwise, as in prefill, the
+forward writes no lse.
+
+Launch counters (kernel launches only, never the plain versions' calls),
+so a run can show that its attention went through the kernels:
+``launches`` every forward launch, split by route into ``launches_bf16_tc``
+and ``launches_f32_simt`` and by purpose into ``launches_fwd_lse`` (the
+autograd path's, remat recomputations included); ``launches_bwd`` one per
+backward call, which launches the dq kernel and then the dk / dv kernel.
+The kernels' tiles are their own constants: the reference's ``q_chunk`` /
+``k_chunk`` have no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref, flash_attention_ref
 
 launches = 0
 launches_bf16_tc = 0
 launches_f32_simt = 0
+launches_fwd_lse = 0
+launches_bwd = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _INDEX_LIMIT = 2**31
 _GRID_LIMIT = 65535  # heads and batch ride the grid's y and z
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
-    """q [B, Sq, H, dh]; k, v [B, Sk, KV, dh] with H a multiple of KV
-    (query head h reads KV head h // (H // KV)); fp32 or bf16, one dtype;
-    dh <= 256, a multiple of 8. Query row i sits at position ``q_offset +
-    i``; ``window`` None or <= 0 is none. Returns [B, Sq, H, dh] in q's
-    dtype."""
-    global launches, launches_bf16_tc, launches_f32_simt
+def _check(q, k, v):
+    """Raises on what the kernels do not take."""
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or t.dtype != q.dtype or t.device != dev or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous 4-d {q.dtype} "
@@ -61,15 +67,95 @@ def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
         # TMA reads from 16-byte aligned bases only; a contiguous view can
         # start mid-row
         raise ValueError("flash_attention: bf16 q, k and v must start on 16-byte boundaries")
-    w = 0 if window is None else int(window)
-    q_offset = int(q_offset)
+
+
+def _forward(q, k, v, causal, window, q_offset, with_lse):
+    """The forward on q's device: the plain version on the CPU, else a
+    kernel launch (counted). ``(out, lse or None)``."""
+    global launches, launches_bf16_tc, launches_f32_simt, launches_fwd_lse
+    dev = q.device
+    if dev.type == "cpu":
+        res = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                  with_lse=with_lse)
+        return res if with_lse else (res, None)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    _check(q, k, v)
+    B, Sq, H, _ = q.shape
     if B == 0 or Sq == 0:
-        return torch.empty_like(q)
-    out = flash_attention_cuda(q, k, v, causal=bool(causal), window=max(w, 0),
-                               q_offset=q_offset)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) if with_lse else None
+        return torch.empty_like(q), lse
+    w = 0 if window is None else max(int(window), 0)
+    res = flash_attention_cuda(q, k, v, causal=bool(causal), window=w, q_offset=int(q_offset),
+                               with_lse=with_lse)
+    out, lse = res if with_lse else (res, None)
     launches += 1
     if q.dtype == torch.bfloat16:
         launches_bf16_tc += 1
     else:
         launches_f32_simt += 1
+    if with_lse:
+        launches_fwd_lse += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, q_offset=0):
+    """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, ...)`` for the
+    upstream gradient ``do`` (like ``o``), from the forward's ``lse``
+    [B, H, Sq] fp32; in the inputs' dtype. The plain version on the CPU,
+    the backward kernels on CUDA (one counted launch of the pair)."""
+    global launches_bwd
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window,
+                                       q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be a contiguous "
+                             f"{q.dtype} {tuple(q.shape)} on {q.device}")
+    B, Sq, H, _ = q.shape
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention backward: lse must be a contiguous float32 "
+                         f"[{B}, {H}, {Sq}] on {q.device}")
+    if B == 0 or Sq == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    w = 0 if window is None else max(int(window), 0)
+    out = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=bool(causal), window=w,
+                                   q_offset=int(q_offset))
+    launches_bwd += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with its gradient: the forward saves q, k, v, the output
+    and its lse; the backward runs ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _forward(q, k, v, causal, window, q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, causal=causal,
+                                         window=window, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q [B, Sq, H, dh]; k, v [B, Sk, KV, dh] with H a multiple of KV
+    (query head h reads KV head h // (H // KV)); fp32 or bf16, one dtype;
+    dh <= 256, a multiple of 8. Query row i sits at position ``q_offset +
+    i``; ``window`` None or <= 0 is none. Returns [B, Sq, H, dh] in q's
+    dtype; differentiable in q, k and v."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset, with_lse=False)[0]

@@ -1,9 +1,12 @@
-"""Attention: flash attention (prefill) and KV-cache decode attention.
+"""Attention: flash attention (prefill and training) and KV-cache decode
+attention.
 
 PyTorch twin of ``repro.lm.attention``. ``flash_attention`` is the
 ``flash_attention`` kernel's wrapper, in the reference's layout (q
 [B, Sq, H, dh], k / v [B, Sk, KV, dh]): the hand-written kernel on CUDA, its
-plain version on the CPU. The kernel tiles by its own constants, so the
+plain version on the CPU. Where q, k or v requires a gradient it goes
+through the wrapper's ``autograd.Function``, whose backward is the
+hand-written backward kernels (the reference differentiates its scans). The kernel tiles by its own constants, so the
 reference's ``q_chunk`` / ``k_chunk`` are gone. ``decode_attention`` is
 plain torch, as it is plain ``jnp`` in the reference. GQA reads KV head
 ``h // G`` for query head ``h`` (``G = H // KV``): K/V never materialise

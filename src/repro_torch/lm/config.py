@@ -1,6 +1,6 @@
 """LM architecture configuration: ``repro.lm.config`` less the knobs the
-serving port does not read (``remat``, the attention and loss chunk sizes,
-which the kernel's tiling replaces, and the expert-sharding hint)."""
+port does not read (the attention chunk sizes, which the kernel's tiling
+replaces, and the expert-sharding hint)."""
 
 from __future__ import annotations
 
@@ -27,8 +27,10 @@ class LMConfig:
     rope_theta: float = 10_000.0
     sliding_window: Optional[int] = None  # local layers' window
     local_global_pattern: int = 0  # N -> N local layers per 1 global (0 = all global)
-    # numerics
+    # numerics / memory
     dtype: str = "bfloat16"
+    remat: bool = True  # recompute each block's activations in the backward
+    loss_chunk: int = 512  # positions per chunk of the cross-entropy
 
     @property
     def head_dim(self) -> int:

@@ -1,13 +1,24 @@
-"""LM serving: forward, prefill and KV-cache decode.
+"""LM forward, training, prefill and KV-cache decode.
 
 PyTorch twin of ``repro.lm.model`` for dense configurations. Parameters
 keep the reference's layout: ``embed``, ``unembed``, ``final_norm`` and a
 ``layers`` dict of stacked ``[L, ...]`` tensors, walked by a Python loop
-where the reference scans. Every prefill attention goes through the
-``flash_attention`` kernel on CUDA. The sharding hints (``constrain``,
-``param_spec_rule``, ``abstract_params``) are left out: they have no
-meaning on one card; remat is a training concern. Training and MoE are not
-ported yet and raise ``NotImplementedError``.
+where the reference scans. Every attention goes through the
+``flash_attention`` kernel on CUDA, and in training through its backward
+kernels too. The sharding hints (``constrain``, ``param_spec_rule``,
+``abstract_params``) are left out: they have no meaning on one card. MoE
+is not ported yet and raises ``NotImplementedError``.
+
+Training (``loss_fn``, ``train_step``): ``forward`` checkpoints each block
+when ``cfg.remat`` (``torch.utils.checkpoint``, non-reentrant): only a
+block's input stays for the backward, which recomputes the whole block,
+its weight GEMMs included. The reference's policy,
+``dots_with_no_batch_dims_saveable``, keeps the GEMMs' outputs instead; in
+torch that is a selective-checkpoint dispatch mode, whose host cost a
+tensor op outweighed the GEMM time it saved on an H100 at Gemma3-4B FULL
+(``chip_smoke.py`` phase 16 times the two and reads their peak memory).
+The loss walks ``cfg.loss_chunk`` positions at a time, each chunk
+checkpointed too, and never builds [B, S, V] logits.
 """
 
 from __future__ import annotations
@@ -15,20 +26,17 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.checkpoint.ckpt import tree_leaves
 
 from repro_torch.lm.attention import decode_attention, flash_attention
 from repro_torch.lm.config import LMConfig
 from repro_torch.lm.layers import moe_ffn, rms_norm, rope, swiglu
+from repro_torch.optim.adamw import apply_updates, global_norm, value_and_grad
 from repro_torch.utils import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"LM {what} is not ported yet: it waits for training, with optim/ (ROADMAP "
-        f"queue 1, the rest of the model families)"
-    )
 
 
 def _layer_shapes(cfg: LMConfig) -> dict:
@@ -123,25 +131,87 @@ def _attn_block(cfg: LMConfig, x, lp, i: int, positions):
     return x + attn.reshape(B, S, H * dh) @ lp["wo"], k, v
 
 
+def _layers(params):
+    """The per-layer views of the stacked leaves. ``unbind`` hands autograd
+    one node a leaf, whose backward stacks the layers' gradients once
+    (indexing layer by layer would add a full-size zero gradient a layer)."""
+    names = list(params["layers"])
+    per_leaf = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, views)) for views in zip(*per_leaf)]
+
+
+def _block(cfg: LMConfig, i: int, x, lp, positions):
+    """One transformer block: x [B, S, D] -> x [B, S, D]."""
+    x, _, _ = _attn_block(cfg, x, lp, i, positions)
+    return x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+
+
 def forward(cfg: LMConfig, params, tokens, positions=None):
-    """tokens [B, S] -> (final hidden states [B, S, D], MoE aux loss 0.0)."""
+    """tokens [B, S] -> (final hidden states [B, S, D], MoE aux loss 0.0).
+
+    With autograd on and ``cfg.remat``, each block is checkpointed: its
+    activations, GEMM outputs included, are recomputed in the backward from
+    its input."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens].to(_DTYPES[cfg.dtype])
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        x, _, _ = _attn_block(cfg, x, lp, i, positions)
-        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
-    return rms_norm(x, params["final_norm"]), torch.zeros((), dtype=torch.float32)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for i, lp in enumerate(_layers(params)):
+        if remat:
+            x = checkpoint(_block, cfg, i, x, lp, positions, use_reentrant=False)
+        else:
+            x = _block(cfg, i, x, lp, positions)
+    return rms_norm(x, params["final_norm"]), torch.zeros((), dtype=torch.float32,
+                                                          device=tokens.device)
+
+
+def _chunk_nll(hs, unembed, labels):
+    """Summed cross-entropy of one chunk: hs [B, C, D], labels [B, C]."""
+    logits = (hs @ unembed).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
 
 
 def loss_fn(cfg: LMConfig, params, tokens, labels):
-    raise _not_ported("loss_fn")
+    """Chunked softmax cross-entropy over ``cfg.loss_chunk`` positions at a
+    time (never materializes [B, S, V]): a chunk's fp32 logits live only
+    while it is summed, and again while its gradient is taken."""
+    h, aux = forward(cfg, params, tokens)
+    B, S, D = h.shape
+    C = min(cfg.loss_chunk, S)
+    assert S % C == 0
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(S // C):
+        hs, ls = h[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+        if grad:
+            part = checkpoint(_chunk_nll, hs, params["unembed"], ls, use_reentrant=False)
+        else:
+            part = _chunk_nll(hs, params["unembed"], ls)
+        total = total + part
+    loss = total / (B * S)
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss
 
 
 def train_step(cfg: LMConfig, optimizer):
-    raise _not_ported("train_step")
+    """The step ``(params, opt_state, tokens, labels) -> (params, opt_state,
+    {"loss", "grad_norm"})`` for ``optimizer``, a ``repro_torch.optim``
+    GradientTransform. ``grad_norm`` is the gradients' global norm before
+    the optimizer. The parameters move by ``p + u.to(p.dtype)`` as in the
+    reference, in place: the returned tree is ``params`` itself (at
+    Gemma3-4B's widths a second copy would not fit the card)."""
+
+    def step(params, opt_state, tokens, labels):
+        loss, grads = value_and_grad(lambda p: loss_fn(cfg, p, tokens, labels), params)
+        gnorm = global_norm(tree_leaves(grads))
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, {"loss": loss, "grad_norm": gnorm}
+
+    return step
 
 
 class KVCache(NamedTuple):

@@ -20,6 +20,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "train_lm_100m_torch.py",
 ]
 
 
@@ -51,6 +52,20 @@ def test_the_partitioned_tiers_twins_are_checked(module):
     assert path in PORT_FILES and (ROOT / "src" / "repro" / module).exists()
 
 
+@pytest.mark.parametrize("module", ["optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+                                    "optim/compression.py", "configs/__init__.py",
+                                    "configs/gemma3_4b.py", "configs/glm4_9b.py",
+                                    "configs/grok_1_314b.py", "configs/kimi_k2_1t_a32b.py",
+                                    "configs/gat_cora.py", "configs/egnn.py", "configs/nequip.py",
+                                    "configs/ecommerce_graph.py", "launch/train.py"])
+def test_the_training_twins_are_checked(module):
+    """The twins of the training path's reference modules (slice 14: the
+    optimizers, the configs registry and its modules, the training entry
+    point) are among the files the import check walks."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES and (ROOT / "src" / "repro" / module).exists()
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.core import CacheSpec, EngineSpec, GraphEngine, QueryPlan, empty_cache
     from repro_torch.core.engine import build_grw_step
@@ -64,7 +79,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.graphstore import StoreSpec, empty_store, ingest, make_mutation_batch
     from repro_torch.graphstore.journal import decode_commit, encode_commit
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = StoreSpec(v_cap=8, e_cap=16, n_vprops=1, n_eprops=1, recent_cap=4)
@@ -89,6 +104,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: serve.main(["--store-tier", "replicated"]),
         lambda: ShardedTxnRuntime(espec, flat_mesh(2), store_tier="replicated"),
         lambda: RoutingTableHost(4),
+        # training: the LM entry point and its data stream
+        lambda: train.main(["--arch", "gemma3-4b", "--smoke", "--steps", "1"]),
+        lambda: next(train.synthetic_batches(64, 1, 4)),
     ]
     # the GNN serving path's entry points, each run on the CPU when asked
     cfg = GNNConfig(name="t", kind="pna", n_layers=1, d_hidden=4, d_in=3, n_classes=2)

@@ -30,9 +30,9 @@ CONFIGS = {
 }
 
 
-# the reference's knobs the serving port leaves out: remat, the chunk sizes
-# of its scan attention and chunked loss, and a sharding hint
-NOT_PORTED = {"remat", "attn_q_chunk", "attn_k_chunk", "loss_chunk", "shard_experts_over"}
+# the reference's knobs the port leaves out: the chunk sizes of its scan
+# attention (the kernel tiles by its own) and a sharding hint
+NOT_PORTED = {"attn_q_chunk", "attn_k_chunk", "shard_experts_over"}
 
 
 def _port_cfg(jcfg):
@@ -118,10 +118,16 @@ def test_init_rule_not_ported_paths_and_round_trip():
     std = float(p["layers"]["attn_norm"].std()) * cfg.n_layers ** 0.5
     assert 0.5 < std < 1.5
     assert abs(float(p["layers"]["w1"].std()) * cfg.d_model ** 0.5 - 1) < 0.1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.loss_fn(tcfg, p, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.train_step(tcfg, None)
+    # training is ported (tests/test_torch_train.py holds it to the
+    # reference): the loss of random tokens is near log V, and a step runs
+    tokens = torch.randint(0, cfg.vocab, (1, 16), generator=torch.Generator().manual_seed(1))
+    loss = TM.loss_fn(tcfg, p, tokens, tokens)
+    assert abs(float(loss) - np.log(cfg.vocab)) < 1.0
+    from repro_torch.optim import adamw
+
+    opt = adamw(1e-3)
+    _, state, m = TM.train_step(tcfg, opt)(p, opt.init(p), tokens, tokens)
+    assert int(state.step) == 1 and np.isfinite(float(m["grad_norm"]))
     moe = LMConfig(name="moe", n_layers=1, d_model=16, n_heads=2, n_kv_heads=1, d_ff=8,
                    vocab=32, n_experts=4, top_k=2, dtype="float32")
     pm = TM.init_params(moe, torch.Generator().manual_seed(0), device="cpu")

@@ -333,20 +333,22 @@ def test_a_crash_under_migration_marks_table_owners_and_replays_alike(world, tmp
         ne = [(hot[0], hot[1], 0, [1]), (hot[2], hot[3], 0, [0]), (hot[1], hot[2], 0, [1])]
         return make_mutation_batch(espec.store, new_edges=ne, device="cpu")
 
-    # the owners each commit marks dirty, beside its new edges' table owners
+    # the owners each commit marks checkpoint-dirty, beside its new edges'
+    # table owners (the checkpoint-dirty set: the flusher thread may empty
+    # the flush-dirty one as soon as the record is durable)
     marked = []
     inner = WriteBehindJournal.append_commit
 
     def recorded(self, batch, **kw):
-        before = set(self._dirty_owners)
-        self._dirty_owners.clear()
+        before = set(self._dirty_since_ckpt)
+        self._dirty_since_ckpt.clear()
         seq = inner(self, batch, **kw)
         ends = np.concatenate([batch.ne_src[:int(batch.ne_n)].cpu().numpy(),
                                batch.ne_dst[:int(batch.ne_n)].cpu().numpy()])
-        marked.append((kw.get("applied", True), set(self._dirty_owners),
+        marked.append((kw.get("applied", True), set(self._dirty_since_ckpt),
                        {int(o) for o in rt.rhost.storage_owner(ends)},
                        {int(o) for o in base_owner(ends, 4)}))
-        self._dirty_owners |= before
+        self._dirty_since_ckpt |= before
         return seq
 
     monkeypatch.setattr(WriteBehindJournal, "append_commit", recorded)
