@@ -194,15 +194,20 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    rank's replica bytes beside a partitioned shard's, the serve loop's
    total and the phase's seconds and peak memory;
 16. training, right after 10 (its Yi-6B freed first): (a) the
-   flash-attention backward kernels (``csrc/flash_attention_bwd.cu``)
-   against their plain version on Gemma3-4B's global and local layers and
-   on shapes the path does not reach, bf16 (against an fp32 yardstick) and
-   fp32, with times beside the bound and SDPA's backward; (b)
-   ``repro_torch.launch.train.main`` on Gemma3-4B FULL (34 layers, bf16,
-   remat): 3 steps of 1 x 4,096 tokens, losses, grad norms and parameters
-   finite, peak memory, the attention kernels' launches counted around the
-   run (forward, remat's recompute and backward, one each a layer a step),
-   and a fourth step under the profiler; (c) the ~100M LM of
+   flash-attention backward kernels (``csrc/flash_attention_bwd.cu``):
+   ptxas's registers and spill bytes for each (none for the bf16 ones), the
+   HGMMA and UTMALDG counts of their SASS, then the kernels against their
+   plain version on Gemma3-4B's global and local layers and on shapes the
+   path does not reach, bf16 (against an fp32 yardstick) and fp32, two
+   calls on the same inputs equal, with times beside the bound and SDPA's
+   backward, and the with-lse forward timed beside SDPA's forward at the
+   two Gemma shapes; (b) ``repro_torch.launch.train.main`` on Gemma3-4B
+   FULL (34 layers, bf16, remat): 3 steps of 1 x 4,096 tokens, losses,
+   grad norms and parameters finite, peak memory, the attention kernels'
+   launches counted around the run (forward, remat's recompute and
+   backward, one each a layer a step), and a fourth step under the
+   profiler with the backward kernels' share of its device time; (c) the
+   ~100M LM of
    ``examples/train_lm_100m_torch.py``: 60 steps with a checkpoint at 30
    (the loss over steps 51-60 below that over 1-10), a run resumed from it
    (its losses the uninterrupted run's within 1e-4 relative), then
@@ -232,6 +237,7 @@ import ctypes
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -564,10 +570,11 @@ def run_traffic(seed, espec, state, ttable, plans, meta, ranges, includes, dev):
     return (store, cache), report, engines
 
 
-def profiled(tag, what, body, host_ops=True):
+def profiled(tag, what, body, host_ops=True, by_kernel=None):
     """Runs ``body()`` under ``torch.profiler`` and prints its wall time,
     the device's busy time by kernel and its idle share. ``host_ops=False``
-    traces the device alone. Returns ``(wall_ms, busy_ms)``; busy is None
+    traces the device alone; a ``by_kernel`` dict is filled with {kernel
+    name: (device us, calls)}. Returns ``(wall_ms, busy_ms)``; busy is None
     when no device time was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -588,6 +595,8 @@ def profiled(tag, what, body, host_ops=True):
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    if by_kernel is not None:
+        by_kernel.update(by_name)
     print(f"profile{tag}: {what}, wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms in {len(events)} device events ({lost} kernels dropped), "
           f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
@@ -4091,22 +4100,55 @@ def run_lm(seed, dev):
     return report, row
 
 
-def flash_sass_counts():
+def flash_sass_counts(name="flash_attention"):
     """The counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions in
-    the built flash_attention library's SASS, or None where the toolkit has
-    no cuobjdump."""
+    the built library of ``csrc/<name>.cu``'s SASS, or None where the
+    toolkit has no cuobjdump."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    lib = _build.build_dir() / "libflash_attention.so"
+    lib = _build.build_dir() / f"lib{name}.so"
     if not os.path.exists(tool):
-        print("kernel flash_attention sass: not available (no cuobjdump)", flush=True)
+        print(f"kernel {name} sass: not available (no cuobjdump)", flush=True)
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True).stdout
     counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    print(f"kernel flash_attention sass: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG "
+    print(f"kernel {name} sass: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG "
           f"instructions in {lib.name}", flush=True)
     return counts
+
+
+def ptxas_kernels(name):
+    """{kernel: {"registers", "spill_bytes"}} for each entry function of
+    ``csrc/<name>.cu`` from the build's ``ptxas -v`` report (kernel as
+    ``<function><DHP>``, e.g. ``flash_attention_bwd_dq_tc_kernel<256>``),
+    or None where this process found the libraries built and compiled
+    nothing."""
+    from repro_torch.kernels import _build
+
+    report = _build.BUILD_INFO.get("ptxas", {}).get(name)
+    if report is None:
+        return None
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym = m.group(1)
+            i, name = 3, sym  # _ZN, then length-prefixed names: the last is the kernel
+            while i < len(sym) and sym[i].isdigit():
+                j = re.match(r"\d+", sym[i:]).end() + i
+                name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+            dhp = re.match(r"ILi(\d+)E(f?)", sym[i:])
+            cur = name + (f"<{dhp.group(1)}>" + ("<float>" if dhp.group(2) else "") if dhp else "")
+            out[cur] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 # ---------------------------------------------------------------- 16. training
@@ -4141,17 +4183,40 @@ PNA_TRAIN_STEPS = 5
 PNA_BWD_TOL = 1e-5  # fp32 segment sums in another order, as phase 8's
 
 
-def attn_bwd_cost(b, sq, sk, h, kv, dh, es, causal, window, q_offset, dev):
+def attn_bwd_cost(b, sq, sk, h, kv, dh, es, causal, window, q_offset, dev, forward=False):
     """(FLOPs, bytes) the backward needs: 5 products over the allowed
     scores (recompute s, dp = do v^T, dv, dk, dq); q, k, v, o, do and lse
-    read once, dq, dk, dv written once."""
+    read once, dq, dk, dv written once. With ``forward``, those of the
+    with-lse forward: 2 products (s, p v); q, k, v read once, o and lse
+    written once."""
     from repro_torch.kernels.flash_attention.ref import band_mask
 
     allowed = int(band_mask(sq, sk, causal=causal, window=window, q_offset=q_offset,
                             device=dev).sum())
+    if forward:
+        return (4 * b * h * allowed * dh,
+                2 * b * sq * h * dh * es + 2 * b * sk * kv * dh * es + 4 * b * h * sq)
     flops = 10 * b * h * allowed * dh
     nbytes = 4 * b * sq * h * dh * es + 4 * b * sk * kv * dh * es + 4 * b * h * sq
     return flops, nbytes
+
+
+def check_bwd_build():
+    """ptxas's registers and spill bytes for each backward kernel, printed;
+    none of the bf16 tensor-core instantiations may spill. Returns them, or
+    None where this process compiled nothing."""
+    regs = ptxas_kernels("flash_attention_bwd")
+    if regs is None:
+        print("kernel flash_attention_bwd ptxas: not available (the libraries were built "
+              "before this process)", flush=True)
+        return None
+    for name, r in regs.items():
+        print(f"kernel flash_attention_bwd ptxas {name}: {r['registers']} registers, "
+              f"{r['spill_bytes']} spill bytes", flush=True)
+    tc = {k: r for k, r in regs.items() if "_tc_" in k}
+    assert len(tc) == 6, f"expected the dq and dk / dv kernels at DHP 64, 128, 256: {sorted(tc)}"
+    assert not any(r["spill_bytes"] for r in tc.values()), f"a bf16 backward kernel spills: {tc}"
+    return regs
 
 
 def check_attention_backward(seed, dev):
@@ -4167,7 +4232,7 @@ def check_attention_backward(seed, dev):
 
     gen = torch.Generator(device=dev).manual_seed(seed + 71)
     bf, f32 = torch.bfloat16, torch.float32
-    worst, rows = 0.0, []
+    worst, rows, fwd_rows = 0.0, [], []
     for name, b, sq, sk, h, nkv, dh, causal, window, off, timed in FA_BWD_CASES:
         for dt in (bf, f32):
             q = torch.randn(b, sq, h, dh, generator=gen, device=dev).to(dt)
@@ -4183,6 +4248,10 @@ def check_attention_backward(seed, dev):
             o_err = float((o.float() - p_o.float()).abs().max())
             got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
             want = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            # no atomics: a second call repeats the first bit for bit
+            again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            same = all(torch.equal(a, x) for a, x in zip(got, again))
+            del again
             torch.cuda.synchronize()
             err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
             worst = max(worst, err)
@@ -4208,6 +4277,7 @@ def check_attention_backward(seed, dev):
                 del o32, lse32, yard, x32
             print(f"kernel flash_attention_bwd case {name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                   f"{str(dt)[6:]} causal={causal} window={window} q_offset={off}: {what}; "
+                  f"a second call {'equal' if same else 'DIFFERS'}; "
                   f"forward with lse: lse max abs err {lse_err:.3e} (tol {FA_LSE_TOL}), o max "
                   f"abs err {o_err:.3e} (tol {o_tol})", flush=True)
             assert lse.dtype == f32 and lse.shape == p_lse.shape and lse_err <= FA_LSE_TOL, \
@@ -4217,6 +4287,7 @@ def check_attention_backward(seed, dev):
                 f"the with-lse forward's o disagrees with its plain version: {name} {dt}"
             assert all(a.dtype == dt and a.shape == w.shape for a, w in zip(got, want))
             assert ok, f"flash_attention_bwd disagrees with its plain version: {name} {dt}"
+            assert same, f"two flash_attention_bwd calls differ: {name} {dt}"
             del got, want, p_o, p_lse
             if timed and dt == bf:
                 t = timings(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw),
@@ -4243,9 +4314,31 @@ def check_attention_backward(seed, dev):
                       f"peak; {nbytes} B)", flush=True)
                 rows.append(dict(shape=name, **t, bound_ms=bms, bound_by=by, library_ms=lib_ms,
                                  library_device_ms=lib_dev, flops=flops, bytes=nbytes))
-                del qt, kt, vt, lo, dot
+                # the with-lse forward that training runs, at the same shape
+                ft = timings(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                          window=window or 0, q_offset=off,
+                                                          with_lse=True),
+                             lambda: flash_attention_ref(q, k, v, with_lse=True, **kw),
+                             iters=(20, 2))
+                qd, kd, vd = (x.detach() for x in (qt, kt, vt))
+                flib = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                              is_causal=mask is None,
+                                                              enable_gqa=True)
+                flib_ms, flib_dev = cuda_ms(flib, iters=20), device_ms(flib)
+                fflops, fbytes = attn_bwd_cost(b, sq, sk, h, nkv, dh, 2, causal, window, off, dev,
+                                               forward=True)
+                ftb, fto = fbytes / HBM_BYTES_S * 1e3, fflops / BF16_TENSOR_FLOPS * 1e3
+                fbms, fby = (ftb, "bytes") if ftb >= fto else (fto, "operations")
+                print(f"kernel flash_attention with lse {name} q={tuple(q.shape)} "
+                      f"k={tuple(k.shape)} bf16 {fmt_us(ft)} sdpa_forward_us={us(flib_ms)} "
+                      f"(device {us(flib_dev)}) bound_us={fbms * 1e3:.4f} ({fby}: {fflops:.4e} "
+                      f"FLOP at the bf16 tensor peak; {fbytes} B)", flush=True)
+                fwd_rows.append(dict(shape=name, **ft, bound_ms=fbms, bound_by=fby,
+                                     library_ms=flib_ms, library_device_ms=flib_dev,
+                                     flops=fflops, bytes=fbytes))
+                del qt, kt, vt, qd, kd, vd, lo, dot
             del q, k, v, do, o, lse
-    return worst, rows
+    return worst, rows, fwd_rows
 
 
 REMAT_AB_STEPS = 3  # a policy's steps in each of its two turns; the first is left out
@@ -4299,8 +4392,8 @@ def run_train(seed, dev):
     under the profiler; (c) the ~100M LM of
     ``examples/train_lm_100m_torch.py``, 60 steps with a checkpoint at 30,
     a run resumed from it, and ``--compress-grads`` at ``--smoke``.
-    Returns the backward kernel's row and the flash_attention forward's
-    launches in training."""
+    Returns the backward kernel's row, the flash_attention forward's
+    launches in training and its times at Gemma3-4B's shapes."""
     import importlib.util
     import shutil
     import tempfile
@@ -4312,7 +4405,10 @@ def run_train(seed, dev):
     from repro_torch.lm import model as lm_model
 
     t_phase = time.perf_counter()
-    err, timed = check_attention_backward(seed, dev)
+    regs = check_bwd_build()
+    sass = flash_sass_counts("flash_attention_bwd")
+    assert sass is None or min(sass.values()) > 0, sass
+    err, timed, fwd_timed = check_attention_backward(seed, dev)
     free_device()
 
     # (b) Gemma3-4B FULL through the training entry point, counted
@@ -4362,14 +4458,32 @@ def run_train(seed, dev):
 
     fa_ops.launches_fwd_lse = fa_ops.launches_bwd = 0
     lm_model.loss_fn = loss_counted
+    kernels = {}
     try:
         wall, busy = profiled(" train", "one gemma3-4b training step (1 x 4,096)",
-                              lambda: step(params, opt_state, tokens, labels), host_ops=False)
+                              lambda: step(params, opt_state, tokens, labels), host_ops=False,
+                              by_kernel=kernels)
     finally:
         lm_model.loss_fn = inner
     split.update(recompute=fa_ops.launches_fwd_lse - split["forward"], backward=fa_ops.launches_bwd)
+    # the attention backward's share of the step: its two kernels' device time
+    bwd = {}
+    for name, (us_, n) in kernels.items():
+        m = re.search(r"flash_attention_bwd_\w+", name)
+        if m:
+            bwd[m.group(0)] = (bwd.get(m.group(0), (0.0, 0))[0] + us_ / 1e3,
+                               bwd.get(m.group(0), (0.0, 0))[1] + n)
+    bwd_ms = sum(ms for ms, _ in bwd.values())
     report["profiled_step"] = dict(wall_ms=wall, busy_ms=busy, launches=split,
-                                   idle_share=None if busy is None else 1 - busy / wall)
+                                   idle_share=None if busy is None else 1 - busy / wall,
+                                   attention_backward_ms=bwd_ms,
+                                   attention_backward_share=None if not busy else bwd_ms / busy,
+                                   attention_backward_kernels=bwd)
+    print(f"train step attention backward: {bwd_ms:.3f} ms device of the step's "
+          f"{'not measured' if busy is None else f'{busy:.3f}'} ms busy / {wall:.3f} ms wall ("
+          f"{'not measured' if not busy else f'{bwd_ms / busy:.2%}'} of busy); "
+          + ", ".join(f"{k} {ms:.3f} ms in {n} calls" for k, (ms, n) in sorted(bwd.items())),
+          flush=True)
     print(f"train step launches: forward {split['forward']}, recompute {split['recompute']}, "
           f"backward {split['backward']} (flash_attention / its backward kernels, "
           f"{cfg.n_layers} layers)", flush=True)
@@ -4427,8 +4541,9 @@ def run_train(seed, dev):
                                       "library_device_ms")},
                library="SDPA backward (flash, is_causal, enable_gqa)",
                shape="gemma3 global: q=(1, 4096, 8, 256), k=(1, 4096, 4, 256), causal",
-               timed_shapes=timed, kernels_per_launch=2)
-    return report, row, counts["forward"]
+               timed_shapes=timed, kernels_per_launch=2, ptxas=regs, sass=sass,
+               step_share=report["profiled_step"]["attention_backward_share"])
+    return report, row, counts["forward"], fwd_timed
 
 
 def run_pna_train(cfg, params, g):
@@ -4710,12 +4825,13 @@ def main():
     # 16. training: the attention backward, Gemma3-4B FULL steps through
     # launch.train (flash_attention and its backward counted around them),
     # the 100M LM's checkpoint and resume
-    _, bwd_row, train_fwd = run_train(args.seed, dev)
+    _, bwd_row, train_fwd, fwd_timed = run_train(args.seed, dev)
     for row in rows:
         if row["name"] == "flash_attention":
             row["launches_by_path"] = {"phase 10 prefill": row["launches"],
                                        "phase 16 training (forward and recompute)": train_fwd}
             row["launches"] += train_fwd
+            row["training_timed_shapes"] = fwd_timed
     rows.append(bwd_row)
     phase_memory("phase 16")
     free_device()

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with ``ctypes``. All sources are
 compiled in parallel (one ``nvcc`` process each, started together) the
 first time any kernel is launched, into ``build/repro_torch/<digest>/`` at
-the repository root, where ``<digest>`` hashes the sources and flags, so an
-edited source rebuilds and an unchanged one is reused.
+the repository root, where ``<digest>`` hashes the sources, the headers
+they share (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged tree is reused.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -47,9 +48,13 @@ def sources() -> list:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def headers() -> list:
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -4,7 +4,8 @@
 the bf16 tensor-core kernel for bf16 tensors and the fp32 SIMT kernel for
 fp32, and writes the row log-sum-exp too when given a buffer for it.
 ``csrc/flash_attention_bwd.cu``, the backward: one entry point, which
-launches its dq kernel and then its dk / dv kernel.
+launches its dq kernel and then its dk / dv kernel, on the tensor cores for
+bf16 tensors and as SIMT kernels for fp32.
 
 The sources' headers say what they replace and what bounds them. Each
 launches on PyTorch's current stream and allocates only its outputs (and

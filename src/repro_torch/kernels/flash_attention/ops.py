@@ -1,9 +1,10 @@
 """Public flash_attention wrapper, in the LM layout, with its gradient.
 
 CPU tensors take the plain PyTorch versions (``ref.py``); CUDA tensors
-launch a hand-written kernel or raise. The dtype picks the forward kernel:
-bf16 runs on the tensor cores (wgmma, TMA-staged tiles), fp32 on the SIMT
-kernel (tensor cores would be TF32). There is no fallback between them.
+launch a hand-written kernel or raise. The dtype picks the kernels, forward
+and backward: bf16 runs on the tensor cores (wgmma, TMA-staged tiles),
+fp32 on the SIMT kernels (tensor cores would be TF32). There is no
+fallback between them.
 
 Where q, k or v requires a gradient (and autograd is on), the call goes
 through ``FlashAttentionFn``: its forward also writes the row log-sum-exp,
@@ -63,10 +64,33 @@ def _check(q, k, v):
     if max(q.numel(), k.numel()) >= _INDEX_LIMIT or max(H, B) > _GRID_LIMIT:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} / k {tuple(k.shape)} exceed "
                          "the kernel's index range")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.dtype == torch.bfloat16 and not all(map(_aligned, (q, k, v))):
         # TMA reads from 16-byte aligned bases only; a contiguous view can
         # start mid-row
         raise ValueError("flash_attention: bf16 q, k and v must start on 16-byte boundaries")
+
+
+def _aligned(t) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
+def _check_grads(q, o, do, lse):
+    """Raises on an ``o``, ``do`` or ``lse`` the backward kernels do not
+    take: ``o`` and ``do`` as q (the bf16 kernels read both by TMA or
+    16-byte loads, so they must start on 16-byte boundaries too)."""
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be a contiguous "
+                             f"{q.dtype} {tuple(q.shape)} on {q.device}")
+        if q.dtype == torch.bfloat16 and not _aligned(t):
+            raise ValueError(f"flash_attention backward: bf16 {name} must start on a 16-byte "
+                             "boundary")
+    B, Sq, H, _ = q.shape
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention backward: lse must be a contiguous float32 "
+                         f"[{B}, {H}, {Sq}] on {q.device}")
 
 
 def _forward(q, k, v, causal, window, q_offset, with_lse):
@@ -111,16 +135,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, q_offs
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
-    for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError(f"flash_attention backward: {name} must be a contiguous "
-                             f"{q.dtype} {tuple(q.shape)} on {q.device}")
-    B, Sq, H, _ = q.shape
-    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or lse.device != q.device
-            or not lse.is_contiguous()):
-        raise ValueError(f"flash_attention backward: lse must be a contiguous float32 "
-                         f"[{B}, {H}, {Sq}] on {q.device}")
+    _check_grads(q, o, do, lse)
+    B, Sq = q.shape[:2]
     if B == 0 or Sq == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     w = 0 if window is None else max(int(window), 0)
@@ -145,7 +161,10 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, q_offset = ctx.mask
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, causal=causal,
+        dout = dout.contiguous()
+        if not _aligned(dout):  # a contiguous view autograd hands over may start mid-row
+            dout = dout.clone()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                          window=window, q_offset=q_offset)
         return dq, dk, dv, None, None, None
 

@@ -123,3 +123,55 @@ def test_band_check_catches_a_stale_running_max_in_the_second_warpgroup():
     first_want = torch.cat([want[:, c * TC_ROWS:c * TC_ROWS + 64] for c in range(3)], 1)
     assert cs.band_rel(first, first_want) < cs.FLASH_REL_TOL
     assert cs.band_rel(got[:, :TC_ROWS], want[:, :TC_ROWS].contiguous()) < cs.FLASH_REL_TOL
+
+
+# ``ptxas -v`` as nvcc 12 prints it for two backward kernels (their
+# anonymous namespace mangled with the file's hash): a tensor-core
+# instantiation and an fp32 SIMT one that spills
+PTXAS_TC = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_04843d3032flash_attention_bwd_dq_tc_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16S4_PKfPS2_Pfiiiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_04843d3032flash_attention_bwd_dq_tc_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16S4_PKfPS2_Pfiiiiiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 216 registers, used 1 barriers, 1024 bytes cmem[0]
+"""
+PTXAS_SIMT = """ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_04843d3029flash_attention_bwd_dq_kernelILi64EfEEvPKT0_S3_S3_S3_S3_PKfPS1_Pfiiiiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_04843d3029flash_attention_bwd_dq_kernelILi64EfEEvPKT0_S3_S3_S3_S3_PKfPS1_Pfiiiiiiiiif
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 452 bytes cmem[0]
+"""
+PTXAS = PTXAS_TC + PTXAS_SIMT
+
+
+def test_ptxas_report_gives_each_kernels_registers_and_spills(monkeypatch):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setitem(_build.BUILD_INFO, "ptxas", {"flash_attention_bwd": PTXAS})
+    assert cs.ptxas_kernels("flash_attention_bwd") == {
+        "flash_attention_bwd_dq_tc_kernel<256>": {"registers": 216, "spill_bytes": 0},
+        "flash_attention_bwd_dq_kernel<64><float>": {"registers": 128, "spill_bytes": 12},
+    }
+    assert cs.ptxas_kernels("segment_spmm") is None
+
+
+def test_bwd_build_check_refuses_a_spilling_tensor_core_kernel(monkeypatch):
+    """Phase 16's build check asks for all six bf16 instantiations (dq and
+    dk / dv at DHP 64, 128, 256) with no spill; the fp32 SIMT kernels are
+    reported but not held to it."""
+    from repro_torch.kernels import _build
+
+    def report(spill):
+        blocks = []
+        for fn in ("32flash_attention_bwd_dq_tc_kernel", "34flash_attention_bwd_dkdv_tc_kernel"):
+            for dhp in (64, 128, 256):
+                blocks.append(
+                    "ptxas info    : Compiling entry function "
+                    f"'_ZN55_GLOBAL__N__67799fe8_22_flash_attention_bwd_cu_04843d30{fn}ILi{dhp}EEEv'"
+                    f" for 'sm_90a'\n    0 bytes stack frame, {spill if dhp == 256 else 0} bytes "
+                    "spill stores, 0 bytes spill loads\nptxas info    : Used 200 registers\n")
+        return "".join(blocks) + PTXAS_SIMT
+
+    monkeypatch.setitem(_build.BUILD_INFO, "ptxas", {"flash_attention_bwd": report(0)})
+    assert len(cs.check_bwd_build()) == 7
+    monkeypatch.setitem(_build.BUILD_INFO, "ptxas", {"flash_attention_bwd": report(16)})
+    with pytest.raises(AssertionError, match="spills"):
+        cs.check_bwd_build()

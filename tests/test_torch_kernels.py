@@ -228,3 +228,32 @@ def test_cache_probe_binding_passes_the_c_arguments(monkeypatch):
     err[0] = 700
     with pytest.raises(RuntimeError, match="cudaError 700"):
         kernel.cache_probe_cuda(*t, probes=8)
+
+
+def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    """The build directory's digest hashes the headers the sources share
+    (``csrc/*.cuh``), so an edited header rebuilds every library instead of
+    reusing a stale one; a header is never compiled on its own."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    first = _build.build_dir()
+    assert _build.sources() == [tmp_path / "a.cu"] and _build.headers() == [tmp_path / "h.cuh"]
+    assert _build.build_dir() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build.build_dir()
+    assert second != first
+    (tmp_path / "b.cuh").write_text("// a new header\n")
+    assert _build.build_dir() not in (first, second)
+
+
+def test_attention_sources_share_the_hopper_header():
+    """Both attention sources take their PTX wrappers and tensor maps from
+    ``csrc/hopper.cuh``, which the build digest covers."""
+    from repro_torch.kernels import _build
+
+    assert _build.SRC_DIR / "hopper.cuh" in _build.headers()
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        assert '#include "hopper.cuh"' in (_build.SRC_DIR / src).read_text()

@@ -121,20 +121,66 @@ def _key_range(pf, pl, sk, causal, window):
     return lo(pf), hi(pl)
 
 
-def simulate_backward_kernels(q, k, v, o, do, lse, *, causal, window, q_offset):
-    """``csrc/flash_attention_bwd.cu``, tile by tile: the dq kernel (one
-    CTA per BT query rows and head: delta, then its band's key tiles) and
-    the dk / dv kernel (one CTA per BT keys and KV head: its G heads' query
-    tiles, skipping those that reach none of its keys), each tile's scores
-    and probabilities as the kernels form them (rows past Sq with lse
-    +inf, keys past Sk staged as zeros)."""
+def _qtile_walk(k0, sq, sk, causal, window, off, T=64):
+    """The bf16 dk / dv kernel's ``qtile_walk``: the query tiles its CTA for
+    keys [k0, k0 + 64) walks, in order (up to three runs, computed
+    directly)."""
+    nq, last = -(-sq // T), off + sq - 1
+    cdiv = lambda a: -((-a) // T)
+    f1 = min(max(cdiv(-off), 0), nq) if causal else 0
+    f3 = nq
+    if window > 0 and last >= sk + window - 1:
+        f3 = min(max(cdiv(sk + window - 1 - off - (T - 1)), 0), nq - 1)
+    f3 = max(f3, f1)
+    a, b = 0, nq
+    if causal:
+        a = min(max(cdiv(k0 - off - (T - 1)), 0), nq - 1) if last >= k0 else nq
+    if window > 0:
+        b = min(max((k0 + T - 2 + window - off) // T + 1, 0), nq)
+    a, b = max(a, f1), min(b, f3)
+    return list(range(f1)) + list(range(a, max(a, b))) + list(range(f3, nq))
+
+
+def _qtiles_reaching(k0, sq, sk, causal, window, off, T=64):
+    """Every query tile whose rows' key range reaches keys [k0, k0 + T),
+    found one tile at a time (the SIMT kernel's ``continue``)."""
+    out = []
+    for q0 in range(0, sq, T):
+        lo, hi = _key_range(off + q0, off + min(q0 + T, sq) - 1, sk, causal, window)
+        if lo < k0 + T and hi > k0:
+            out.append(q0 // T)
+    return out
+
+
+def simulate_backward_kernels(q, k, v, o, do, lse, *, causal, window, q_offset, design="simt"):
+    """``csrc/flash_attention_bwd.cu``, tile by tile, in either design.
+
+    ``simt`` (the fp32 kernels): the dq kernel (one CTA per BT query rows
+    and head: delta, then its band's key tiles) and the dk / dv kernel (one
+    CTA per BT keys and KV head: its G heads' query tiles, skipping those
+    that reach none of its keys), BT 64, 32 at head dim 256.
+
+    ``tc`` (the bf16 tensor-core kernels): the dq kernel's CTA holds 64 NWG
+    query rows (NWG 2 up to a padded head dim DHP of 128, 1 at 256) and
+    walks 64-key tiles of its rows' key range, each warpgroup masking only a
+    tile that crosses its band edge or Sk; the dk / dv kernel's CTA holds 64
+    keys and walks its G heads' query tiles by ``qtile_walk`` (held here to
+    the tiles found one at a time), the last tile first, masking only a
+    tile that crosses the band edge or Sk, with a row that has no allowed
+    key at p = 1 / Sk, ds = 0. For bf16 inputs p and ds are rounded to bf16
+    before their products.
+
+    Each tile's scores and probabilities as the kernels form them (rows past
+    Sq with lse +inf, keys past Sk staged as zeros)."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G, scale = H // KV, dh**-0.5
-    BT = 32 if dh > 128 else 64
+    tc = design == "tc"
+    BT = 64 if tc or dh <= 128 else 32
     w = window or 0
-    qs = (q * scale).to(torch.float32)
     f = lambda t: t.to(torch.float32)
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if tc and q.dtype == torch.bfloat16 else f
+    qs = f(q * scale)
     dq, dk, dv = (torch.zeros(t.shape, dtype=torch.float32) for t in (q, k, v))
     delta = (f(do) * f(o)).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
 
@@ -144,7 +190,7 @@ def simulate_backward_kernels(q, k, v, o, do, lse, *, causal, window, q_offset):
         out[:n] = x[r0:r0 + n]
         return out
 
-    def probs(b, h, q0, k0, Qs, Os, Ks, Vs):
+    def probs(b, h, q0, k0, Qs, Os, Ks, Vs, edge=True):
         rows, keys = q0 + torch.arange(BT), k0 + torch.arange(BT)
         lr = torch.where(rows < Sq, lse[b, h, rows.clamp(max=Sq - 1)], torch.inf)[:, None]
         dd = torch.where(rows < Sq, delta[b, h, rows.clamp(max=Sq - 1)], 0.0)[:, None]
@@ -152,71 +198,127 @@ def simulate_backward_kernels(q, k, v, o, do, lse, *, causal, window, q_offset):
         pos = (q_offset + rows)[:, None]
         ok = (keys[None] < Sk) & ((keys[None] <= pos) | (not causal)) & (
             (keys[None] > pos - w) | (w <= 0))
+        if not edge:  # a tile the kernels take as wholly allowed
+            ok = torch.ones_like(ok)
         empty = lr <= 0.5 * NEG_INF
         p = torch.where(ok & ~empty & (lr < torch.inf), torch.exp(s - lr), 0.0)
         p = torch.where(empty & (keys[None] < Sk), 1.0 / max(Sk, 1), p)
         ds = torch.where(ok & ~empty, p * (dp - dd), 0.0)
         return p, ds
 
+    def crosses(k0, pf, pl):  # the tensor-core kernels' test for a tile that needs the mask
+        return k0 + BT > Sk or (causal and k0 + BT - 1 > pf) or (w > 0 and k0 <= pl - w)
+
+    rows_cta = BT * (2 if dh <= 128 else 1) if tc else BT
     for b in range(B):
         for h in range(H):
             kvh = h // G
-            for q0 in range(0, Sq, BT):
-                Qs, Os = tile(qs[b, :, h], q0, Sq), tile(f(do[b, :, h]), q0, Sq)
-                lo, hi = _key_range(q_offset + q0, q_offset + min(q0 + BT, Sq) - 1, Sk,
+            for c0 in range(0, Sq, rows_cta):
+                lo, hi = _key_range(q_offset + c0, q_offset + min(c0 + rows_cta, Sq) - 1, Sk,
                                     causal, w)
-                acc = torch.zeros(BT, dh)
-                for kt in range(lo, hi, BT):
-                    Ks, Vs = tile(f(k[b, :, kvh]), kt, Sk), tile(f(v[b, :, kvh]), kt, Sk)
-                    _, ds = probs(b, h, q0, kt, Qs, Os, Ks, Vs)
-                    acc += ds @ Ks
-                n = min(BT, Sq - q0)
-                dq[b, q0:q0 + n, h] = acc[:n] * scale
+                for q0 in range(c0, min(c0 + rows_cta, Sq), BT):
+                    Qs, Os = tile(qs[b, :, h], q0, Sq), tile(f(do[b, :, h]), q0, Sq)
+                    acc = torch.zeros(BT, dh)
+                    for kt in range(lo, hi, BT):
+                        Ks, Vs = tile(f(k[b, :, kvh]), kt, Sk), tile(f(v[b, :, kvh]), kt, Sk)
+                        edge = not tc or crosses(kt, q_offset + q0, q_offset + q0 + BT - 1)
+                        _, ds = probs(b, h, q0, kt, Qs, Os, Ks, Vs, edge)
+                        acc += rnd(ds) @ Ks
+                    n = min(BT, Sq - q0)
+                    dq[b, q0:q0 + n, h] = acc[:n] * scale
         for kvh in range(KV):
             for k0 in range(0, Sk, BT):
                 Ks, Vs = tile(f(k[b, :, kvh]), k0, Sk), tile(f(v[b, :, kvh]), k0, Sk)
                 dka, dva = torch.zeros(BT, dh), torch.zeros(BT, dh)
+                reach = _qtiles_reaching(k0, Sq, Sk, causal, w, q_offset, BT)
+                if tc:
+                    walk = _qtile_walk(k0, Sq, Sk, causal, w, q_offset, BT)
+                    assert walk == reach, (k0, walk, reach)
                 for g in range(G):
                     h = kvh * G + g
-                    for q0 in range(0, Sq, BT):
-                        lo, hi = _key_range(q_offset + q0, q_offset + min(q0 + BT, Sq) - 1, Sk,
-                                            causal, w)
-                        if lo >= k0 + BT or hi <= k0:
-                            continue
+                    for qt in (reversed(reach) if tc else reach):
+                        q0 = qt * BT
                         Qs, Os = tile(qs[b, :, h], q0, Sq), tile(f(do[b, :, h]), q0, Sq)
-                        p, ds = probs(b, h, q0, k0, Qs, Os, Ks, Vs)
-                        dva += p.T @ Os
-                        dka += ds.T @ Qs
+                        edge = not tc or crosses(k0, q_offset + q0, q_offset + q0 + BT - 1)
+                        p, ds = probs(b, h, q0, k0, Qs, Os, Ks, Vs, edge)
+                        dva += rnd(p).T @ Os
+                        dka += rnd(ds).T @ Qs
                 n = min(BT, Sk - k0)
                 dk[b, k0:k0 + n, kvh], dv[b, k0:k0 + n, kvh] = dka[:n], dva[:n]
-    return dq, dk, dv
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
-# the kernels' tiling: several 64-row tiles (a ragged last one), 32-row
-# tiles at dh 256, bands that skip tiles, rows with no allowed key at both
-# ends, a GQA group walked by one dk / dv CTA
+# the kernels' tilings: several 64-row tiles (a ragged last one), 32-row
+# tiles at dh 256 (SIMT), one 64-row warpgroup a dq CTA at dh 256 (tensor
+# cores), bands that skip tiles, rows with no allowed key at both ends, a
+# GQA group of 4 walked by one dk / dv CTA over several query tiles a key
+# tile
 TILE_CASES = {
     "causal_window_ragged": (1, 150, 150, 4, 2, 16, True, 40, 0),
     "dh256_causal": (1, 100, 100, 2, 1, 256, True, None, 0),
     "dh256_window": (1, 100, 100, 2, 2, 256, True, 24, 0),
+    "gqa4_dh256_window": (1, 300, 300, 8, 2, 256, True, 100, 0),
     "negative_offset_empty_rows": (1, 130, 80, 2, 1, 16, True, None, -70),
     "non_causal_window_empty_tail": (1, 140, 70, 2, 1, 24, False, 8, 20),
     "q_offset_decode_like": (2, 20, 200, 4, 1, 32, True, 64, 180),
 }
 
 
-@pytest.mark.parametrize("case", sorted(TILE_CASES))
-def test_backward_kernel_tiling_simulated(case):
-    B, Sq, Sk, H, KV, dh, causal, window, off = TILE_CASES[case]
+def _tile_inputs(case, dtype):
+    B, Sq, Sk, H, KV, dh = TILE_CASES[case][:6]
     rng = np.random.default_rng(1)
-    q, k, v, do = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
-                   for s in ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dh), (B, Sq, H, dh)))
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32)).to(dtype)
+            for s in ((B, Sq, H, dh), (B, Sk, KV, dh), (B, Sk, KV, dh), (B, Sq, H, dh))]
+
+
+@pytest.mark.parametrize("case,design", [
+    pytest.param(c, d, id=c if d == "simt" else f"{c}-{d}")
+    for d in ("simt", "tc") for c in sorted(TILE_CASES)])
+def test_backward_kernel_tiling_simulated(case, design):
+    """Each design's tiling on fp32 values against the plain backward, 1e-5;
+    the tensor-core design also on bf16 values (p and ds rounded to bf16
+    before their products, outputs in bf16) within 2e-2 relative norm of
+    the fp32 yardstick: the plain backward of the same values in fp32."""
+    causal, window, off = TILE_CASES[case][6:]
     kw = dict(causal=causal, window=window, q_offset=off)
+    q, k, v, do = _tile_inputs(case, torch.float32)
     o, lse = flash_attention_ref(q, k, v, with_lse=True, **kw)
-    got = simulate_backward_kernels(q, k, v, o, do, lse, **kw)
+    got = simulate_backward_kernels(q, k, v, o, do, lse, design=design, **kw)
     want = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
     for a, b in zip(got, want):
         _close(a, b)
+    if design == "tc":
+        x = _tile_inputs(case, torch.bfloat16)
+        o16, lse16 = flash_attention_ref(*x[:3], with_lse=True, **kw)
+        got = simulate_backward_kernels(*x[:3], o16, x[3], lse16, design=design, **kw)
+        f = [t.float() for t in x]
+        o32, lse32 = flash_attention_ref(*f[:3], with_lse=True, **kw)
+        want = flash_attention_bwd_ref(*f[:3], o32, f[3], lse32, **kw)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16
+            rel = float((a.float() - b).norm() / b.norm())
+            assert rel <= 2e-2, rel
+
+
+WALK_SHAPES = [  # Sq, Sk, causal, window, q_offset
+    (4096, 4096, True, 0, 0), (4096, 4096, True, 1024, 0), (1000, 1000, True, 0, 0),
+    (333, 517, False, 0, 0), (100, 700, True, 256, 600), (130, 80, True, 0, -70),
+    (140, 70, False, 8, 20), (20, 200, True, 64, 180), (300, 90, True, 30, -100),
+    (64, 2, True, 3, -10), (257, 129, False, 40, -60), (190, 250, True, 65, 37),
+]
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_qtile_walk_is_the_tiles_that_reach_each_key_tile(shape):
+    """The bf16 dk / dv kernel's directly computed walk (which its producer
+    and consumers both take) is, for every key tile, exactly the query
+    tiles whose key range reaches it, in increasing order: Gemma3-4B's two
+    layers and the phase-16 shapes, rows with no allowed key at either end,
+    a tile that has both."""
+    sq, sk, causal, window, off = shape
+    for k0 in range(0, sk, 64):
+        assert _qtile_walk(k0, sq, sk, causal, window, off) == \
+            _qtiles_reaching(k0, sq, sk, causal, window, off), k0
 
 
 def test_attention_backward_bf16_against_fp32():
@@ -235,6 +337,48 @@ def test_attention_backward_bf16_against_fp32():
         assert a.dtype == torch.bfloat16
         rel = float((a.float() - b).norm() / b.norm())
         assert rel <= 2e-2, rel
+
+
+def _misaligned_like(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary, as a view into a larger buffer can."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == t.element_size()
+    return out
+
+
+def test_backward_refuses_misaligned_bf16_o_and_do():
+    """The bf16 backward kernels read o and do by TMA and 16-byte loads: the
+    wrapper's check refuses either one off a 16-byte boundary, as it does
+    q, k and v."""
+    q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    o, do, lse = torch.zeros_like(q), torch.zeros_like(q), torch.zeros(1, 2, 8)
+    fa_ops._check_grads(q, o, do, lse)
+    for args in ((q, _misaligned_like(o), do, lse), (q, o, _misaligned_like(do), lse)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_ops._check_grads(*args)
+    fa_ops._check_grads(q.float(), o.float(), _misaligned_like(do.float()), lse)  # fp32: SIMT
+
+
+def test_autograd_hands_the_backward_an_aligned_do(monkeypatch):
+    """An upstream gradient that autograd hands over misaligned reaches the
+    backward as an aligned copy of the same values."""
+    seen = []
+    inner = fa_ops.flash_attention_bwd
+    monkeypatch.setattr(fa_ops, "flash_attention_bwd",
+                        lambda *a, **k: seen.append(a[4]) or inner(*a, **k))
+    q, k, v, do = (torch.as_tensor(x).bfloat16() for x in _attn_inputs("causal"))
+    q.requires_grad_()
+    o = fa_ops.flash_attention(q, k, v)
+    g = _misaligned_like(do)
+    dq, = torch.autograd.grad(o, q, g)
+    (got,) = seen
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, do)
+    want = flash_attention_bwd_ref(q.detach(), k, v, o.detach(), do,
+                                   flash_attention_ref(q.detach(), k, v, with_lse=True)[1])[0]
+    assert torch.equal(dq, want)
 
 
 def test_prefill_path_writes_no_lse(monkeypatch):
