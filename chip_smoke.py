@@ -216,6 +216,33 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    counted forward and backward (the gradient is the same kernel over the
    transposed edge list), every backward call held to its plain version.
 
+17. the model families, last: (a) Grok-1 FULL widths (d 6,144, 48 / 8
+   heads, 8 experts top-2, d_ff 32,768, bf16) at 4 of its 64 layers, a
+   prefill of 8 x 4,000 tokens through ``prefill_step`` and 32 greedy
+   ``decode_step``s (capacity factor 4.0); (b) Kimi K2 FULL widths (d
+   7,168, 64 / 8 heads, head dim 112, 384 experts top-8, d_ff 2,048, one
+   shared expert) at 1 of its 61 layers, 1 x 4,096 tokens and 8 decode
+   steps. In both every ``flash_attention`` launch of the prefill must take
+   the bf16 tensor cores and equal its plain version, each layer's dropped
+   pairs must equal the capacity formula's count from its routing, and
+   layer 0's MoE on 512 of its tokens must be within 2e-2 (relative norm)
+   of the same function in fp32 on the same routing; prefill ms, decode ms
+   a step and peak memory. (c) ``launch.train.main --arch grok-1-314b /
+   kimi-k2-1t-a32b --smoke``, 20 steps of 4 x 64: the losses fall, the aux
+   is positive, the attention kernels launch forward, in the recompute and
+   backward. (d) GAT (``full_graph_sm``), EGNN and NequIP (``molecule``)
+   at FULL widths: a forward, then 5 clip + AdamW steps, ``segment_spmm``
+   counted by kind forward and backward and every call held to its plain
+   version; EGNN's and NequIP's energies unchanged (1e-4 relative) by a
+   random rotation and translation. (e) two-tower training at FULL widths
+   (user vocab 4,194,304, batch 16,384, bags of 1-16 Zipf(1.1) ids, fp32):
+   3 steps, the loss falling; every call of the ``embedding_bag`` backward
+   kernel (``csrc/embedding_bag_bwd.cu``) equal to its plain version (1e-5)
+   and bitwise to a second call; its time at the item table beside its
+   bound and ``F.embedding_bag``'s backward. (f) the twin of
+   ``examples/gnn_cached_sampling.py`` on the card (hits) and on the CPU
+   (the same invalidated keys).
+
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
 10. Once a process has traced many device events the profiler drops some of
@@ -224,7 +251,7 @@ and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
 Phase 11 runs right after 7, on its store, then 12, 13, 14 and 15, before 9;
-16 runs after 10, and its part (d) after 8.
+16 runs after 10, and its part (d) after 8; 17 runs last.
 
 Any failure raises (non-zero exit). The last stdout line is the device
 JSON; the line before it the card, and before that the kernels JSON.
@@ -3909,6 +3936,32 @@ def band_rel(got, want, rows=64):
     return float((d2 / w2.clamp(min=1e-30)).sqrt().max())
 
 
+def check_flash_calls(calls, where):
+    """Every captured ``flash_attention`` call of a prefill against the
+    plain version: within ``FLASH_REL_TOL`` relative norm, whole and per
+    64-row band of each sequence and head. Returns (max abs err, worst
+    relative norm, worst band)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    err = whole = band = 0.0
+    for i, (a, kwa) in enumerate(calls):
+        got, want = fa_ops.flash_attention(*a, **kwa), flash_attention_ref(*a, **kwa)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        r, rb = rel_norm(got, want), band_rel(got, want)
+        assert r <= FLASH_REL_TOL and rb <= FLASH_REL_TOL, (
+            f"flash_attention launch {i}{where} disagrees with its plain version at q "
+            f"{tuple(a[0].shape)}: relative norm {r:.3e}, worst 64-row band {rb:.3e}")
+        err, whole, band = (max(err, float((got.float() - want.float()).abs().max())),
+                            max(whole, r), max(band, rb))
+        del got, want
+    print(f"kernel flash_attention{where} calls={len(calls)} (each within a relative norm of "
+          f"{FLASH_REL_TOL} of the plain version, whole and per 64-row band of each sequence "
+          f"and head): worst relative norm {whole:.3e}, worst band {band:.3e}, max abs err "
+          f"{err:.3e}", flush=True)
+    return err, whole, band
+
+
 def run_lm(seed, dev):
     """Phase 10: prefill 8 x 4,000 tokens, copy the KV into a 4,096 cache,
     decode 96 tokens greedily; ``flash_attention`` counted and captured
@@ -3976,21 +4029,7 @@ def run_lm(seed, dev):
 
     # every launch of the prefill against the plain version
     calls = capture.calls["flash_attention"]
-    err = whole = band = 0.0
-    for i, (a, kwa) in enumerate(calls):
-        got, want = fa_ops.flash_attention(*a, **kwa), flash_attention_ref(*a, **kwa)
-        assert got.dtype == want.dtype and got.shape == want.shape
-        r, rb = rel_norm(got, want), band_rel(got, want)
-        assert r <= FLASH_REL_TOL and rb <= FLASH_REL_TOL, (
-            f"flash_attention launch {i} disagrees with its plain version at q "
-            f"{tuple(a[0].shape)}: relative norm {r:.3e}, worst 64-row band {rb:.3e}")
-        err, whole, band = (max(err, float((got.float() - want.float()).abs().max())),
-                            max(whole, r), max(band, rb))
-        del got, want
-    print(f"kernel flash_attention calls={len(calls)} (each within a relative norm of "
-          f"{FLASH_REL_TOL} of the plain version, whole and per 64-row band of each sequence "
-          f"and head): worst relative norm {whole:.3e}, worst band {band:.3e}, max abs err "
-          f"{err:.3e}", flush=True)
+    err, whole, band = check_flash_calls(calls, "")
     (q, k, v), kw = calls[-1]
     del calls, capture
 
@@ -4587,6 +4626,633 @@ def run_pna_train(cfg, params, g):
     return report
 
 
+# --------------------------------------------------- 17. the model families
+# (a) / (b): each MoE config at FULL widths, cut in depth to fit the card:
+# layers kept, batch, prompt, decode steps (the cache ends at prompt + decode)
+MOE_SERVE = {
+    "grok-1-314b": (4, 8, 4_000, 32),  # 4 of 64 layers: 38.7 GB of experts
+    "kimi-k2-1t-a32b": (1, 1, 4_096, 8),  # 1 of 61 layers: 33.8 GB of experts
+}
+MOE_CHECK_TOKENS = 512  # one layer's tokens, bf16 against a dense fp32 reference
+# bf16 products with fp32 accumulation and bf16 rounding of each expert's
+# hidden (F wide) and output, against the same routing in fp32 with no
+# dispatch (``moe_dense_ref``): ~5e-3 of the norm at these widths (4.444e-03
+# Grok-1, 5.220e-03 Kimi K2 against moe_apply in fp32 on an H100); a
+# dropped, misrouted or misweighted pair moves a token's output by its
+# whole gate share (~1/k of its norm)
+MOE_REL_TOL = 2e-2
+MOE_TRAIN_ARGV = ["--smoke", "--steps", "20", "--batch", "4", "--seq", "64", "--log-every", "10"]
+# (d): each GNN kind at FULL widths on its own GNN_SHAPES shape
+GNN_KINDS = {"gat": ("gat-cora", "full_graph_sm"), "egnn": ("egnn", "molecule"),
+             "nequip": ("nequip", "molecule")}
+GNN_KIND_STEPS = 5
+# segment sums a step (forward, backward): a layer's, those the last layer's
+# output feeds no loss through (EGNN's positions, NequIP's vectors and
+# matrices: no backward), and the energy pooling's; read through
+# gnn_kind_sums, here and by tests/test_torch_gnn_kinds.py
+GNN_KIND_SUMS = {"gat": ((2, 2), 0, (0, 0)), "egnn": ((3, 2), 1, (1, 1)),
+                 "nequip": ((3, 3), 2, (1, 1))}
+INVARIANCE_TOL = 1e-4  # energies after a rotation and translation, relative
+# (e): two-tower training at FULL widths
+TT_TRAIN_USER_VOCAB = 4_194_304  # reduced from 100M: 4 KB a row with grad and moments
+TT_TRAIN_BATCH = 16_384  # reduced from train_batch's 65,536: the [B, B] fp32 logits
+TT_TRAIN_STEPS = 3
+TT_TRAIN_LR = 1e-3
+# F.embedding_bag's backward (the library yardstick) is held to the plain
+# version on the rows that at most this many entries read: both sum fp32
+# terms, in other orders, so a long run (the Zipf head's has ~10^5 terms)
+# differs by rounding; a short one shows whether the library computes the
+# same function
+EB_LIB_SHORT_RUN = 8
+EB_LIB_TOL = 1e-5
+
+
+def moe_dropped_by_formula(expert, n_experts, capacity):
+    """Pairs the capacity drops, from the routing alone: over the experts,
+    max(0, pairs routed to it - C)."""
+    counts = torch.bincount(expert.reshape(-1), minlength=n_experts)
+    return int((counts - capacity).clamp(min=0).sum())
+
+
+def moe_layer_drops(lm_layers, x, router, kw):
+    """One layer's ``moe_ffn`` call: its capacity, the pairs its dispatch
+    dropped and those the formula gives from its routing."""
+    k, E = kw["top_k"], router.shape[-1]
+    C = lm_layers.moe_capacity(x.shape[0], k, E, kw["capacity_factor"])
+    _, _, expert = lm_layers.moe_route(x, router, k)
+    _, _, keep = lm_layers.moe_dispatch(expert, E, C)
+    return dict(capacity=C, dropped=x.shape[0] * k - int(keep.sum()),
+                dropped_by_formula=moe_dropped_by_formula(expert, E, C))
+
+
+def gnn_kind_sums(kind, n_layers):
+    """The segment sums one training step of a GNN ``kind`` with
+    ``n_layers`` layers makes: (forward, backward)."""
+    (fl, bl), unread, (fp, bp) = GNN_KIND_SUMS[kind]
+    return fl * n_layers + fp, bl * n_layers - unread + bp
+
+
+def moe_kept_pairs(expert, n_experts, capacity):
+    """Which routed (token, k) pairs the capacity keeps, from the routing
+    alone: those among their expert's first C pairs in token-major order,
+    each pair's rank a running count of one-hot rows (no sort, no
+    ``searchsorted``). [N, k] bool."""
+    oh = torch.nn.functional.one_hot(expert.reshape(-1), n_experts)  # [N*k, E]
+    rank = (oh.cumsum(0) * oh).sum(1) - 1
+    return (rank < capacity).reshape(expert.shape)
+
+
+def moe_dense_ref(x, gate, expert, we1, we3, we2, capacity):
+    """The MoE output in fp32 for a routing (gate, expert [N, k]), with no
+    dispatch buffer, slot or combine of ``moe_apply``'s: out[t] = the sum
+    over t's kept pairs (``moe_kept_pairs``) of gate x swiglu(x[t]) under
+    the pair's expert, one expert at a time over the tokens it takes."""
+    N, E = x.shape[0], we1.shape[0]
+    keep = moe_kept_pairs(expert, E, capacity)
+    w = torch.zeros(N, E, dtype=torch.float32, device=x.device)
+    w.scatter_add_(1, expert, torch.where(keep, gate.float(), 0.0))
+    out = torch.zeros(N, x.shape[1], dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for e in range(E):
+        rows = torch.nonzero(w[:, e]).squeeze(1)
+        if rows.numel() == 0:
+            continue
+        xr = xf[rows]
+        h = torch.nn.functional.silu(xr @ we1[e].float()) * (xr @ we3[e].float())
+        out[rows] += w[rows, e, None] * (h @ we2[e].float())
+    return out
+
+
+def moe_dense_rel(lm_layers, args, kw, n_tokens):
+    """The relative norm of ``moe_apply`` over a layer's first ``n_tokens``
+    tokens (in the layer's dtype) against ``moe_dense_ref`` on the same
+    routing."""
+    x, router, we1, we3, we2 = args
+    xs, k = x[:n_tokens], kw["top_k"]
+    C = lm_layers.moe_capacity(n_tokens, k, router.shape[-1], kw["capacity_factor"])
+    _, gate, expert = lm_layers.moe_route(xs, router, k)
+    got = lm_layers.moe_apply(xs, gate, expert, we1, we3, we2, C)
+    want = moe_dense_ref(xs, gate, expert, we1, we3, we2, C)
+    assert got.dtype == x.dtype and want.dtype == torch.float32
+    return rel_norm(got, want)
+
+
+def run_moe_serving(arch, seed, dev):
+    """Phase 17 (a) / (b): ``arch`` FULL at the depth ``MOE_SERVE`` keeps,
+    a prefill through ``prefill_step`` then greedy ``decode_step``s;
+    ``flash_attention`` counted and captured around the prefill, every
+    launch on the bf16 tensor cores and held to its plain version, each
+    layer's dropped pairs held to the capacity formula, layer 0's MoE on
+    ``MOE_CHECK_TOKENS`` tokens held to its dense fp32 reference. Returns
+    its report."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.lm import layers as lm_layers, model as lm_model
+
+    L, B, S, T = MOE_SERVE[arch]
+    full = get_arch(arch).FULL
+    cfg = dataclasses.replace(full, n_layers=L)
+    expert_gb = L * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff * 2 / 1e9
+    print(f"moe {arch}: d {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, head dim "
+          f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_shared_experts} shared, vocab {cfg.vocab:,}, {cfg.dtype}; reduced: "
+          f"{L} of {full.n_layers} layers ({expert_gb:.1f} GB of experts), a prompt of "
+          f"{B} x {S:,}, {T} decode steps", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 71)
+    t0 = time.perf_counter()
+    params = lm_model.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    report = dict(made_s=time.perf_counter() - t0)
+    capture = CallCapture((lm_model, "flash_attention"), (lm_model, "moe_ffn"))
+    fa_ops.launches = fa_ops.launches_bf16_tc = fa_ops.launches_f32_simt = 0
+    with capture:
+        t0 = time.perf_counter()
+        tok, kv = lm_model.prefill_step(cfg, params, tokens)
+        torch.cuda.synchronize()
+        report["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    report["flash_attention_launches"] = launches = fa_ops.launches
+    assert launches == L and fa_ops.launches_bf16_tc == L and fa_ops.launches_f32_simt == 0, (
+        f"{arch} prefill: {launches} flash_attention launches, {fa_ops.launches_bf16_tc} on "
+        f"the bf16 tensor cores; all {L} must take them")
+    assert len(capture.calls["moe_ffn"]) == L
+    assert tok.shape == (B, 1) and 0 <= int(tok.min()) and int(tok.max()) < cfg.vocab
+
+    cache = lm_model.init_kv_cache(cfg, B, S + T, device=dev)
+    cache.k[:, :, :S], cache.v[:, :, :S] = kv.k, kv.v
+    del kv
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = []
+    for i in range(T):
+        tok, cache = lm_model.decode_step(cfg, params, cache, tok, S + i)
+        out.append(tok)
+    torch.cuda.synchronize()
+    report["decode_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / T
+    out = torch.cat(out, 1)
+    assert out.shape == (B, T) and int(out.min()) >= 0 and int(out.max()) < cfg.vocab
+    assert bool((cache.k[:, :, S:].abs().amax(dim=(0, 1, 3, 4)) > 0).all()), \
+        "decode left cache positions unwritten"
+    report["decode_capacity"] = lm_layers.moe_capacity(B, cfg.top_k, cfg.n_experts, 4.0)
+    report["profiled_decode_wall_busy_ms"] = profiled(
+        f" moe {arch} decode", f"one decode step ({B} tokens)",
+        lambda: lm_model.decode_step(cfg, params, cache, tok, S + T - 1), host_ops=False)
+    del cache, out
+    report["profiled_prefill_wall_busy_ms"] = profiled(
+        f" moe {arch} prefill", f"one prefill ({B} x {S:,})",
+        lambda: lm_model.prefill_step(cfg, params, tokens), host_ops=False)
+
+    _, report["flash_worst_rel_norm"], report["flash_worst_band"] = check_flash_calls(
+        capture.calls["flash_attention"], f" {arch}")
+    moe_calls = capture.calls["moe_ffn"]
+    report["layers"] = [moe_layer_drops(lm_layers, a[0], a[1], kw) for a, kw in moe_calls]
+    for i, r in enumerate(report["layers"]):
+        assert r["dropped"] == r["dropped_by_formula"], (arch, i, r)
+    report["dense_ref_rel_norm"] = rel = moe_dense_rel(lm_layers, *moe_calls[0],
+                                                       MOE_CHECK_TOKENS)
+    assert rel <= MOE_REL_TOL, f"{arch}: layer 0's MoE is {rel:.3e} from its dense reference"
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"moe {arch}: " + json.dumps(report), flush=True)
+    del capture, params, tokens
+    return report
+
+
+def check_train_attention_calls(fwd_calls, bwd_calls, where):
+    """Every attention call of a training run (captured by ``CallCapture``
+    around ``fa_ops._forward`` and ``fa_ops.flash_attention_bwd``) against
+    the plain version on the same inputs, at phase 10's and 16's limits:
+    the with-lse forward's o within ``FLASH_REL_TOL`` relative norm, whole
+    and per 64-row band, and its lse within ``FA_LSE_TOL``; each of dq, dk
+    and dv within ``FA_BWD_BF16_REL`` relative norm of the plain backward
+    of the same q, k, v, o, do and lse (both sum the same fp32 terms; the
+    kernel rounds p and ds to bf16 for its products). Returns the worst
+    figures."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+
+    assert fwd_calls and bwd_calls, f"{where}: no attention call captured"
+    worst = dict(o_rel=0.0, o_band=0.0, lse_err=0.0, grad_rel=0.0)
+    with torch.no_grad():
+        for (q, k, v, causal, window, q_offset), kw in fwd_calls:
+            mask = dict(causal=causal, window=window, q_offset=q_offset)
+            o, lse = fa_ops._forward(q, k, v, causal, window, q_offset, **kw)
+            p_o, p_lse = flash_attention_ref(q, k, v, with_lse=True, **mask)
+            r, rb = rel_norm(o, p_o), band_rel(o, p_o)
+            e = float((lse - p_lse).abs().max()) if kw.get("with_lse") else 0.0
+            assert o.dtype == p_o.dtype and r <= FLASH_REL_TOL and rb <= FLASH_REL_TOL \
+                and e <= FA_LSE_TOL, (f"{where}: a training flash_attention call at q "
+                                      f"{tuple(q.shape)} disagrees with its plain version: "
+                                      f"o {r:.3e} / band {rb:.3e}, lse {e:.3e}")
+            worst.update(o_rel=max(worst["o_rel"], r), o_band=max(worst["o_band"], rb),
+                         lse_err=max(worst["lse_err"], e))
+        for (q, k, v, o, do, lse), kw in bwd_calls:
+            got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            want = flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            rels = [rel_norm(a, w) for a, w in zip(got, want)]
+            assert all(a.dtype == w.dtype and a.shape == w.shape for a, w in zip(got, want))
+            assert max(rels) <= FA_BWD_BF16_REL, (
+                f"{where}: a training flash_attention_bwd call at q {tuple(q.shape)} "
+                f"disagrees with its plain version: dq / dk / dv {rels}")
+            worst["grad_rel"] = max(worst["grad_rel"], *rels)
+    print(f"kernel flash_attention{where} forward with lse calls={len(fwd_calls)} (o within "
+          f"{FLASH_REL_TOL} relative norm, whole and per band, lse within {FA_LSE_TOL}): worst "
+          f"o {worst['o_rel']:.3e} / band {worst['o_band']:.3e}, lse {worst['lse_err']:.3e}; "
+          f"flash_attention_bwd calls={len(bwd_calls)} (dq / dk / dv within {FA_BWD_BF16_REL} "
+          f"relative norm): worst {worst['grad_rel']:.3e}", flush=True)
+    return worst
+
+
+def run_moe_training(arch, dev):
+    """Phase 17 (c): ``launch.train.main --arch <arch> --smoke`` for 20
+    steps of 4 x 64 tokens, the attention kernels counted and captured
+    around it; the losses must fall, the final parameters' aux be
+    positive, every attention launch take the bf16 tensor cores (head dim
+    16, padded to 64) and every call, forward and backward, equal its
+    plain version (``check_train_attention_calls``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.lm import model as lm_model
+
+    cfg = get_arch(arch).SMOKE
+    fa_ops.launches = fa_ops.launches_bf16_tc = fa_ops.launches_bwd = 0
+    keep = {}
+    capture = CallCapture((fa_ops, "_forward"), (fa_ops, "flash_attention_bwd"))
+    t0 = time.perf_counter()
+    with capture:
+        losses = train_mod.main(["--arch", arch, "--device", dev] + MOE_TRAIN_ARGV, keep=keep)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = dict(forward=fa_ops.launches, backward=fa_ops.launches_bwd)
+    tensor_core = fa_ops.launches_bf16_tc
+    tokens, _ = next(train_mod.synthetic_batches(cfg.vocab, 4, 64, seed=1, device=dev))
+    with torch.no_grad():
+        aux = float(lm_model.forward(cfg, keep["params"], tokens)[1])
+    steps = len(losses)
+    report = dict(losses=losses, aux=aux, launches=counts, run_s=run_s,
+                  step_ms_median=float(np.median(keep["step_s"][1:])) * 1e3)
+    print(f"moe train {arch}: " + json.dumps(report), flush=True)
+    assert steps == 20 and all(np.isfinite(losses)), losses
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), f"{arch}: the loss did not fall"
+    assert aux > 0, f"{arch}: aux {aux}"
+    # remat: each layer's attention forward twice a step (forward and
+    # recompute), its backward once
+    assert counts == dict(forward=2 * cfg.n_layers * steps, backward=cfg.n_layers * steps), \
+        counts
+    assert cfg.dtype == "bfloat16" and tensor_core == counts["forward"], (cfg.dtype, tensor_core)
+    assert (len(capture.calls["_forward"]), len(capture.calls["flash_attention_bwd"])) == \
+        (counts["forward"], counts["backward"])
+    report["attention_check"] = check_train_attention_calls(
+        capture.calls["_forward"], capture.calls["flash_attention_bwd"], f" {arch} training")
+    return report
+
+
+def random_rotation(gen):
+    """A uniformly random proper rotation [3, 3] (QR of a Gaussian, signs
+    fixed, det +1), fp32, from ``gen``."""
+    q, r = torch.linalg.qr(torch.randn((3, 3), generator=gen, dtype=torch.float64))
+    q = q * torch.sign(torch.diagonal(r))
+    if torch.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q.to(torch.float32)
+
+
+def run_gnn_kinds(seed, dev):
+    """Phase 17 (d): GAT, EGNN and NequIP at FULL widths, each on its own
+    ``GNN_SHAPES`` shape: a forward, then ``GNN_KIND_STEPS`` clip + AdamW
+    steps, ``segment_spmm`` counted and captured around the steps by kind,
+    forward and backward; every call held to its plain version, and the
+    EGNN / NequIP energies to those of the positions rotated and
+    translated. Returns (per-kind reports, launches by kind)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_shapes import GNN_SHAPES
+    from repro_torch.gnn.graph import random_graph_batch
+    from repro_torch.gnn.models import forward, init_params, train_step
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref
+    from repro_torch.optim import adamw, chain, clip_by_global_norm
+
+    reports, by_kind = {}, {}
+    for kind, (arch, shape_name) in GNN_KINDS.items():
+        cfg, shp = get_arch(arch).FULL, GNN_SHAPES[shape_name]
+        eq = cfg.kind in ("egnn", "nequip")
+        assert cfg.kind == kind and cfg.d_in == shp["d_feat"], (cfg, shp)
+        gen = torch.Generator(device=dev).manual_seed(seed + 83)
+        params = init_params(cfg, gen, device=dev)
+        g = random_graph_batch(gen, shp["n_nodes"], shp["n_edges"], cfg.d_in,
+                               n_classes=cfg.n_classes, positions=eq,
+                               n_graphs=shp["n_graphs"], device=dev)
+        targets = torch.randn(shp["n_graphs"], generator=gen, device=dev) if eq else None
+        with torch.no_grad():
+            out0 = forward(cfg, params, g)
+        r = dict(shape=shape_name, out_shape=list(out0.shape))
+        if eq:
+            rot = random_rotation(torch.Generator().manual_seed(seed + 89)).to(dev)
+            shift = torch.randn(3, generator=gen, device=dev) * 4.0
+            with torch.no_grad():
+                out1 = forward(cfg, params, g._replace(positions=g.positions @ rot.T + shift))
+            r["invariance_rel"] = rel = float((out1 - out0).abs().max()
+                                              / out0.abs().max().clamp(min=1e-30))
+            assert rel <= INVARIANCE_TOL, f"{kind}: energies moved {rel:.3e} under a rotation"
+        opt = chain(clip_by_global_norm(1.0), adamw(1e-3))
+        state, step = opt.init(params), train_step(cfg, opt)
+        capture = CallCapture((ss_ops, "csr_sum"))
+        ss_ops.launches = ss_ops.launches_backward = 0
+        losses, ms = [], []
+        with capture:
+            for _ in range(GNN_KIND_STEPS):
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, g, targets)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        bwd = ss_ops.launches_backward
+        by_kind[kind] = dict(forward=ss_ops.launches - bwd, backward=bwd)
+        err = 0.0
+        with torch.no_grad():
+            for (x, csr, *_), _ in capture.calls["csr_sum"]:
+                got = ss_ops.csr_sum(x, csr)
+                want = segment_spmm_csr_ref(x, csr.src_sorted, csr.offsets)
+                assert torch.allclose(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL), \
+                    f"{kind}: a segment_spmm call disagrees with its plain version"
+                err = max(err, float((got - want).abs().max()))
+        r.update(losses=losses, step_ms=ms, launches=by_kind[kind],
+                 calls_checked=len(capture.calls["csr_sum"]), max_abs_err=err)
+        print(f"gnn kind {kind} (phase 17 d): " + json.dumps(r), flush=True)
+        fs, bs = gnn_kind_sums(kind, cfg.n_layers)
+        assert all(np.isfinite(losses)), r
+        assert by_kind[kind] == dict(forward=GNN_KIND_STEPS * fs, backward=GNN_KIND_STEPS * bs), r
+        assert len(capture.calls["csr_sum"]) == sum(by_kind[kind].values())
+        reports[kind] = r
+        del capture, params, state, g
+    return reports, by_kind
+
+
+def zipf_logq(ids, perm_inv, a=TT_ZIPF):
+    """The log probability of each id under ``zipf_ids``'s law: rank r =
+    ``perm_inv[id] + 1`` has mass (r^(1-a) - (r+1)^(1-a)) / (1 - (V+1)^(1-a))."""
+    V = perm_inv.shape[0]
+    r = perm_inv[ids.long()].double() + 1
+    mass = (r ** (1 - a) - (r + 1) ** (1 - a)) / (1 - (V + 1.0) ** (1 - a))
+    return torch.log(mass).to(torch.float32)
+
+
+def eb_bwd_bound(dout, ids, mask, n_rows):
+    """Least bytes of the table gradient: dout, ids and mask each read once,
+    the dense [n_rows, D] gradient written once; one add per unmasked
+    value."""
+    D, es = dout.shape[1], dout.element_size()
+    nbytes = dout.numel() * es + ids.numel() * 4 + mask.numel() + n_rows * D * es
+    return nbytes, int(mask.sum()) * D
+
+
+def run_twotower_train(seed, dev):
+    """Phase 17 (e): two-tower training at FULL widths (user vocab and batch
+    cut), ``TT_TRAIN_STEPS`` clip + AdamW steps on one Zipf(1.1) batch,
+    ``embedding_bag`` counted forward and backward and its calls captured,
+    each step's forward calls held to their plain version after the step;
+    then every backward call against its plain version and
+    twice against itself, and the kernel timed at the step's item-table
+    call beside its bound and ``F.embedding_bag``'s backward. Returns (its
+    report, the backward kernel's row, the forward's launches)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from repro_torch.configs import two_tower_retrieval as ttc
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_ref, embedding_bag_ref
+    from repro_torch.optim import adamw, chain, clip_by_global_norm
+    from repro_torch.recsys import embedding as emb_mod, twotower as tt
+
+    cfg = dataclasses.replace(ttc.FULL, user_vocab=TT_TRAIN_USER_VOCAB)
+    B, K, D = TT_TRAIN_BATCH, cfg.bag_size, cfg.embed_dim
+    print(f"recsys train: reduced: user_vocab {ttc.FULL.user_vocab:,} -> {cfg.user_vocab:,} "
+          f"(parameters, the dense gradient and two AdamW moments: 4 KB a row); item_vocab "
+          f"{cfg.item_vocab:,}; train_batch {ttc.SHAPES['train_batch']['batch']:,} -> {B:,} "
+          f"(the [B, B] fp32 logits and their gradient); {TT_TRAIN_STEPS} steps", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 97)
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, gen, device=dev)
+    uperm = torch.randperm(cfg.user_vocab, generator=gen, device=dev)
+    iperm = torch.randperm(cfg.item_vocab, generator=gen, device=dev)
+    ub, um = make_bags(gen, uperm, B, cfg.user_fields, K)
+    ib, im = make_bags(gen, iperm, B, cfg.item_fields, K)
+    iperm_inv = torch.empty_like(iperm)
+    iperm_inv[iperm] = torch.arange(cfg.item_vocab, device=dev)
+    batch = dict(user_bags=ub, user_mask=um, item_bags=ib, item_mask=im,
+                 item_logq=zipf_logq(ib[:, 0, 0], iperm_inv))
+    del iperm_inv, uperm, iperm
+    opt = chain(clip_by_global_norm(1.0), adamw(TT_TRAIN_LR))
+    state, step = opt.init(params), tt.train_step(cfg, opt)
+    torch.cuda.synchronize()
+    report = dict(made_s=time.perf_counter() - t0)
+    capture = CallCapture((eb_ops, "embedding_bag_backward"), (emb_mod, "bag_op"))
+    eb_ops.launches = eb_ops.launches_backward = 0
+    losses, ms, fwd_checked, fwd_err, fwd, bwd = [], [], 0, 0.0, 0, 0
+    torch.cuda.reset_peak_memory_stats()
+    with capture:
+        for _ in range(TT_TRAIN_STEPS):
+            n, nb = eb_ops.launches, eb_ops.launches_backward
+            t0 = time.perf_counter()
+            new_params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            bwd += eb_ops.launches_backward - nb
+            fwd += eb_ops.launches - n - (eb_ops.launches_backward - nb)
+            # the step's forward bag calls, on the tables it read (this
+            # step's parameters, let go before the next), against the plain
+            # version, outside the timed step and its counts
+            for (table, ids, mask), kw in capture.calls["bag_op"]:
+                with torch.no_grad():
+                    got = eb_ops.embedding_bag(table, ids, mask, **kw)
+                    want = embedding_bag_ref(table, ids, mask, **kw)
+                assert got.dtype == want.dtype and got.shape == want.shape
+                assert torch.allclose(got, want, rtol=BAG_TOL, atol=BAG_TOL), \
+                    f"a training embedding_bag call at ids {tuple(ids.shape)} disagrees"
+                fwd_err = max(fwd_err, float((got - want).abs().max()))
+                fwd_checked += 1
+                del got, want
+            capture.calls["bag_op"].clear()
+            params = new_params
+            del new_params
+    report.update(losses=losses, step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  launches=dict(forward=fwd, backward=bwd), forward_calls_checked=fwd_checked,
+                  forward_max_abs_err=fwd_err)
+    print("recsys train: " + json.dumps(report), flush=True)
+    print(f"kernel embedding_bag two-tower training calls={fwd_checked} (each within "
+          f"rtol=atol={BAG_TOL} of the plain version, max abs err {fwd_err:.3e})", flush=True)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert (fwd, bwd) == (2 * TT_TRAIN_STEPS, 2 * TT_TRAIN_STEPS), (fwd, bwd)
+    assert fwd_checked == fwd, (fwd_checked, fwd)
+    report["profiled_step_wall_busy_ms"] = profiled(
+        " recsys train", "one more two-tower training step",
+        lambda: step(params, state, batch), host_ops=False)
+    del state, opt, step  # the moments: room for the checks' dense gradients
+
+    # every call against its plain version on the host, bit for bit: on CPU
+    # tensors the wrapper takes the plain version, whose index_add_ adds a
+    # row's terms (scaled_rows, on both sides) one after another in flat
+    # (bag, slot) order, as the kernel walks its sorted run
+    calls = capture.calls["embedding_bag_backward"]
+    assert len(calls) == bwd
+    item_want = None
+    for (dout, ids, mask, n_rows), kw in calls:
+        got = eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+        again = eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+        assert torch.equal(got, again), "two embedding_bag backward calls differ"
+        del again
+        want = eb_ops.embedding_bag_backward(dout.cpu(), ids.cpu(), mask.cpu(), n_rows, **kw)
+        assert torch.equal(got.cpu(), want), \
+            f"embedding_bag backward differs from its plain version (V={n_rows:,})"
+        if n_rows == cfg.item_vocab:
+            item_call, item_want = ((dout, ids, mask, n_rows), kw), want
+        del got, want
+    print(f"kernel embedding_bag_backward calls={len(calls)} (each equal bit for bit to its "
+          f"plain version on the host and to a second call on the card)", flush=True)
+
+    # timed at the step's largest call, the item table's (the last one)
+    (dout, ids, mask, n_rows), kw = item_call
+    want = item_want
+    del calls, capture, item_call, item_want
+    kern = lambda: eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+    plain = lambda: embedding_bag_backward_ref(dout, ids, mask, n_rows, **kw)
+    t = dict(ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=5),
+             device_ms=device_ms(kern, iters=3), plain_device_ms=device_ms(plain, iters=3))
+    table = params["item_table"].detach().requires_grad_(True)
+    cnt = mask.sum(-1, keepdim=True).clamp(min=1).to(table.dtype)
+    lib_out = F.embedding_bag(ids.long().clamp(0, n_rows - 1), table,
+                              per_sample_weights=mask.to(table.dtype) / cnt, mode="sum")
+    lib = lambda: torch.autograd.grad(lib_out, table, dout, retain_graph=True)[0]
+    order, offsets = eb_ops.prepare_rows(ids, mask, n_rows)
+    runs = (offsets[1:] - offsets[:-1]).cpu()
+    short = (runs > 0) & (runs <= EB_LIB_SHORT_RUN)
+    assert torch.allclose(lib().cpu()[short], want[short], rtol=EB_LIB_TOL, atol=EB_LIB_TOL), \
+        "F.embedding_bag's backward computes another gradient"
+    del want, order, offsets
+    lib_ms, lib_dev = cuda_ms(lib, iters=5), device_ms(lib, iters=3)
+    nbytes, ops = eb_bwd_bound(dout, ids, mask, n_rows)
+    bms, by = bound_ms(nbytes, ops)
+    longest = int(runs.max())
+    prep_ms = cuda_ms(lambda: eb_ops.prepare_rows(ids, mask, n_rows), iters=5)
+    us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
+    print(f"kernel embedding_bag_backward item table V={n_rows:,} D={D} bags={ids.shape[0]:,} "
+          f"K={K} unmasked={int(mask.sum()):,} rows read={int((runs > 0).sum()):,} longest "
+          f"run={longest:,} {fmt_us(t)} prepare_rows_us={prep_ms * 1e3:.3f} F.embedding_bag "
+          f"backward_us={us(lib_ms)} (device {us(lib_dev)}) bound_us={bms * 1e3:.4f} ({by}, "
+          f"{nbytes} B)", flush=True)
+    row = dict(name="embedding_bag_backward", route="cuda",
+               source="src/repro_torch/csrc/embedding_bag_bwd.cu",
+               replaces="none: the JAX package differentiates jnp.take in "
+                        "src/repro/recsys/embedding.py:22",
+               launches=bwd, max_abs_err=0.0, **t, bound_ms=bms, bound_by=by,
+               library_ms=lib_ms, library_device_ms=lib_dev, prepare_rows_ms=prep_ms,
+               longest_run=longest, shape=f"V={n_rows},D={D},bags={ids.shape[0]},K={K}",
+               launches_by_path={"phase 17 (e) two-tower training": bwd})
+    del lib_out, table, params, batch
+    return report, row, fwd
+
+
+def run_example_twin(dev):
+    """Phase 17 (f): ``examples/gnn_cached_sampling_torch.py`` on ``dev``
+    (the card) and on the CPU: hits on the card, the same invalidated keys
+    an epoch on both, and every ``cache_probe`` and ``segment_spmm`` call
+    of the card run held to its plain version."""
+    import importlib.util
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
+    from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "gnn_cached_sampling_torch.py")
+    spec = importlib.util.spec_from_file_location("gnn_cached_sampling_torch", path)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    capture = CallCapture((cache_mod, "cache_probe"), (ss_ops, "csr_sum"))
+    cp_ops.launches = ss_ops.launches = 0
+    t0 = time.perf_counter()
+    with capture:
+        card, sampler = twin.run(device=dev, log=lambda *_: None)
+    card_s = time.perf_counter() - t0
+    launches = dict(cache_probe=cp_ops.launches, segment_spmm=ss_ops.launches)
+    cpu, _ = twin.run(device="cpu", log=lambda *_: None)
+    report = dict(card=card, cpu=cpu, card_s=card_s, launches=launches)
+    print("example twin (phase 17 f): " + json.dumps(report), flush=True)
+    assert sampler.hits > 0, "the twin's sampler never hit on the card"
+    assert [e["impacted_keys"] for e in card] == [e["impacted_keys"] for e in cpu], report
+    # every kernel call of the card run against its plain version
+    probes, sums = capture.calls["cache_probe"], capture.calls["csr_sum"]
+    assert (len(probes), len(sums)) == (launches["cache_probe"], launches["segment_spmm"]) \
+        and sums, launches
+    check_probe_calls(probes, "the example twin")
+    err = 0.0
+    with torch.no_grad():
+        for (x, csr, *_), _ in sums:
+            got = ss_ops.csr_sum(x, csr)
+            want = segment_spmm_csr_ref(x, csr.src_sorted, csr.offsets)
+            assert torch.allclose(got, want, rtol=SPMM_RTOL, atol=SPMM_ATOL), \
+                "a segment_spmm call of the example twin disagrees with its plain version"
+            err = max(err, float((got - want).abs().max()))
+    print(f"kernel cache_probe example twin calls={len(probes)} (each equal to its plain "
+          f"version); kernel segment_spmm example twin calls={len(sums)} (each within "
+          f"rtol=atol={SPMM_RTOL} of its plain version, max abs err {err:.3e})", flush=True)
+    return report
+
+
+def run_families(seed, dev, rows):
+    """Phase 17: the model families, (a)-(f); the kernels' launches added
+    to their rows by path, and the embedding_bag backward's row appended."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    t_phase = time.perf_counter()
+    added = {"flash_attention": {}, "flash_attention_bwd": {}, "segment_spmm": {},
+             "embedding_bag": {}, "cache_probe": {}}
+    for part, arch in (("a", "grok-1-314b"), ("b", "kimi-k2-1t-a32b")):
+        t0 = time.perf_counter()
+        r = run_moe_serving(arch, seed, dev)
+        added["flash_attention"][f"phase 17 ({part}) {arch} prefill"] = \
+            r["flash_attention_launches"]
+        print(f"moe {arch} phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        phase_memory(f"phase 17 {part}")
+        free_device()
+    t0 = time.perf_counter()
+    for arch in ("grok-1-314b", "kimi-k2-1t-a32b"):
+        r = run_moe_training(arch, dev)
+        added["flash_attention"][f"phase 17 (c) {arch} training"] = r["launches"]["forward"]
+        added["flash_attention_bwd"][f"phase 17 (c) {arch} training"] = r["launches"]["backward"]
+    print(f"moe train phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 17 c")
+    t0 = time.perf_counter()
+    _, by_kind = run_gnn_kinds(seed, dev)
+    for kind, c in by_kind.items():
+        added["segment_spmm"][f"phase 17 (d) {kind} forwards"] = c["forward"]
+        added["segment_spmm"][f"phase 17 (d) {kind} backwards"] = c["backward"]
+    print(f"gnn kinds phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 17 d")
+    free_device()
+    t0 = time.perf_counter()
+    _, bwd_row, fwd = run_twotower_train(seed, dev)
+    added["embedding_bag"]["phase 17 (e) two-tower training"] = fwd
+    print(f"recsys train phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    phase_memory("phase 17 e")
+    free_device()
+    t0 = time.perf_counter()
+    twin = run_example_twin(dev)
+    added["cache_probe"]["phase 17 (f) example twin"] = twin["launches"]["cache_probe"]
+    added["segment_spmm"]["phase 17 (f) example twin"] = twin["launches"]["segment_spmm"]
+    print(f"example twin phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    for row in rows:
+        if row["name"] in added:
+            row["launches_by_path"].update(added[row["name"]])
+            row["launches"] += sum(added[row["name"]].values())
+    rows.append(bwd_row)
+    print(f"families phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    assert eb_ops.launches_backward >= bwd_row["launches"]
+
+
 def phase_memory(tag):
     """Prints the phase's peak device memory and starts the next phase's count."""
     print(f"peak device memory {tag}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -4809,6 +5475,7 @@ def main():
     # towers only
     t0 = time.perf_counter()
     _, row = run_twotower(args.seed, dev)
+    row["launches_by_path"] = {"phase 9 towers": row["launches"]}
     rows.append(row)
     print(f"recsys phase: {time.perf_counter() - t0:.1f}s", flush=True)
     phase_memory("phase 9")
@@ -4832,12 +5499,18 @@ def main():
                                        "phase 16 training (forward and recompute)": train_fwd}
             row["launches"] += train_fwd
             row["training_timed_shapes"] = fwd_timed
+    bwd_row["launches_by_path"] = {"phase 16 training": bwd_row["launches"]}
     rows.append(bwd_row)
     phase_memory("phase 16")
     free_device()
 
-    # 8. GNN serving, then 16 (d), PNA training on its batch; last
+    # 8. GNN serving, then 16 (d), PNA training on its batch
     rows.append(run_gnn_phase(args.seed, dev))
+    free_device()
+
+    # 17. the model families: MoE serving and training, the GNN kinds,
+    # two-tower training, the GNN example's twin; last
+    run_families(args.seed, dev, rows)
 
     print(f"total: {time.perf_counter() - t_all:.1f}s", flush=True)
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,9 @@
-"""ctypes binding of the CUDA embedding_bag kernel (``csrc/embedding_bag.cu``).
+"""ctypes bindings of the CUDA embedding_bag kernels: the forward
+(``csrc/embedding_bag.cu``) and the table gradient
+(``csrc/embedding_bag_bwd.cu``).
 
-The source's header says which TPU kernel it replaces and what bounds it.
-Launches on PyTorch's current stream and allocates only its output.
+The sources' headers say what each replaces and what bounds it. Each
+launches on PyTorch's current stream and allocates only its output.
 """
 
 from __future__ import annotations
@@ -23,4 +25,22 @@ def embedding_bag_cuda(table, ids, mask, *, mean: bool):
         torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check("embedding_bag", err)
+    return out
+
+
+def embedding_bag_bwd_cuda(g, order, offsets, k: int, dtype):
+    """The dense table gradient [V, D] in ``dtype`` (fp32 or bf16), V =
+    ``offsets.numel() - 1``: row v sums ``g[order[e] // k]`` over e in
+    ``[offsets[v], offsets[v + 1])`` in that order, in fp32. ``g`` fp32 [B, D]
+    (dout scaled by each bag's denominator), ``order`` int32 [B*k] (flat
+    (bag, slot) positions sorted by row), ``offsets`` int32 [V + 1]."""
+    V, D = offsets.shape[0] - 1, g.shape[1]
+    out = torch.empty((V, D), dtype=dtype, device=g.device)
+    fn = _build.bind("embedding_bag_bwd", "embedding_bag_bwd_launch", 4, 4)
+    err = fn(
+        g.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        V, k, D, int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    _build.check("embedding_bag_bwd", err)
     return out

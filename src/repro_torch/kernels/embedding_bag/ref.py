@@ -31,3 +31,37 @@ def embedding_bag_ref(table, ids, mask, *, mode="sum"):
             acc = acc / m.sum(-1, keepdim=True).to(torch.float32).clamp(min=1.0)
         out[s:s + CHUNK] = acc
     return out
+
+
+def scaled_rows(dout, mask, mode):
+    """Each bag's term of the table gradient, fp32 [B, D]: ``dout[b]``,
+    divided by ``max(count_b, 1)`` in mean mode, once a bag. The plain
+    version and the kernel both sum these, so their sums can be equal bit
+    for bit."""
+    g = dout.to(torch.float32)
+    if mode == "mean":
+        g = g / mask.sum(-1, keepdim=True).to(torch.float32).clamp(min=1.0)
+    return g.contiguous()
+
+
+def embedding_bag_backward_ref(dout, ids, mask, n_rows: int, *, mode="sum"):
+    """The gradient of ``embedding_bag_ref`` with respect to its table:
+    dout [B, D]; ids int [B, K]; mask bool [B, K] -> dtable [n_rows, D] in
+    ``dout.dtype``, dense, as ``jax.grad`` of the reference's ``clip`` +
+    ``take`` gives it.
+
+    ``dtable[clip(ids[b, j])] += dout[b] / max(count_b, 1)`` (``mode="mean"``;
+    ``dout[b]`` for ``"sum"``) over the unmasked ``(b, j)``: a clipped id
+    sends its gradient to row 0 or ``n_rows - 1``; masked entries and
+    all-masked bags add nothing. Summed in fp32 (``index_add_`` into a zero
+    table), rounded once."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got {mode!r}")
+    B, K = ids.shape
+    g = scaled_rows(dout, mask, mode)
+    keep = mask.reshape(-1)
+    rows = ids.reshape(-1).long().clamp(0, n_rows - 1)[keep]
+    bags = torch.arange(B, device=ids.device).repeat_interleave(K)[keep]
+    out = torch.zeros((n_rows, dout.shape[1]), dtype=torch.float32, device=dout.device)
+    out.index_add_(0, rows, g[bags])
+    return out.to(dout.dtype)

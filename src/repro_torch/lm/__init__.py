@@ -1,7 +1,8 @@
-"""Transformer LM substrate of the port: GQA + RoPE dense blocks, local /
-global sliding-window hybrids, prefill through the hand-written
-``flash_attention`` kernel, KV-cache decode. PyTorch twin of the serving
-half of ``repro.lm``; training and MoE are not ported yet."""
+"""Transformer LM substrate of the port: GQA + RoPE blocks, dense or
+sort-based MoE (with a shared expert), local / global sliding-window
+hybrids, prefill and training through the hand-written
+``flash_attention`` kernels, KV-cache decode. PyTorch twin of
+``repro.lm``."""
 
 from repro_torch.lm.config import LMConfig
 from repro_torch.lm.model import (
@@ -11,8 +12,10 @@ from repro_torch.lm.model import (
     forward,
     init_kv_cache,
     init_params,
+    loss_fn,
     prefill_logits,
     prefill_step,
+    train_step,
 )
 
 __all__ = [
@@ -20,6 +23,8 @@ __all__ = [
     "KVCache",
     "init_params",
     "forward",
+    "loss_fn",
+    "train_step",
     "prefill_logits",
     "prefill_step",
     "decode_logits",

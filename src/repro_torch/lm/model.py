@@ -1,13 +1,15 @@
 """LM forward, training, prefill and KV-cache decode.
 
-PyTorch twin of ``repro.lm.model`` for dense configurations. Parameters
-keep the reference's layout: ``embed``, ``unembed``, ``final_norm`` and a
+PyTorch twin of ``repro.lm.model``, dense and MoE. Parameters keep the
+reference's layout: ``embed``, ``unembed``, ``final_norm`` and a
 ``layers`` dict of stacked ``[L, ...]`` tensors, walked by a Python loop
 where the reference scans. Every attention goes through the
 ``flash_attention`` kernel on CUDA, and in training through its backward
-kernels too. The sharding hints (``constrain``, ``param_spec_rule``,
-``abstract_params``) are left out: they have no meaning on one card. MoE
-is not ported yet and raises ``NotImplementedError``.
+kernels too. An MoE block runs ``moe_ffn`` over the block's tokens
+flattened to ``[B*S, D]``, plus the always-on shared expert where the
+config has one, and ``forward`` returns the layers' summed load-balancing
+loss. The sharding hints (``constrain``, ``param_spec_rule``,
+``abstract_params``) are left out: they have no meaning on one card.
 
 Training (``loss_fn``, ``train_step``): ``forward`` checkpoints each block
 when ``cfg.remat`` (``torch.utils.checkpoint``, non-reentrant): only a
@@ -111,11 +113,20 @@ def _window(cfg: LMConfig, i: int):
     return cfg.sliding_window if cfg.layer_is_local(i) else None
 
 
-def _ffn(cfg: LMConfig, lp, h):
-    if cfg.is_moe:
-        return moe_ffn(h, lp["router"], lp["we1"], lp["we3"], lp["we2"],
-                       top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
-    return swiglu(h, lp["w1"], lp["w3"], lp["w2"])
+def _ffn(cfg: LMConfig, lp, h, capacity_factor=None):
+    """The FFN of a block over h [B, S, D]: (y [B, S, D], the MoE aux fp32,
+    None for a dense block). An MoE block routes the B*S tokens as one
+    [B*S, D] batch at ``capacity_factor`` (the config's unless given) and
+    adds the shared expert's SwiGLU."""
+    if not cfg.is_moe:
+        return swiglu(h, lp["w1"], lp["w3"], lp["w2"]), None
+    flat = h.reshape(-1, h.shape[-1])
+    cf = cfg.capacity_factor if capacity_factor is None else capacity_factor
+    y, aux = moe_ffn(flat, lp["router"], lp["we1"], lp["we3"], lp["we2"],
+                     top_k=cfg.top_k, capacity_factor=cf)
+    if cfg.n_shared_experts:
+        y = y + swiglu(flat, lp["ws1"], lp["ws3"], lp["ws2"])
+    return y.reshape(h.shape), aux
 
 
 def _attn_block(cfg: LMConfig, x, lp, i: int, positions):
@@ -141,13 +152,15 @@ def _layers(params):
 
 
 def _block(cfg: LMConfig, i: int, x, lp, positions):
-    """One transformer block: x [B, S, D] -> x [B, S, D]."""
+    """One transformer block: x [B, S, D] -> (x [B, S, D], its MoE aux)."""
     x, _, _ = _attn_block(cfg, x, lp, i, positions)
-    return x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+    y, aux = _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+    return x + y, aux
 
 
 def forward(cfg: LMConfig, params, tokens, positions=None):
-    """tokens [B, S] -> (final hidden states [B, S, D], MoE aux loss 0.0).
+    """tokens [B, S] -> (final hidden states [B, S, D], the MoE aux loss
+    summed over the layers, fp32; 0 for a dense config).
 
     With autograd on and ``cfg.remat``, each block is checkpointed: its
     activations, GEMM outputs included, are recomputed in the backward from
@@ -156,14 +169,16 @@ def forward(cfg: LMConfig, params, tokens, positions=None):
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = params["embed"][tokens].to(_DTYPES[cfg.dtype])
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i, lp in enumerate(_layers(params)):
         if remat:
-            x = checkpoint(_block, cfg, i, x, lp, positions, use_reentrant=False)
+            x, a = checkpoint(_block, cfg, i, x, lp, positions, use_reentrant=False)
         else:
-            x = _block(cfg, i, x, lp, positions)
-    return rms_norm(x, params["final_norm"]), torch.zeros((), dtype=torch.float32,
-                                                          device=tokens.device)
+            x, a = _block(cfg, i, x, lp, positions)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, params["final_norm"]), aux
 
 
 def _chunk_nll(hs, unembed, labels):
@@ -242,7 +257,7 @@ def prefill_logits(cfg: LMConfig, params, tokens):
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         x, k, v = _attn_block(cfg, x, lp, i, positions)
-        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))[0]
         ks.append(k.to(x.dtype))
         vs.append(v.to(x.dtype))
     return _logits(params, x[:, -1:]), KVCache(torch.stack(ks), torch.stack(vs))
@@ -278,7 +293,8 @@ def decode_logits(cfg: LMConfig, params, cache: KVCache, tokens, pos: int):
         cache.v[i, :, slot] = v[:, 0].to(cache.v.dtype)
         attn = decode_attention(q, cache.k[i], cache.v[i], pos + 1, window=_window(cfg, i))
         x = x + attn.reshape(B, 1, H * dh) @ lp["wo"]
-        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]))
+        # the reference decodes MoE at capacity factor 4.0, whatever the config's
+        x = x + _ffn(cfg, lp, rms_norm(x, lp["mlp_norm"]), capacity_factor=4.0)[0]
     return _logits(params, x), cache
 
 

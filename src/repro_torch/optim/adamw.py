@@ -72,12 +72,15 @@ def value_and_grad(fn, params):
     """``(fn(params), its gradients)``, the gradients a tree like ``params``
     in their dtypes, as ``jax.value_and_grad``. The parameters are taken as
     detached leaves, so ``params`` need not require gradients and is not
-    changed."""
+    changed. A leaf the value does not depend on gets a zero gradient, as in
+    jax (an EGNN's last position update, a NequIP's last vector and matrix
+    mixes feed no energy)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         value = fn(tree_unflatten(params, leaves))
-        grads = torch.autograd.grad(value, leaves)
-    return value.detach(), tree_unflatten(params, list(grads))
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    return value.detach(), tree_unflatten(params, grads)
 
 
 def apply_updates(params, updates):

@@ -4,8 +4,10 @@ PyTorch twin of ``repro.recsys.embedding``. Two forms:
 
 - ``embedding_bag``: padded bags [..., K] + mask, the model-facing form.
   Without weights (the only form the towers use) it runs the hand-written
-  ``embedding_bag`` kernel on CUDA and its plain version on the CPU; with
-  weights it is plain torch, as in the reference.
+  ``embedding_bag`` kernel on CUDA and its plain version on the CPU, and a
+  table that requires a gradient gets it from the backward kernel (its
+  plain version on the CPU); with weights it is plain torch, as in the
+  reference.
 - ``embedding_bag_flat``: the ragged (ids [NNZ], segment_ids [NNZ]) form,
   plain torch (``index_add_``), as it is plain ``jnp`` in the reference and
   on no serving path.

@@ -1,28 +1,23 @@
-"""Two-tower retrieval: towers and serve paths.
+"""Two-tower retrieval: towers, in-batch sampled softmax, serve paths.
 
 PyTorch twin of ``repro.recsys.twotower``. Parameters are a plain dict of
 tensors named as in the reference. The sharding hints (``constrain``,
 ``param_spec_rule``, ``abstract_params``) are left out: they have no
-meaning on one card. Training (``loss_fn``, ``train_step``) is not ported
-yet and raises ``NotImplementedError``.
+meaning on one card. In training each tower's bags go through the
+``embedding_bag`` kernel forward and its backward kernel for the table's
+dense gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.optim.adamw import apply_updates, value_and_grad
 from repro_torch.recsys.config import TwoTowerConfig
 from repro_torch.recsys.embedding import embedding_bag
-from repro_torch.utils import resolve_device
+from repro_torch.utils import resolve_device, top_k
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"two-tower {what} is not ported yet: it waits for training, with optim/ "
-        "(ROADMAP queue 1, the rest of the model families)"
-    )
 
 
 def param_shapes(cfg: TwoTowerConfig) -> dict:
@@ -89,11 +84,32 @@ def item_tower(cfg, params, item_bags, item_mask):
 
 
 def loss_fn(cfg: TwoTowerConfig, params, batch):
-    raise _not_ported("loss_fn")
+    """In-batch sampled softmax with logQ correction.
+
+    batch: dict(user_bags, user_mask, item_bags, item_mask, item_logq [B]).
+    The [B, B] logits are fp32; user b's positive is item b."""
+    u = user_tower(cfg, params, batch["user_bags"], batch["user_mask"])
+    it = item_tower(cfg, params, batch["item_bags"], batch["item_mask"])
+    logits = ((u @ it.T) / cfg.temperature).to(torch.float32)
+    logits = logits - batch["item_logq"][None, :]  # logQ correction
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.diagonal(logits)
+    return torch.mean(logz - gold)
 
 
 def train_step(cfg: TwoTowerConfig, optimizer):
-    raise _not_ported("train_step")
+    """The step ``(params, opt_state, batch) -> (params, opt_state,
+    {"loss"})`` for ``optimizer``, a ``repro_torch.optim``
+    GradientTransform: the loss's gradients (the tables' dense, from the
+    ``embedding_bag`` backward), the optimizer, then ``p + u.to(p.dtype)``
+    as in the reference, in place: the returned tree is ``params``."""
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(lambda p: loss_fn(cfg, p, batch), params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, {"loss": loss}
+
+    return step
 
 
 def serve_step(cfg: TwoTowerConfig, params, user_bags, user_mask, item_emb):
@@ -113,21 +129,3 @@ def retrieval_step(cfg: TwoTowerConfig, params, user_bags, user_mask, corpus_emb
     u = user_tower(cfg, params, user_bags, user_mask)  # [B, D]
     scores = u @ corpus_emb.T  # [B, N]
     return top_k(scores, k)
-
-
-def top_k(scores, k: int):
-    """``jax.lax.top_k`` over the last axis: (values, ids int64) of the k
-    largest scores, descending in the reference's total order (NaN above
-    +inf, +0 above -0), the lower index first among equal scores.
-
-    ``torch.topk`` leaves equal scores in no promised order, and may take
-    other tied ids at rank k. Here a stable descending sort runs over int32
-    keys in that total order (a float's bits with the magnitude bits of
-    negatives flipped), with no host read; on the card it takes about
-    ``torch.topk``'s time at retrieval_cand's 1,000,000 items (``PERF.md``)."""
-    if not 0 <= k <= scores.shape[-1]:
-        raise ValueError(f"top_k: k={k} is not in [0, {scores.shape[-1]}]")
-    bits = scores.float().view(torch.int32)
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
-    ids = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
-    return scores.gather(-1, ids), ids

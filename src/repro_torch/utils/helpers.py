@@ -291,3 +291,22 @@ def dedup_masked(vals, mask):
     """
     v = torch.where(mask, vals, torch.full_like(vals, NULL_ID))
     return mask & first_occurrence(v)
+
+
+def top_k(scores, k: int):
+    """``jax.lax.top_k`` over the last axis: (values, ids int64) of the k
+    largest scores, descending in the reference's total order (NaN above
+    +inf, +0 above -0), the lower index first among equal scores.
+
+    ``torch.topk`` leaves equal scores in no promised order, and may take
+    other tied ids at rank k. Here a stable descending sort runs over int32
+    keys in that total order (a float's bits with the magnitude bits of
+    negatives flipped), with no host read; on the card it takes about
+    ``torch.topk``'s time at retrieval_cand's 1,000,000 items (``PERF.md``).
+    The two-tower retrieval step and the MoE router both rank with it."""
+    if not 0 <= k <= scores.shape[-1]:
+        raise ValueError(f"top_k: k={k} is not in [0, {scores.shape[-1]}]")
+    bits = scores.detach().float().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    ids = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., :k]
+    return scores.gather(-1, ids), ids

@@ -175,3 +175,165 @@ def test_bwd_build_check_refuses_a_spilling_tensor_core_kernel(monkeypatch):
     monkeypatch.setitem(_build.BUILD_INFO, "ptxas", {"flash_attention_bwd": report(16)})
     with pytest.raises(AssertionError, match="spills"):
         cs.check_bwd_build()
+
+
+# ------------------------------------------------ phase 17's pure-Python parts
+def _moe_args(N=96, D=32, E=8, F=24, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(N, D, generator=g).bfloat16()
+    router = torch.randn(D, E, generator=g).bfloat16()
+    w = [(0.2 * torch.randn(*s, generator=g)).bfloat16() for s in ((E, D, F), (E, D, F),
+                                                                     (E, F, D))]
+    return (x, router, *w), dict(top_k=2, capacity_factor=0.5)
+
+
+def test_moe_checks_count_drops_and_hold_bf16_to_fp32(monkeypatch):
+    from repro_torch.lm import layers as lm_layers
+
+    args, kw = _moe_args()
+    r = cs.moe_layer_drops(lm_layers, args[0], args[1], kw)
+    assert r["dropped"] == r["dropped_by_formula"] > 0  # capacity 0.5 drops pairs
+    assert r["capacity"] == int(96 * 2 / 8 * 0.5)
+    rel = cs.moe_dense_rel(lm_layers, args, kw, 64)
+    assert 0 < rel <= cs.MOE_REL_TOL
+    # a dispatch that keeps one pair past C shows in the dropped count
+    inner = lm_layers.moe_dispatch
+    monkeypatch.setattr(lm_layers, "moe_dispatch",
+                        lambda e, E, C: inner(e, E, C + 1))
+    r = cs.moe_layer_drops(lm_layers, args[0], args[1], kw)
+    assert r["dropped"] != r["dropped_by_formula"]
+
+
+def test_moe_dense_ref_is_moe_apply_in_fp32():
+    """In fp32 the dense reference and ``moe_apply`` compute one function
+    (drops included: capacity 0.5), in other orders."""
+    from repro_torch.lm import layers as lm_layers
+
+    (x, router, *w), kw = _moe_args()
+    x, router, w = x.float(), router.float(), [t.float() for t in w]
+    C = lm_layers.moe_capacity(x.shape[0], 2, 8, kw["capacity_factor"])
+    _, gate, expert = lm_layers.moe_route(x, router, 2)
+    want = cs.moe_dense_ref(x, gate, expert, *w, C)
+    got = lm_layers.moe_apply(x, gate, expert, *w, C)
+    assert want.dtype == torch.float32 and torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("capacity", [1, 5, 24, 200])
+def test_moe_kept_pairs_are_those_the_dispatch_keeps(capacity):
+    from repro_torch.lm import layers as lm_layers
+
+    (x, router, *_), _ = _moe_args()
+    _, _, expert = lm_layers.moe_route(x, router, 2)
+    order, _, keep = lm_layers.moe_dispatch(expert, 8, capacity)
+    kept = torch.empty_like(keep)
+    kept[order] = keep  # back to token-major pair order
+    assert torch.equal(cs.moe_kept_pairs(expert, 8, capacity), kept.view(expert.shape))
+
+
+@pytest.mark.parametrize("fault", ["rank_collision", "rank_skip", "gate_swap"])
+def test_moe_dense_check_catches_a_wrong_dispatch_or_combine(monkeypatch, fault):
+    """A dispatch whose ranks put two pairs in one slot (one token then
+    reads the other's output) or skip a slot (the last pair within C is
+    dropped), or a combine that weights each pair with the token's other
+    gate, moves the output well past ``MOE_REL_TOL`` of the dense
+    reference. (A consistent relabelling of slots changes nothing: the
+    check is of the function, not of the layout.)"""
+    from repro_torch.lm import layers as lm_layers
+
+    args, kw = _moe_args()
+    if fault == "gate_swap":
+        inner = lm_layers.moe_apply
+        monkeypatch.setattr(lm_layers, "moe_apply", lambda x, gate, *a: inner(
+            x, gate.flip(-1), *a))
+    else:
+        inner = lm_layers.moe_dispatch
+
+        def wrong(expert, E, C):
+            order, slot, keep = inner(expert, E, C)
+            rank = slot % C
+            if fault == "rank_collision":  # rank 1 written as rank 0
+                slot = torch.where(keep & (rank == 1), slot - 1, slot)
+            else:  # ranks from 1: the pair at C - 1 falls off the end
+                keep = keep & (rank < C - 1)
+                slot = torch.where(keep, slot + 1, E * C)
+            return order, slot, keep
+
+        monkeypatch.setattr(lm_layers, "moe_dispatch", wrong)
+    assert cs.moe_dense_rel(lm_layers, args, kw, 64) > cs.MOE_REL_TOL
+
+
+def _train_attention_calls(seed=0):
+    """One with-lse forward and one backward call, captured as a training
+    run's are, bf16 at head dim 16."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = ((0.5 * torch.randn(2, 64, n, 16, generator=g)).bfloat16().requires_grad_(True)
+               for n in (4, 2, 2))
+    cap = cs.CallCapture((fa_ops, "_forward"), (fa_ops, "flash_attention_bwd"))
+    with cap:
+        o = fa_ops.flash_attention(q, k, v, causal=True)
+        o.backward(torch.randn(o.shape, generator=g).bfloat16())
+    return cap.calls["_forward"], cap.calls["flash_attention_bwd"]
+
+
+def test_train_attention_check_holds_each_call():
+    fwd, bwd = _train_attention_calls()
+    assert len(fwd) == len(bwd) == 1 and fwd[0][1] == {"with_lse": True}
+    worst = cs.check_train_attention_calls(fwd, bwd, " test")
+    assert worst == dict(o_rel=0.0, o_band=0.0, lse_err=0.0, grad_rel=0.0)
+
+
+@pytest.mark.parametrize("fault", ["dk_scaled", "lse_shifted", "o_tile_dropped"])
+def test_train_attention_check_catches_a_wrong_call(monkeypatch, fault):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fwd, bwd = _train_attention_calls()
+    if fault == "dk_scaled":
+        inner = fa_ops.flash_attention_bwd
+
+        def wrong(*a, **kw):
+            dq, dk, dv = inner(*a, **kw)
+            return dq, dk * 1.05, dv
+
+        monkeypatch.setattr(fa_ops, "flash_attention_bwd", wrong)
+    else:
+        inner = fa_ops._forward
+
+        def wrong(*a, **kw):
+            o, lse = inner(*a, **kw)
+            if fault == "lse_shifted":
+                return o, lse + 1e-4
+            return torch.cat([o[:, :32], o[:, 32:] * 0.9], 1), lse
+
+        monkeypatch.setattr(fa_ops, "_forward", wrong)
+    with pytest.raises(AssertionError):
+        cs.check_train_attention_calls(fwd, bwd, " test")
+
+
+def test_random_rotation_is_a_proper_rotation():
+    q = cs.random_rotation(torch.Generator().manual_seed(2)).double()
+    assert torch.allclose(q @ q.T, torch.eye(3, dtype=torch.float64), atol=1e-6)
+    assert abs(float(torch.linalg.det(q)) - 1.0) < 1e-6
+
+
+def test_zipf_logq_is_the_samplers_law():
+    V = 1000
+    perm = torch.randperm(V, generator=torch.Generator().manual_seed(3))
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(V)
+    logq = cs.zipf_logq(perm, inv)  # every id once: the masses sum to 1
+    assert abs(float(logq.double().exp().sum()) - 1.0) < 1e-5
+    ids = cs.zipf_ids(torch.Generator().manual_seed(4), perm, (200_000,))
+    top = perm[:3]  # ranks 1-3
+    freq = torch.stack([(ids == t).double().mean() for t in top])
+    assert torch.allclose(freq, cs.zipf_logq(top, inv).double().exp(), rtol=0.05)
+
+
+def test_embedding_bag_backward_bound_writes_the_dense_gradient_once():
+    dout = torch.zeros(6, 4)
+    ids = torch.zeros(6, 3, dtype=torch.int32)
+    mask = torch.tensor([[1, 1, 0]] * 6, dtype=torch.bool)
+    nbytes, ops = cs.eb_bwd_bound(dout, ids, mask, 100)
+    assert nbytes == 6 * 4 * 4 + 6 * 3 * 4 + 6 * 3 + 100 * 4 * 4
+    assert ops == 12 * 4

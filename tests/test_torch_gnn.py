@@ -174,12 +174,15 @@ def test_init_params_layout_and_unported_kinds():
     back = interop.params_from_numpy(interop.params_to_numpy(tp), "cpu")
     assert all(torch.equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(back),
                                                   jax.tree_util.tree_leaves(tp)))
+    # the other kinds are ported too (tests/test_torch_gnn_kinds.py holds
+    # them to the reference): a GAT initialises in the reference's layout
+    # and its forward gives node logits
     gat = GNNConfig(name="gat", kind="gat", n_layers=2, d_hidden=8, d_in=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(gat, torch.Generator(), device="cpu")
+    gp = init_params(gat, torch.Generator(), device="cpu")
+    assert [tuple(lp["w"].shape) for lp in gp["layers"]] == [(4, 1, 8), (8, 1, 16)]
     g = TG.random_graph_batch(torch.Generator().manual_seed(1), 10, 30, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_forward(gat, tp, g)
+    logits = t_forward(gat, gp, g)
+    assert logits.shape == (10, gat.n_classes) and torch.isfinite(logits).all()
     assert g.node_feat.shape == (10, 4) and g.edge_src.dtype == torch.int32
     assert g.to("cpu").edge_dst is not None
 

@@ -1,6 +1,6 @@
 """The port stands alone and runs on the card by default.
 
-- No module of ``repro_torch``, nor ``chip_smoke.py`` or the port's example,
+- No module of ``repro_torch``, nor ``chip_smoke.py`` or the port's examples,
   imports ``jax`` or anything of the JAX package ``repro``.
 - The entry points default to CUDA and raise when it is absent, instead of
   falling back to the CPU.
@@ -20,7 +20,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "train_lm_100m_torch.py",
+    ROOT / "examples" / "train_lm_100m_torch.py", ROOT / "examples" / "gnn_cached_sampling_torch.py",
 ]
 
 

@@ -131,8 +131,11 @@ def test_init_rule_not_ported_paths_and_round_trip():
     moe = LMConfig(name="moe", n_layers=1, d_model=16, n_heads=2, n_kv_heads=1, d_ff=8,
                    vocab=32, n_experts=4, top_k=2, dtype="float32")
     pm = TM.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.prefill_step(moe, pm, torch.zeros((1, 4), dtype=torch.int64))
+    # MoE is ported (tests/test_torch_moe.py holds it to the reference): a
+    # prefill gives a token and the KV cache, and the forward a positive aux
+    tok, cache = TM.prefill_step(moe, pm, torch.zeros((1, 4), dtype=torch.int64))
+    assert tok.shape == (1, 1) and cache.k.shape == (1, 1, 4, 1, 8)
+    assert float(TM.forward(moe, pm, torch.zeros((1, 4), dtype=torch.int64))[1]) > 0
 
     # fp32 (gemma3) and the reference's default bf16 (yi SMOKE): numpy ->
     # port -> numpy keeps every value (bf16 leaves the port as fp32)

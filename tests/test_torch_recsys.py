@@ -98,7 +98,7 @@ def test_towers_serve_and_retrieval_match_reference():
             assert set(idx[r].tolist()) == set(np.asarray(j_idx)[r].tolist())
 
 
-def test_init_rule_and_training_not_ported():
+def test_init_rule_and_a_training_step():
     p = TT.init_params(CFG, torch.Generator().manual_seed(0), device="cpu")
     assert {k: tuple(v.shape) for k, v in p.items()} == TT.param_shapes(CFG)
     for name, v in p.items():
@@ -106,10 +106,26 @@ def test_init_rule_and_training_not_ported():
             assert not v.any(), name
         else:  # normal * shape[0] ** -0.5
             assert abs(float(v.std()) * v.shape[0] ** 0.5 - 1) < 0.1, name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.loss_fn(CFG, p, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.train_step(CFG, None)
+    # training is ported (tests/test_torch_twotower_train.py holds it to the
+    # reference): the in-batch softmax loss is a positive scalar, and a step
+    # moves both tables through the embedding_bag backward
+    from repro_torch.optim import adamw
+
+    B, rng = 8, np.random.default_rng(0)
+    batch = {}
+    for tower, fields, vocab in (("user", CFG.user_fields, CFG.user_vocab),
+                                 ("item", CFG.item_fields, CFG.item_vocab)):
+        batch[f"{tower}_bags"] = torch.as_tensor(
+            rng.integers(0, vocab, (B, fields, CFG.bag_size)).astype(np.int32))
+        batch[f"{tower}_mask"] = torch.ones((B, fields, CFG.bag_size), dtype=torch.bool)
+    batch["item_logq"] = torch.zeros(B)
+    assert float(TT.loss_fn(CFG, p, batch)) > 0
+    before = {k: v.clone() for k, v in p.items()}
+    opt = adamw(1e-3)
+    new, state, m = TT.train_step(CFG, opt)(p, opt.init(p), batch)
+    assert new is p and np.isfinite(float(m["loss"]))
+    for name in ("user_table", "item_table"):
+        assert not torch.equal(p[name], before[name]), name
 
 
 def test_params_round_trip_through_numpy():

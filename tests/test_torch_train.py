@@ -157,9 +157,19 @@ def test_forward_remats_blocks_and_never_builds_full_logits(monkeypatch):
     moe = LMConfig(name="moe", n_layers=1, d_model=16, n_heads=2, n_kv_heads=1, d_ff=8,
                    vocab=32, n_experts=4, top_k=2, dtype="float32", loss_chunk=4)
     pm = TM.init_params(moe, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.loss_fn(moe, pm, torch.zeros((1, 4), dtype=torch.int64),
-                   torch.zeros((1, 4), dtype=torch.int64))
+    # MoE is ported (tests/test_torch_moe.py holds it to the reference): its
+    # blocks remat alike, and its loss adds 0.01 x the mean layer aux
+    zeros = torch.zeros((1, 4), dtype=torch.int64)
+    for remat, want in ((True, 2), (False, 1)):
+        calls.update(fwd=0, bwd=0)
+        c = dataclasses.replace(moe, remat=remat)
+        value_and_grad(lambda p: TM.loss_fn(c, p, zeros, zeros), pm)
+        assert calls == {"fwd": want * moe.n_layers, "bwd": moe.n_layers}, (remat, calls)
+    with torch.no_grad():
+        h, aux = TM.forward(moe, pm, zeros)
+        ce = TM._chunk_nll(h, pm["unembed"], zeros) / 4
+        assert float(aux) > 0
+        assert abs(float(TM.loss_fn(moe, pm, zeros, zeros)) - float(ce + 0.01 * aux)) < 1e-6
 
 
 def test_synthetic_batches_are_the_references():

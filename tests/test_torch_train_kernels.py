@@ -506,5 +506,16 @@ def test_pna_train_step_matches_reference():
     # whose x requires a gradient (the messages and their squares) backward
     L = cfg_kw["n_layers"]
     assert (sums.count(False), sums.count(True)) == (2 * 5 * L, 2 * 2 * L), sums
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGM.train_step(GNNConfig(name="g", kind="gat", n_layers=1, d_hidden=2, d_in=2), topt)
+    # the other kinds train too (tests/test_torch_gnn_kinds.py holds them to
+    # the reference): a GAT step runs its two sums a layer both ways
+    gat = GNNConfig(name="g", kind="gat", n_layers=1, d_hidden=2, d_in=2)
+    gp = TGM.init_params(gat, torch.Generator().manual_seed(0), device="cpu")
+    _, gg = _both(_batch(3, 16, 40, 2, gat.n_classes))
+    sums.clear()
+    try:
+        ss_ops.csr_sum = lambda x, csr, backward=False: sums.append(backward) or inner(
+            x, csr, backward)
+        _, _, gm = TGM.train_step(gat, topt)(gp, topt.init(gp), gg)
+    finally:
+        ss_ops.csr_sum = inner
+    assert np.isfinite(float(gm["loss"])) and (sums.count(False), sums.count(True)) == (2, 2)
