@@ -237,11 +237,17 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    random rotation and translation. (e) two-tower training at FULL widths
    (user vocab 4,194,304, batch 16,384, bags of 1-16 Zipf(1.1) ids, fp32):
    3 steps, the loss falling; every call of the ``embedding_bag`` backward
-   kernel (``csrc/embedding_bag_bwd.cu``) equal to its plain version (1e-5)
-   and bitwise to a second call; its time at the item table beside its
-   bound and ``F.embedding_bag``'s backward. (f) the twin of
-   ``examples/gnn_cached_sampling.py`` on the card (hits) and on the CPU
-   (the same invalidated keys).
+   kernels (``csrc/embedding_bag_bwd.cu``: the row bounds, the chunk pass,
+   the row pass) equal bit for bit to its plain version on the host and to
+   a second call, and so four synthetic calls at a small table (every
+   unmasked entry on one row, every entry masked, bf16, a width of 12);
+   the row plan equal to the host's; one item-table call with no host sync
+   (``torch.cuda.set_sync_debug_mode("error")``); its time at the item and
+   user tables, ``prepare_rows`` split into its sort, its row bounds and
+   its chunk table, each pass's launches (profiled) and device time beside
+   the dense write alone, its bound and ``F.embedding_bag``'s backward. (f)
+   the twin of ``examples/gnn_cached_sampling.py`` on the card (hits) and
+   on the CPU (the same invalidated keys).
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -494,11 +500,13 @@ def window_events(prof):
     return events, max(launched - kernels, 0)
 
 
-def device_ms(fn, iters=20, match=None, attempts=3) -> float | None:
+def device_ms(fn, iters=20, match=None, attempts=3, by_kernel=None) -> float | None:
     """Device time per call of ``fn`` (the sum of the kernels it launches,
     or of those whose name contains ``match``), from ``torch.profiler``,
     over the first of ``attempts`` windows that dropped no kernel; None
-    when none is whole or none records such time."""
+    when none is whole or none records such time. A ``by_kernel`` dict is
+    filled from that window with {kernel name: (launches, device ms)} per
+    call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -512,6 +520,10 @@ def device_ms(fn, iters=20, match=None, attempts=3) -> float | None:
         events, lost = window_events(prof)
         if not lost:
             evs = [e for e in events if match is None or match in e.name]
+            for name in {e.name for e in evs} if by_kernel is not None else ():
+                mine = [e for e in evs if e.name == name]
+                by_kernel[name] = (len(mine) / iters,
+                                   sum(e.time_range.elapsed_us() for e in mine) / iters / 1e3)
             return sum(e.time_range.elapsed_us() for e in evs) / iters / 1e3 if evs else None
     print(f"device_ms: the profiler dropped kernels in each of {attempts} windows "
           f"({lost} in the last; not measured)", flush=True)
@@ -4665,6 +4677,9 @@ TT_TRAIN_LR = 1e-3
 # same function
 EB_LIB_SHORT_RUN = 8
 EB_LIB_TOL = 1e-5
+# the backward's synthetic calls: the item call's bags on a small table
+EB_SYNTH_ROWS = 65_536
+EB_SYNTH_ROW = 12_345
 
 
 def moe_dropped_by_formula(expert, n_experts, capacity):
@@ -5008,6 +5023,32 @@ def eb_bwd_bound(dout, ids, mask, n_rows):
     return nbytes, int(mask.sum()) * D
 
 
+def eb_bwd_passes(by_kernel):
+    """{pass: {"launches", "device_ms"}} a call, of the ``embedding_bag``
+    backward's kernels (``embedding_bag_bwd_<pass>_kernel``) in a
+    ``device_ms`` window's ``by_kernel`` tally."""
+    passes = {}
+    for name, (n, ms) in by_kernel.items():
+        m = re.search(r"embedding_bag_bwd_(\w+?)_kernel", name)
+        if m:
+            passes[m[1]] = dict(launches=n, device_ms=ms)
+    return passes
+
+
+def check_eb_backward(dout, ids, mask, n_rows, kw, what):
+    """One ``embedding_bag`` backward call on the card, equal bit for bit
+    to a second call and to the plain version on the host."""
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    got = eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+    again = eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+    assert torch.equal(got, again), f"two embedding_bag backward calls differ ({what})"
+    del again
+    want = eb_ops.embedding_bag_backward(dout.cpu(), ids.cpu(), mask.cpu(), n_rows, **kw)
+    assert torch.equal(got.cpu(), want), \
+        f"embedding_bag backward differs from its plain version ({what})"
+
+
 def run_twotower_train(seed, dev):
     """Phase 17 (e): two-tower training at FULL widths (user vocab and batch
     cut), ``TT_TRAIN_STEPS`` clip + AdamW steps on one Zipf(1.1) batch,
@@ -5022,7 +5063,8 @@ def run_twotower_train(seed, dev):
     import torch.nn.functional as F
     from repro_torch.configs import two_tower_retrieval as ttc
     from repro_torch.kernels.embedding_bag import ops as eb_ops
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_ref, embedding_bag_ref
+    from repro_torch.kernels.embedding_bag.ref import (RUN_CHUNK, embedding_bag_backward_ref,
+                                                      embedding_bag_ref)
     from repro_torch.optim import adamw, chain, clip_by_global_norm
     from repro_torch.recsys import embedding as emb_mod, twotower as tt
 
@@ -5092,65 +5134,125 @@ def run_twotower_train(seed, dev):
     del state, opt, step  # the moments: room for the checks' dense gradients
 
     # every call against its plain version on the host, bit for bit: on CPU
-    # tensors the wrapper takes the plain version, whose index_add_ adds a
-    # row's terms (scaled_rows, on both sides) one after another in flat
-    # (bag, slot) order, as the kernel walks its sorted run
+    # tensors the wrapper takes the plain version, which adds a row's terms
+    # (scaled_rows, on both sides) in chunks of RUN_CHUNK in flat (bag, slot)
+    # order, then the chunks' partials in order, as the kernels do
     calls = capture.calls["embedding_bag_backward"]
     assert len(calls) == bwd
-    item_want = None
+    table_calls = {}
     for (dout, ids, mask, n_rows), kw in calls:
-        got = eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
-        again = eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
-        assert torch.equal(got, again), "two embedding_bag backward calls differ"
-        del again
-        want = eb_ops.embedding_bag_backward(dout.cpu(), ids.cpu(), mask.cpu(), n_rows, **kw)
-        assert torch.equal(got.cpu(), want), \
-            f"embedding_bag backward differs from its plain version (V={n_rows:,})"
-        if n_rows == cfg.item_vocab:
-            item_call, item_want = ((dout, ids, mask, n_rows), kw), want
-        del got, want
+        check_eb_backward(dout, ids, mask, n_rows, kw, f"V={n_rows:,}")
+        table_calls[n_rows] = ((dout, ids, mask, n_rows), kw)
     print(f"kernel embedding_bag_backward calls={len(calls)} (each equal bit for bit to its "
           f"plain version on the host and to a second call on the card)", flush=True)
 
-    # timed at the step's largest call, the item table's (the last one)
-    (dout, ids, mask, n_rows), kw = item_call
-    want = item_want
-    del calls, capture, item_call, item_want
+    # timed at the step's two calls: the item table's, then the user table's
+    (dout, ids, mask, n_rows), kw = table_calls[cfg.item_vocab]
+    del calls, capture
+    # the hot path at a small table: one row read by every unmasked entry
+    # (a run of ~8 x 10^5, thousands of chunks), and a batch all masked;
+    # then what no training call takes: bf16, and a width off the 8-column
+    # vectors (the scalar loads and stores)
+    one_row = torch.full_like(ids, EB_SYNTH_ROW)
+    synthetic = (("every unmasked entry on one row", dout, one_row, mask),
+                 ("every entry masked", dout, ids % EB_SYNTH_ROWS, torch.zeros_like(mask)),
+                 ("one row, bf16", dout.to(torch.bfloat16), one_row, mask),
+                 ("D 12", dout[:, :12].contiguous(), ids % EB_SYNTH_ROWS, mask))
+    for what, sdout, sids, smask in synthetic:
+        check_eb_backward(sdout, sids, smask, EB_SYNTH_ROWS, kw, f"synthetic: {what}")
+    print(f"kernel embedding_bag_backward synthetic calls={len(synthetic)} at "
+          f"V={EB_SYNTH_ROWS:,} ({'; '.join(w for w, *_ in synthetic)}): each equal bit for "
+          f"bit to its plain version on the host and to a second call", flush=True)
+    del one_row, synthetic
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # any host read in the wrapper raises
+    try:
+        eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("kernel embedding_bag_backward item-table call under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync", flush=True)
+
     kern = lambda: eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
     plain = lambda: embedding_bag_backward_ref(dout, ids, mask, n_rows, **kw)
+    by_kernel = {}
     t = dict(ms=cuda_ms(kern, iters=10), plain_ms=cuda_ms(plain, iters=5),
-             device_ms=device_ms(kern, iters=3), plain_device_ms=device_ms(plain, iters=3))
+             device_ms=device_ms(kern, iters=3, by_kernel=by_kernel),
+             plain_device_ms=device_ms(plain, iters=3))
+    # the kernels of the wrapper's window, by pass, beside the dense write alone
+    passes = eb_bwd_passes(by_kernel)
+    per_call = sum(p["launches"] for p in passes.values())
+    assert per_call == eb_ops.BWD_KERNELS, \
+        f"the backward launched {per_call} kernels a call ({passes}), not {eb_ops.BWD_KERNELS}"
+    dense_ms = device_ms(lambda: torch.zeros((n_rows, D), dtype=dout.dtype, device=dout.device),
+                         iters=3)
     table = params["item_table"].detach().requires_grad_(True)
     cnt = mask.sum(-1, keepdim=True).clamp(min=1).to(table.dtype)
     lib_out = F.embedding_bag(ids.long().clamp(0, n_rows - 1), table,
                               per_sample_weights=mask.to(table.dtype) / cnt, mode="sum")
     lib = lambda: torch.autograd.grad(lib_out, table, dout, retain_graph=True)[0]
-    order, offsets = eb_ops.prepare_rows(ids, mask, n_rows)
-    runs = (offsets[1:] - offsets[:-1]).cpu()
+    # the plan on the card (the bounds kernel) equals the host's (plain)
+    plan = eb_ops.prepare_rows(ids, mask, n_rows)
+    host_plan = eb_ops.prepare_rows(ids.cpu(), mask.cpu(), n_rows)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(plan, host_plan)), \
+        "the backward's row plan on the card differs from the host's"
+    del host_plan
+    runs = (plan.bounds[:, 1] - plan.bounds[:, 0]).cpu()
+    slots_used, slots = int((plan.slot_row < n_rows).sum()), plan.slot_row.numel()
     short = (runs > 0) & (runs <= EB_LIB_SHORT_RUN)
+    want = embedding_bag_backward_ref(dout.cpu(), ids.cpu(), mask.cpu(), n_rows, **kw)
     assert torch.allclose(lib().cpu()[short], want[short], rtol=EB_LIB_TOL, atol=EB_LIB_TOL), \
         "F.embedding_bag's backward computes another gradient"
-    del want, order, offsets
+    del want, plan
     lib_ms, lib_dev = cuda_ms(lib, iters=5), device_ms(lib, iters=3)
     nbytes, ops = eb_bwd_bound(dout, ids, mask, n_rows)
     bms, by = bound_ms(nbytes, ops)
     longest = int(runs.max())
-    prep_ms = cuda_ms(lambda: eb_ops.prepare_rows(ids, mask, n_rows), iters=5)
+    key_sorted, _ = eb_ops.sorted_keys(ids, mask, n_rows)
+    bounds = eb_ops.row_bounds(key_sorted, n_rows)
+    prep_fns = dict(sort=lambda: eb_ops.sorted_keys(ids, mask, n_rows),
+                    bounds=lambda: eb_ops.row_bounds(key_sorted, n_rows),
+                    chunk_table=lambda: eb_ops.chunk_table(key_sorted, bounds, n_rows, RUN_CHUNK))
+    prep = {k: cuda_ms(f, iters=5) for k, f in prep_fns.items()}
+    prep.update({f"{k}_device": device_ms(f, iters=3) for k, f in prep_fns.items()})
+    del key_sorted, bounds, prep_fns
     us = lambda v: "not measured" if v is None else f"{v * 1e3:.3f}"
     print(f"kernel embedding_bag_backward item table V={n_rows:,} D={D} bags={ids.shape[0]:,} "
           f"K={K} unmasked={int(mask.sum()):,} rows read={int((runs > 0).sum()):,} longest "
-          f"run={longest:,} {fmt_us(t)} prepare_rows_us={prep_ms * 1e3:.3f} F.embedding_bag "
-          f"backward_us={us(lib_ms)} (device {us(lib_dev)}) bound_us={bms * 1e3:.4f} ({by}, "
-          f"{nbytes} B)", flush=True)
+          f"run={longest:,} chunk={RUN_CHUNK} slots used={slots_used:,} of {slots:,} launched "
+          f"launches a call={per_call:g} (profiled) {fmt_us(t)} prepare_rows_us (device): sort="
+          f"{us(prep['sort'])} ({us(prep['sort_device'])}) bounds kernel={us(prep['bounds'])} "
+          f"({us(prep['bounds_device'])}) chunk table={us(prep['chunk_table'])} "
+          f"({us(prep['chunk_table_device'])}) F.embedding_bag backward_us={us(lib_ms)} (device "
+          f"{us(lib_dev)}) bound_us={bms * 1e3:.4f} ({by}, {nbytes} B)", flush=True)
+    print(f"kernel embedding_bag_backward item table by kernel, a call (chunk {RUN_CHUNK}): "
+          + "; ".join(f"{p} launches={v['launches']:g} device_us={us(v['device_ms'])}"
+                      for p, v in passes.items())
+          + f"; the dense write alone (torch.zeros) device_us={us(dense_ms)}", flush=True)
+    shape = f"V={n_rows},D={D},bags={ids.shape[0]},K={K}"
+    del lib_out, table, dout, ids, mask
+    (dout, ids, mask, n_rows), kw = table_calls.pop(TT_TRAIN_USER_VOCAB)
+    del table_calls
+    kern = lambda: eb_ops.embedding_bag_backward(dout, ids, mask, n_rows, **kw)
+    user = dict(ms=cuda_ms(kern, iters=10), device_ms=device_ms(kern, iters=3))
+    ubound, _ = bound_ms(*eb_bwd_bound(dout, ids, mask, n_rows))
+    print(f"kernel embedding_bag_backward user table V={n_rows:,} bags={ids.shape[0]:,} "
+          f"unmasked={int(mask.sum()):,} kernel_us={us(user['ms'])} (device "
+          f"{us(user['device_ms'])}) bound_us={ubound * 1e3:.4f}", flush=True)
     row = dict(name="embedding_bag_backward", route="cuda",
                source="src/repro_torch/csrc/embedding_bag_bwd.cu",
                replaces="none: the JAX package differentiates jnp.take in "
                         "src/repro/recsys/embedding.py:22",
                launches=bwd, max_abs_err=0.0, **t, bound_ms=bms, bound_by=by,
-               library_ms=lib_ms, library_device_ms=lib_dev, prepare_rows_ms=prep_ms,
-               longest_run=longest, shape=f"V={n_rows},D={D},bags={ids.shape[0]},K={K}",
+               library_ms=lib_ms, library_device_ms=lib_dev,
+               prepare_rows_ms=prep, chunk=RUN_CHUNK, slots_used=slots_used,
+               slots_launched=slots, launches_per_call=per_call,
+               user_table_ms=user["ms"], user_table_device_ms=user["device_ms"],
+               user_table_bound_ms=ubound, by_pass=passes,
+               dense_write_device_ms=dense_ms, longest_run=longest, shape=shape,
                launches_by_path={"phase 17 (e) two-tower training": bwd})
-    del lib_out, table, params, batch
+    del params, batch
     return report, row, fwd
 
 

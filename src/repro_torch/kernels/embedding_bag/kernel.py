@@ -3,7 +3,8 @@
 (``csrc/embedding_bag_bwd.cu``).
 
 The sources' headers say what each replaces and what bounds it. Each
-launches on PyTorch's current stream and allocates only its output.
+launches on PyTorch's current stream and allocates only its output (the
+backward also its fp32 partials, one row a chunk slot).
 """
 
 from __future__ import annotations
@@ -28,19 +29,36 @@ def embedding_bag_cuda(table, ids, mask, *, mean: bool):
     return out
 
 
-def embedding_bag_bwd_cuda(g, order, offsets, k: int, dtype):
+def embedding_bag_bwd_cuda(g, plan, k: int, dtype, *, chunk: int):
     """The dense table gradient [V, D] in ``dtype`` (fp32 or bf16), V =
-    ``offsets.numel() - 1``: row v sums ``g[order[e] // k]`` over e in
-    ``[offsets[v], offsets[v + 1])`` in that order, in fp32. ``g`` fp32 [B, D]
-    (dout scaled by each bag's denominator), ``order`` int32 [B*k] (flat
-    (bag, slot) positions sorted by row), ``offsets`` int32 [V + 1]."""
-    V, D = offsets.shape[0] - 1, g.shape[1]
+    ``plan.bounds.shape[0]``: row v sums ``g[plan.order[e] // k]`` over e
+    in ``[lo, hi) = bounds[v]`` in fp32, a run longer than
+    ``chunk`` as the partials of its chunks (``plan``'s slots, from
+    ``prepare_rows`` with the same ``chunk``) added in order. ``g`` fp32
+    [B, D] (dout scaled by each bag's denominator)."""
+    V, D = plan.bounds.shape[0], g.shape[1]
+    S = plan.slot_row.shape[0]
     out = torch.empty((V, D), dtype=dtype, device=g.device)
-    fn = _build.bind("embedding_bag_bwd", "embedding_bag_bwd_launch", 4, 4)
+    partials = torch.empty((S, D), dtype=torch.float32, device=g.device)
+    fn = _build.bind("embedding_bag_bwd", "embedding_bag_bwd_launch", 8, 6)
     err = fn(
-        g.data_ptr(), order.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        V, k, D, int(dtype == torch.bfloat16),
+        g.data_ptr(), plan.order.data_ptr(), plan.bounds.data_ptr(),
+        plan.chunk_rank.data_ptr(), plan.slot_row.data_ptr(), plan.slot_start.data_ptr(),
+        partials.data_ptr(), out.data_ptr(),
+        V, S, k, D, chunk, int(dtype == torch.bfloat16),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check("embedding_bag_bwd", err)
     return out
+
+
+def row_bounds_cuda(key_sorted, n_rows: int):
+    """int32 [n_rows, 2]: each row's run ``(lo, hi)`` in ``key_sorted``
+    (int32, sorted clipped ids, ``n_rows`` where masked), ``(0, 0)`` where
+    empty, from one pass over the keys."""
+    bounds = torch.zeros((n_rows, 2), dtype=torch.int32, device=key_sorted.device)
+    fn = _build.bind("embedding_bag_bwd", "embedding_bag_bwd_bounds_launch", 2, 2)
+    err = fn(key_sorted.data_ptr(), bounds.data_ptr(), key_sorted.numel(), n_rows,
+             torch.cuda.current_stream(key_sorted.device).cuda_stream)
+    _build.check("embedding_bag_bwd", err)
+    return bounds

@@ -9,27 +9,36 @@ Where the table requires a gradient (and autograd is on), the bags go
 through ``EmbeddingBagFn``, whose backward is ``embedding_bag_backward``:
 the dense table gradient, ``dtable[clip(id)] += dout[bag] / max(cnt, 1)``
 over the unmasked entries. The reference takes that gradient by autodiff
-through ``jnp.take``; the port's is a kernel of its own over the entries
-sorted by row once (``prepare_rows``), with no atomics, so two calls are
-equal bit for bit.
+through ``jnp.take``; the port's is three kernels over the entries sorted
+by row once (``prepare_rows``): each row's run found in one pass over the
+sorted keys, then the runs cut into chunks of ``RUN_CHUNK`` entries. One
+warp a chunk of a long run sums it into a partial; then one warp a group
+of 32 rows adds each short run, or each long run's partials in chunk
+order, so a Zipf head's run no longer rests on one warp. No atomics: two
+calls are equal bit for bit, and to the plain version, which adds in the
+same chunked order.
 
-``launches`` counts kernel launches (never the plain versions' calls), so
-a run can show that its towers went through the kernels;
+``launches`` counts the wrappers' kernel calls (never the plain versions'
+calls), so a run can show that its towers went through the kernels;
 ``launches_backward`` counts those made by backward passes (included in
-``launches``).
+``launches``), each of which launches ``BWD_KERNELS`` kernels.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_bwd_cuda, embedding_bag_cuda
-from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_ref, embedding_bag_ref,
-                                                  scaled_rows)
+from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_bwd_cuda, embedding_bag_cuda,
+                                                     row_bounds_cuda)
+from repro_torch.kernels.embedding_bag.ref import (RUN_CHUNK, embedding_bag_backward_ref,
+                                                  embedding_bag_ref, row_bounds_ref, scaled_rows)
 
 launches = 0
 launches_backward = 0
 
+BWD_KERNELS = 3  # the row bounds, the chunk pass and the row pass
 _DTYPES = (torch.float32, torch.bfloat16)
 _INDEX_LIMIT = 2**31
 
@@ -78,33 +87,92 @@ class EmbeddingBagFn(torch.autograd.Function):
         return grad, None, None, None
 
 
-def prepare_rows(ids, mask, n_rows: int):
-    """The entries sorted by the table row they read, for the backward
-    kernel: (order int32 [B*K], the flat positions ``b*K + j`` in a stable
-    sort by clipped id; offsets int32 [n_rows + 1], row v's entries at
-    ``order[offsets[v]:offsets[v + 1]]``). Masked entries get the key
-    ``n_rows``: they sort past ``offsets[n_rows]`` and add nothing. On the
-    device, with no host read, as ``segment_spmm.prepare_edges``."""
+class RowPlan(NamedTuple):
+    """The entries of a batch sorted by the table row they read, and the
+    chunks of the runs longer than the chunk size C (``prepare_rows``).
+
+    order int32 [N]: the flat positions ``b*K + j`` (N = B*K) in a stable
+    sort by clipped id, masked entries last. bounds int32 [n_rows, 2]: row
+    v's entries at ``order[lo:hi]``, ``(lo, hi) = bounds[v]``, ``(0, 0)``
+    for a row no entry reads. A run longer than C is cut into chunks of C
+    consecutive entries (the last may be shorter); the chunks of all such
+    runs, in sorted order, take the slots 0, 1, ...: slot_start int32 [S]
+    is a chunk's first sorted position and slot_row int32 [S] its row; the
+    idle slots past the used ones hold N and ``n_rows`` (S = ``n_slots(N,
+    C)``, an upper bound). chunk_rank int32 [N]: the chunks that start at
+    or before each sorted position, so a long run starting at ``lo`` has its
+    first chunk in slot ``chunk_rank[lo] - 1``."""
+    order: torch.Tensor
+    bounds: torch.Tensor
+    chunk_rank: torch.Tensor
+    slot_row: torch.Tensor
+    slot_start: torch.Tensor
+
+
+def n_slots(n_entries: int, chunk: int) -> int:
+    """Chunk slots for n entries: a run longer than C has ceil(len / C) <
+    len / C + 1 < 2 len / C chunks, so all long runs together have fewer
+    than 2 n / C."""
+    return 2 * -(-n_entries // chunk)
+
+
+def sorted_keys(ids, mask, n_rows: int):
+    """(the sorted keys, order): each entry's clipped id, ``n_rows`` where
+    masked, in a stable sort."""
     flat = ids.reshape(-1).clamp(0, n_rows - 1).to(torch.int32)
     key = torch.where(mask.reshape(-1), flat, n_rows)
     key_sorted, order = torch.sort(key, stable=True)
-    bounds = torch.arange(n_rows + 1, dtype=torch.int32, device=ids.device)
-    offsets = torch.searchsorted(key_sorted, bounds, side="left").to(torch.int32)
-    return order.to(torch.int32), offsets
+    return key_sorted, order.to(torch.int32)
+
+
+def row_bounds(key_sorted, n_rows: int):
+    """``RowPlan.bounds`` from the sorted keys: on the card one pass over
+    them (``row_bounds_cuda``), on the CPU the plain version."""
+    if key_sorted.device.type == "cpu":
+        return row_bounds_ref(key_sorted, n_rows)
+    return row_bounds_cuda(key_sorted, n_rows)
+
+
+def chunk_table(key_sorted, bounds, n_rows: int, chunk: int):
+    """(chunk_rank, slot_row, slot_start) of ``RowPlan``, from one pass over
+    the sorted entries: a position starts a chunk where its run is longer
+    than ``chunk`` and its rank in the run is a multiple of ``chunk``."""
+    n, dev = key_sorted.numel(), key_sorted.device
+    lo, hi = bounds[key_sorted.clamp(max=n_rows - 1)].unbind(-1)
+    rank = torch.arange(n, dtype=torch.int32, device=dev) - lo
+    starts = (key_sorted < n_rows) & (hi - lo > chunk) & (rank % chunk == 0)
+    chunk_rank = torch.cumsum(starts, 0, dtype=torch.int32)
+    slots = torch.arange(1, n_slots(n, chunk) + 1, dtype=torch.int32, device=dev)
+    slot_start = torch.searchsorted(chunk_rank, slots, side="left", out_int32=True)  # N: idle
+    slot_row = torch.where(slot_start < n, key_sorted[slot_start.clamp(max=max(n - 1, 0))],
+                           n_rows)
+    return chunk_rank, slot_row, slot_start
+
+
+def prepare_rows(ids, mask, n_rows: int, *, chunk=RUN_CHUNK) -> RowPlan:
+    """The ``RowPlan`` of a batch for the backward kernels, chunks of
+    ``chunk`` entries. On the device, fixed shapes, no host read, as
+    ``segment_spmm.prepare_edges``."""
+    key_sorted, order = sorted_keys(ids, mask, n_rows)
+    bounds = row_bounds(key_sorted, n_rows)
+    return RowPlan(order, bounds, *chunk_table(key_sorted, bounds, n_rows, chunk))
 
 
 def embedding_bag_backward(dout, ids, mask, n_rows: int, *, mode="sum"):
     """The gradient of ``embedding_bag`` with respect to its [n_rows, D]
     table: dout [B, D] fp32 or bf16 (the table's dtype); ids int32 [B, K];
     mask bool [B, K]. Returns the dense [n_rows, D] gradient in
-    ``dout.dtype``: each row sums, in fp32 and in sorted (bag, slot) order,
-    ``dout[b] / max(count_b, 1)`` (mean) or ``dout[b]`` (sum) over the
-    unmasked entries that read it, clipped ids included; a row no entry
-    reads is zero."""
+    ``dout.dtype``: each row sums, in fp32, ``dout[b] / max(count_b, 1)``
+    (mean) or ``dout[b]`` (sum) over the unmasked entries that read it,
+    clipped ids included, in the plain version's order (chunks of
+    ``RUN_CHUNK`` entries in sorted (bag, slot) order, then their partials
+    in order); a row no entry reads is zero. On the card three launches on
+    the current stream (the row bounds, the chunk pass, the row pass), no
+    host read."""
     global launches, launches_backward
     dev = dout.device
     if dev.type == "cpu":
-        return embedding_bag_backward_ref(dout, ids, mask, n_rows, mode=mode)
+        return embedding_bag_backward_ref(dout, ids, mask, n_rows, mode=mode, chunk=RUN_CHUNK)
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag backward: unsupported device {dev}")
     B, K = ids.shape
@@ -118,8 +186,9 @@ def embedding_bag_backward(dout, ids, mask, n_rows: int, *, mode="sum"):
         raise ValueError(f"embedding_bag backward: B*K={B * K} must be below 2^31")
     if dout.shape[1] == 0:
         return torch.zeros((n_rows, 0), dtype=dout.dtype, device=dev)
-    order, offsets = prepare_rows(ids, mask, n_rows)
-    out = embedding_bag_bwd_cuda(scaled_rows(dout, mask, mode), order, offsets, K, dout.dtype)
+    plan = prepare_rows(ids, mask, n_rows, chunk=RUN_CHUNK)
+    out = embedding_bag_bwd_cuda(scaled_rows(dout, mask, mode), plan, K, dout.dtype,
+                                 chunk=RUN_CHUNK)
     launches += 1
     launches_backward += 1
     return out

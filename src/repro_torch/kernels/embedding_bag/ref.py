@@ -8,6 +8,12 @@ import torch
 
 # bags per step: one step's [bags, K, D] fp32 gather is 1 GiB at K 16, D 256
 CHUNK = 1 << 16
+# entries per partial sum in the table gradient: a row's sorted run is cut
+# into chunks of RUN_CHUNK, each summed alone, then the partials in order
+# (the backward kernels take the same value as an argument). 64, 128 and
+# 256 timed equal within noise at the two-tower item table (PERF.md); 128
+# was picked among them.
+RUN_CHUNK = 128
 
 
 def embedding_bag_ref(table, ids, mask, *, mode="sum"):
@@ -44,7 +50,17 @@ def scaled_rows(dout, mask, mode):
     return g.contiguous()
 
 
-def embedding_bag_backward_ref(dout, ids, mask, n_rows: int, *, mode="sum"):
+def row_bounds_ref(key_sorted, n_rows: int):
+    """Each row's run in ``key_sorted`` (sorted clipped ids, ``n_rows``
+    where masked), int32 [n_rows, 2]: ``(lo, hi)`` with
+    ``key_sorted[lo:hi] == v``, ``(0, 0)`` where no entry reads row v."""
+    bounds = torch.arange(n_rows + 1, dtype=key_sorted.dtype, device=key_sorted.device)
+    offsets = torch.searchsorted(key_sorted, bounds, side="left", out_int32=True)
+    runs = torch.stack([offsets[:-1], offsets[1:]], -1)
+    return torch.where(runs[:, 1:] > runs[:, :1], runs, 0)
+
+
+def embedding_bag_backward_ref(dout, ids, mask, n_rows: int, *, mode="sum", chunk=RUN_CHUNK):
     """The gradient of ``embedding_bag_ref`` with respect to its table:
     dout [B, D]; ids int [B, K]; mask bool [B, K] -> dtable [n_rows, D] in
     ``dout.dtype``, dense, as ``jax.grad`` of the reference's ``clip`` +
@@ -53,8 +69,11 @@ def embedding_bag_backward_ref(dout, ids, mask, n_rows: int, *, mode="sum"):
     ``dtable[clip(ids[b, j])] += dout[b] / max(count_b, 1)`` (``mode="mean"``;
     ``dout[b]`` for ``"sum"``) over the unmasked ``(b, j)``: a clipped id
     sends its gradient to row 0 or ``n_rows - 1``; masked entries and
-    all-masked bags add nothing. Summed in fp32 (``index_add_`` into a zero
-    table), rounded once."""
+    all-masked bags add nothing. Summed in fp32, rounded once, in this
+    order: a row's entries in flat (bag, slot) order are cut into chunks
+    of ``chunk``; each chunk's partial adds its terms one after another
+    from 0 (``index_add_`` into a zero table), and the row adds its
+    partials in chunk order from 0."""
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got {mode!r}")
     B, K = ids.shape
@@ -62,6 +81,13 @@ def embedding_bag_backward_ref(dout, ids, mask, n_rows: int, *, mode="sum"):
     keep = mask.reshape(-1)
     rows = ids.reshape(-1).long().clamp(0, n_rows - 1)[keep]
     bags = torch.arange(B, device=ids.device).repeat_interleave(K)[keep]
+    rows, perm = torch.sort(rows, stable=True)  # each row's run in flat order
+    bags = bags[perm]
+    rank = torch.arange(rows.numel(), device=ids.device) - torch.searchsorted(rows, rows)
+    first = rank % chunk == 0  # the first entry of each chunk
+    partials = torch.zeros((int(first.sum()), dout.shape[1]), dtype=torch.float32,
+                           device=dout.device)
+    partials.index_add_(0, torch.cumsum(first, 0) - 1, g[bags])
     out = torch.zeros((n_rows, dout.shape[1]), dtype=torch.float32, device=dout.device)
-    out.index_add_(0, rows, g[bags])
+    out.index_add_(0, rows[first], partials)
     return out.to(dout.dtype)

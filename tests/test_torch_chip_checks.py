@@ -337,3 +337,17 @@ def test_embedding_bag_backward_bound_writes_the_dense_gradient_once():
     nbytes, ops = cs.eb_bwd_bound(dout, ids, mask, 100)
     assert nbytes == 6 * 4 * 4 + 6 * 3 * 4 + 6 * 3 + 100 * 4 * 4
     assert ops == 12 * 4
+
+
+def test_embedding_bag_backward_passes_are_read_from_the_profile():
+    by_kernel = {
+        "embedding_bag_bwd_bounds_kernel(int const*, int*, int, int)": (1.0, 0.05),
+        "void embedding_bag_bwd_chunks_kernel<true>(float const*, int const*)": (1.0, 0.1),
+        "void embedding_bag_bwd_rows_kernel<float, true>(float const*, int const*)": (1.0, 3.8),
+        "void embedding_bag_kernel<float, true>(float const*, int const*)": (1.0, 2.6),
+        "void at::native::vectorized_elementwise_kernel<4>(int, float*)": (2.0, 0.2),
+    }
+    passes = cs.eb_bwd_passes(by_kernel)
+    assert passes == {"bounds": dict(launches=1.0, device_ms=0.05),
+                      "chunks": dict(launches=1.0, device_ms=0.1),
+                      "rows": dict(launches=1.0, device_ms=3.8)}
