@@ -177,6 +177,7 @@ from repro_torch.distributed.sharding import (
     ALL_REDUCE_SUM,
     ALL_TO_ALL,
     LocalMesh,
+    tree_map_with_path,
 )
 from repro_torch.graphstore.maintenance import (
     DeviceGate,
@@ -398,8 +399,10 @@ class ShardedTxnRuntime:
     ``espec`` is the *global* spec: ``espec.cache.capacity`` is the fleet
     cache capacity, split into ``n`` co-partitioned blocks of
     ``capacity // n`` slots (each a power of two). Block capacities are
-    twice the uniform share (``partition.default_pspec``);
-    ``maintenance_tick`` and ``grow_blocks`` change them.
+    ``blk_slack`` times the uniform share, twice by default
+    (``partition.default_pspec``); ``maintenance_tick`` and ``grow_blocks``
+    change them. With ``use_cache=False`` a read never probes the cache:
+    every frontier root runs against storage (the ``serve_nocache`` cell).
 
     ``route_cap_factor`` bounds the per-peer routing buckets: the default is
     the reference's measured production caps, a tuple gives per-hop factors
@@ -425,8 +428,9 @@ class ShardedTxnRuntime:
     every step, as the reference does by default.
     """
 
-    def __init__(self, espec, mesh: LocalMesh, *, store_tier: str = "partitioned",
-                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR,
+    def __init__(self, espec, mesh: LocalMesh, *, use_cache: bool = True,
+                 store_tier: str = "partitioned",
+                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR, blk_slack: float = 2.0,
                  device=None, telemetry: bool = True, tracer=None):
         if store_tier not in ("partitioned", "replicated"):
             raise ValueError(f"unknown store tier {store_tier!r}")
@@ -441,9 +445,11 @@ class ShardedTxnRuntime:
             raise ValueError(f"cache capacity {C} does not shard into power-of-two blocks")
         self.espec = espec
         self.lspec = espec._replace(cache=espec.cache._replace(capacity=Cloc))
+        self.use_cache = bool(use_cache)
         self.store_tier = store_tier
         # the block layout; None on the replicated tier, which has no blocks
-        self.pspec = default_pspec(espec.store, n) if store_tier == "partitioned" else None
+        self.pspec = (default_pspec(espec.store, n, slack=blk_slack)
+                      if store_tier == "partitioned" else None)
         if isinstance(route_cap_factor, (list, tuple)):
             route_cap_factor = tuple(route_cap_factor)
             if not route_cap_factor or not all(isinstance(f, int) for f in route_cap_factor):
@@ -687,40 +693,25 @@ class ShardedTxnRuntime:
         cut to the batch."""
         from repro_torch.core.engine import _to_host
 
-        n, pspec, tr = self.n, self.pspec, self.tracer
+        n, tr = self.n, self.tracer
         B = len(roots)
         bucket = max(bucket_for(B), n)
         if bucket // n * n != bucket:
             raise ValueError(f"batch bucket {bucket} does not divide over {n} shards")
-        Bloc = bucket // n
         proots, bvalid = pad_roots(roots, bucket)
         proots = torch.as_tensor(proots, device=self.device)
         bvalid = torch.as_tensor(bvalid, device=self.device)
         down = None if down is None else np.asarray(down, dtype=bool).reshape(-1)
         if down is not None and not down.any():
             down = None
-        caps = self._hop_route_caps(plan, Bloc)
         syncs = SyncCount()
         t0 = time.perf_counter()
         with tr.span("gr_dispatch"):
-            programs = []
-            for me in range(n):
-                tier = _MeshTier(self, caps, me, rtable, down, split)
-                steps = make_plan_fn(self.lspec, plan, True, tier)
-                rows = slice(me * Bloc, (me + 1) * Bloc)
-                # the replicated tier's ranks all read the one full store
-                shard = store if pspec is None else local_shard(pspec, store, me)
-                programs.append(steps(shard, cache_shard(cache, n, me), ttable, proots[rows],
-                                      bvalid[rows], syncs))
-            outs = self.mesh.run(programs)
-            result = torch.cat([o[0] for o in outs])
-            row_def = torch.cat([o[1] for o in outs]) if outs[0][1] is not None else None
-            n_seg = len(outs[0][2])
-            mroots = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
-            mcounts = [torch.cat([o[3][i] for o in outs]) for i in range(n_seg)]
+            result, row_def, mroots, mcounts, m = self._gr_programs(
+                store, cache, ttable, plan, proots, bvalid, down, rtable, split, syncs)
+        n_seg = len(mroots)
         # the owner-stage block leaves the metrics before the copy, so the
         # metrics dict is the one telemetry=False builds
-        m = dict(outs[0][4], _version=outs[0][5])
         stage = m.pop("owner_stage", None)
         extra = ([row_def] if row_def is not None else []) + ([stage] if stage is not None else [])
         with tr.span("gr_sync"):
@@ -732,7 +723,8 @@ class ShardedTxnRuntime:
             version = metrics.pop("_version")
             metrics["host_syncs"] = syncs.n + 1
             metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
-            misses = decode_miss_records(plan, True, host[:n_seg], host[n_seg:], version)
+            misses = decode_miss_records(plan, self.use_cache, host[:n_seg], host[n_seg:],
+                                          version)
         if stage is not None:
             self.last_owner_stage = stage.astype(np.int64)
             self.last_step_owner_seconds = attribute_step_seconds(self.last_step_seconds,
@@ -740,6 +732,55 @@ class ShardedTxnRuntime:
         else:
             self.last_owner_stage = self.last_step_owner_seconds = None
         return result[:B], misses, metrics, deferred[:B]
+
+    def _gr_programs(self, store, cache, ttable, plan, proots, bvalid, down, rtable,
+                     split: bool, syncs):
+        """Every rank's gR program over the padded batch ``proots`` /
+        ``bvalid`` (rank ``r`` takes rows ``[r * B/n, (r + 1) * B/n)``), on
+        the device: ``(result, row deferred or None, miss roots by segment,
+        miss counts by segment, metrics with "_version")``, the metrics'
+        values still tensors. ``down`` is the host mask of owners down, or
+        None."""
+        n, pspec = self.n, self.pspec
+        Bloc = proots.shape[0] // n
+        caps = self._hop_route_caps(plan, Bloc)
+        programs = []
+        for me in range(n):
+            tier = _MeshTier(self, caps, me, rtable, down, split)
+            steps = make_plan_fn(self.lspec, plan, self.use_cache, tier)
+            rows = slice(me * Bloc, (me + 1) * Bloc)
+            # the replicated tier's ranks all read the one full store
+            shard = store if pspec is None else local_shard(pspec, store, me)
+            programs.append(steps(shard, cache_shard(cache, n, me), ttable, proots[rows],
+                                  bvalid[rows], syncs))
+        outs = self.mesh.run(programs)
+        result = torch.cat([o[0] for o in outs])
+        row_def = torch.cat([o[1] for o in outs]) if outs[0][1] is not None else None
+        n_seg = len(outs[0][2])
+        mroots = [torch.cat([o[2][i] for o in outs]) for i in range(n_seg)]
+        mcounts = [torch.cat([o[3][i] for o in outs]) for i in range(n_seg)]
+        return result, row_def, mroots, mcounts, dict(outs[0][4], _version=outs[0][5])
+
+    def gr_step(self, plan):
+        """The serving step of one plan over a padded global batch, as the
+        reference's ``_gr_fn`` program: ``step(store, cache, ttable, roots,
+        bvalid, down, rtable) -> (result, miss roots by segment, miss counts
+        by segment, metrics)``, all on the device; ``down`` is a bool [n]
+        tensor, ``rtable`` a ``RoutingTable``. It reads ``down`` on the host
+        (an owner down defers its misses), then each rank's miss count at
+        every hop and its merge rounds, as ``run_gr_tx_batch`` does. The
+        step carries this runtime as ``step.runtime``."""
+
+        def step(store, cache, ttable, roots, bvalid, down, rtable):
+            mask = np.asarray(down.cpu(), dtype=bool).reshape(-1)
+            result, _, mroots, mcounts, m = self._gr_programs(
+                store, cache, ttable, plan, roots, bvalid, mask if mask.any() else None,
+                rtable, False, SyncCount())
+            m.pop("owner_stage", None)
+            return result, mroots, mcounts, m
+
+        step.runtime = self
+        return step
 
     # -------------------------------------------------------- gRW-Tx path
     def _route_and_apply_ops(self, cache, ops, sweeps, through: bool, syncs, rtable):
@@ -1050,8 +1091,10 @@ class ShardedMissDrain:
 
 # ======================================================================
 # The capacity-planning description of a deployment, lowered to the
-# runtime's spec and its served template (the reference's config_cell and
-# config_grw_cell lower XLA programs for the dry-run tools and have no twin).
+# runtime's spec and its served template, and the dry-run's serving cell
+# (``config_cell``). The reference's ``config_grw_cell`` lowers the gRW
+# commit at capacity for an XLA check and has no twin: the port's commit
+# reads the host, so a meta run of it would stop at its first read.
 
 
 @dataclass(frozen=True)
@@ -1061,6 +1104,7 @@ class GraphServeConfig:
     max_deg: int  # per-hop gather window
     max_leaves: int  # cache value width
     cache_slots_total: int  # cache capacity across the fleet
+    route_cap_factor: int | tuple | None = DEFAULT_ROUTE_CAP_FACTOR
     recent_cap: int = 1024  # append-region scan window
     n_vprops: int = 2
     n_eprops: int = 1
@@ -1113,3 +1157,91 @@ def config_plan_and_ttable(cfg: GraphServeConfig):
     hop = Hop(DIR_OUT, ANY_LABEL, make_pred(ANY_LABEL, []), make_pred(ANY_LABEL, econd),
               make_pred(ANY_LABEL, lcond), 0, params)
     return QueryPlan(hops=(hop,)), ttable
+
+
+def random_config_store(cfg: GraphServeConfig, generator: torch.Generator, device=None):
+    """A seeded random graph at ``cfg``'s capacity, built on ``device``:
+    every vertex has ``e_per_vertex`` out-edges to uniform destinations
+    (edge slot ``v * e_per_vertex + j`` is vertex v's j-th), every vertex
+    label and edge label 0, vertex and edge property 0 drawn from {0, 1}
+    (the other properties missing). The edge slots fill ``e_cap`` exactly;
+    the CSR indexes are built (``compact``)."""
+    from repro_torch.graphstore.store import compact, empty_store
+    from repro_torch.utils import PROP_MISSING
+
+    espec = config_espec(cfg)
+    spec = espec.store
+    dev = resolve_device(device)
+    V, E = cfg.v_total, cfg.e_total()
+    g = dict(generator=generator, device=dev)
+    store = empty_store(spec, device=dev)
+    vprops = torch.full((V, spec.n_vprops), PROP_MISSING, dtype=torch.int32, device=dev)
+    vprops[:, 0] = torch.randint(0, 2, (V,), dtype=torch.int32, **g)
+    eprops = torch.full((E, spec.n_eprops), PROP_MISSING, dtype=torch.int32, device=dev)
+    eprops[:, 0] = torch.randint(0, 2, (E,), dtype=torch.int32, **g)
+    store = store._replace(
+        vlabel=torch.zeros(V, dtype=torch.int32, device=dev),
+        valive=torch.ones(V, dtype=torch.bool, device=dev),
+        vprops=vprops,
+        esrc=torch.arange(V, dtype=torch.int32, device=dev).repeat_interleave(cfg.e_per_vertex),
+        edst=torch.randint(0, V, (E,), dtype=torch.int32, **g),
+        elabel=torch.zeros(E, dtype=torch.int32, device=dev),
+        ealive=torch.ones(E, dtype=torch.bool, device=dev),
+        eprops=eprops,
+        v_len=torch.tensor(V, dtype=torch.int32, device=dev),
+        e_len=torch.tensor(E, dtype=torch.int32, device=dev),
+    )
+    return compact(spec, store)
+
+
+def config_cell(cfg: GraphServeConfig, mesh, *, use_cache: bool = True,
+                global_batch: int = 8192, blk_slack: float = 1.0, device="meta",
+                generator: torch.Generator | None = None, pstore=None):
+    """The dry-run's serving cell of a capacity config on the partitioned
+    runtime: ``(step, arg_specs, args, runtime)``, built as the reference's
+    ``config_cell``. ``mesh`` is a shape mesh (``launch.mesh``); the
+    runtime serves its ``mesh.size`` ranks on a ``LocalMesh``. ``step`` is
+    ``runtime.gr_step(plan)`` and ``args`` are ``(pstore, cache, ttable,
+    roots, bvalid, down, rtable)``; ``arg_specs`` gives each tensor leaf its
+    spec: the edge blocks, the cache slots, ``roots`` and ``bvalid`` over
+    every mesh axis, the vertex tier, scalars, ``down`` and the routing
+    table replicated.
+
+    On ``meta`` the store is ``abstract_partitioned_store`` and nothing is
+    allocated. On a real device the store is ``pstore`` where given (a
+    partitioned store of this layout, shared), else ``random_config_store``
+    drawn from ``generator`` and partitioned (the single-host copy is
+    dropped); the cache starts empty, ``roots`` are uniform vertices from
+    ``generator``, every row valid and no owner down."""
+    from repro_torch.graphstore.partition import abstract_partitioned_store
+
+    espec = config_espec(cfg)
+    plan, ttable = config_plan_and_ttable(cfg)
+    rt = ShardedTxnRuntime(espec, LocalMesh(mesh.size), use_cache=use_cache,
+                           route_cap_factor=cfg.route_cap_factor, blk_slack=blk_slack,
+                           device=device)
+    dev, n, B = rt.device, rt.n, global_batch
+    if dev.type == "meta":
+        pstore = abstract_partitioned_store(rt.pspec)
+        roots = torch.empty(B, dtype=torch.int32, device=dev)
+    else:
+        if pstore is None:
+            pstore = rt.partition_store(random_config_store(cfg, generator, dev))
+        roots = torch.randint(0, cfg.v_total, (B,), dtype=torch.int32, generator=generator,
+                              device=dev)
+    cache = empty_cache(espec.cache, device=dev)
+    bvalid = torch.ones(B, dtype=torch.bool, device=dev)
+    down = torch.zeros(n, dtype=torch.bool, device=dev)
+    rtable = rt.identity  # the table every step threads while none is attached
+    axes = tuple(mesh.axis_names)
+    ax = axes[0] if len(axes) == 1 else axes
+    blk = lambda b: type(b)(**{f: (ax,) for f in b._fields})
+    store_specs = pstore._replace(
+        **{f: () for f in ("vlabel", "valive", "vprops", "vversion", "v_len", "e_len",
+                           "version")},
+        out=blk(pstore.out), inc=blk(pstore.inc))
+    cache_specs = cache._replace(**{f: (ax,) if f in _SLOT_FIELDS else () for f in cache._fields})
+    repl = lambda tree: tree_map_with_path(lambda *_: (), tree)
+    arg_specs = (store_specs, cache_specs, repl(ttable), (ax,), (ax,), (), repl(rtable))
+    args = (pstore, cache, ttable, roots, bvalid, down, rtable)
+    return rt.gr_step(plan), arg_specs, args, rt

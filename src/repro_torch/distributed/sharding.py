@@ -26,6 +26,7 @@ this driver with ``torch.distributed`` calls; the per-rank programs stay.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 ALL_TO_ALL = "all_to_all"
@@ -103,3 +104,110 @@ def flat_mesh(n: int) -> LocalMesh:
     transaction runtime, whose vertex ownership, owner-local edge blocks and
     cache blocks all partition over one flat axis."""
     return LocalMesh(n)
+
+
+# ------------------------------------------------------------------ specs
+# The reference's shape-only sharding helpers. A spec is a plain tuple with
+# one entry a dimension: None (replicated), an axis name, or a tuple of
+# axis names. A mesh is anything with a ``.shape`` mapping of axis name to
+# size (``launch.mesh.ShapeMesh``); nothing here places a tensor.
+
+_MESH = None
+
+
+def set_mesh(mesh):
+    """Install the process-wide mesh used by ``maybe_spec`` /
+    ``add_data_axis`` / ``tree_shardings`` when none is given. Nothing in
+    the port installs one: ``launch.steps`` passes its mesh to every call."""
+    global _MESH
+    _MESH = mesh
+
+
+def active_mesh():
+    return _MESH
+
+
+def _axis_size(mesh, axes) -> int:
+    size = 1
+    for a in axes:
+        size *= int(mesh.shape[a])
+    return size
+
+
+def maybe_spec(shape, spec, mesh=None) -> tuple:
+    """Validate a spec against a shape: drop axes that are absent from the
+    mesh or do not divide the dimension (or are of size 1). Returns one
+    entry a dimension; ``()`` without a mesh."""
+    mesh = mesh or _MESH
+    if mesh is None:
+        return ()
+    out = []
+    spec = tuple(spec)[: len(shape)]  # rank-0 leaves (e.g. step counters)
+    for d, axis in enumerate(spec + (None,) * (len(shape) - len(spec))):
+        if axis is None:
+            out.append(None)
+            continue
+        axes = axis if isinstance(axis, (tuple, list)) else (axis,)
+        axes = tuple(a for a in axes if a in mesh.shape)
+        if not axes:
+            out.append(None)
+            continue
+        size = _axis_size(mesh, axes)
+        if size <= 1 or shape[d] % size != 0:
+            out.append(None)
+        else:
+            out.append(axes if len(axes) > 1 else axes[0])
+    return tuple(out)
+
+
+def constrain(x, *spec):
+    """The reference's ``with_sharding_constraint``: a no-op here. One card
+    holds the whole tensor, so there is nothing to lay out; the dry-run
+    reads a spec from ``maybe_spec`` instead."""
+    return x
+
+
+def add_data_axis(spec, shape, mesh=None, axes=("data",)) -> tuple:
+    """ZeRO-1: extend a param spec with the data axis on the largest
+    still-replicated, divisible dimension (optimizer-state sharding)."""
+    mesh = mesh or _MESH
+    if mesh is None:
+        return tuple(spec)
+    size = _axis_size(mesh, [a for a in axes if a in mesh.shape])
+    if size <= 1:
+        return tuple(spec)
+    entries = list(tuple(spec) + (None,) * (len(shape) - len(spec)))
+    order = sorted(range(len(shape)), key=lambda d: -shape[d])
+    for d in order:
+        if entries[d] is None and shape[d] % size == 0:
+            entries[d] = axes if len(axes) > 1 else axes[0]
+            return tuple(entries)
+    return tuple(entries)
+
+
+def tree_shardings(tree, rule, mesh=None):
+    """A tree like ``tree`` holding one validated spec tuple a leaf:
+    ``rule(path, leaf) -> spec``, ``path`` the string ``jax.tree_util.keystr``
+    gives (``"['layers']['wq']"``, ``".m['embed']"``, ``"[0]"``)."""
+    mesh = mesh or _MESH
+    return tree_map_with_path(
+        lambda path, leaf: maybe_spec(tuple(leaf.shape), rule(path, leaf), mesh), tree)
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` over the arrays (tensors and numpy arrays) of a
+    tree of dicts, NamedTuples, tuples and lists, as
+    ``jax.tree_util.tree_map_with_path`` with its ``keystr`` paths; ``None``
+    stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(path, tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], f"{path}[{k!r}]") for k in sorted(tree)}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f), f"{path}.{f}")
+                            for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, x, f"{path}[{i}]") for i, x in enumerate(tree))
+    raise TypeError(f"not a tree node or leaf: {type(tree).__name__}")

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.templates import DIR_BOTH, DIR_IN, DIR_OUT, MAX_CONDS, evaluate_pred
 from repro_torch.distributed.routing import storage_owner_of
 from repro_torch.graphstore.partition import local_of, owner_of
+from repro_torch.kernels import plain_device
 from repro_torch.kernels.block_gather.kernel import block_gather_cuda
 from repro_torch.kernels.block_gather.ref import block_gather_filter_ref, pred_static
 from repro_torch.utils import INT32_MAX, compact_masked, first_occurrence, take_along0
@@ -58,7 +59,7 @@ def block_gather(
     statics = dict(max_deg=max_deg, recent_cap=recent_cap, e_blk_cap=e_blk_cap,
                    edge_label=edge_label, pe=pe, pl=pl)
     dev = roots.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         return block_gather_filter_ref(*operands, *rows, **statics)
     if dev.type != "cuda":
         raise ValueError(f"block_gather: unsupported device {dev}")

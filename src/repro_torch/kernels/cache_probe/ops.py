@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_device
 from repro_torch.kernels.cache_probe.kernel import cache_probe_cuda
 from repro_torch.kernels.cache_probe.ref import cache_probe_ref
 
@@ -29,7 +30,7 @@ def cache_probe(c_tpl, c_root, c_fp, c_valid, tpl, root, h, fp, *, probes=8):
     global launches
     args = (c_tpl, c_root, c_fp, c_valid, tpl, root, h, fp)
     dev = tpl.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         return cache_probe_ref(*args, probes=probes)
     if dev.type != "cuda":
         raise ValueError(f"cache_probe: unsupported device {dev}")

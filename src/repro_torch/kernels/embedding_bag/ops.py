@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import plain_device, shape_run
 from repro_torch.kernels.embedding_bag.kernel import (embedding_bag_bwd_cuda, embedding_bag_cuda,
                                                      row_bounds_cuda)
 from repro_torch.kernels.embedding_bag.ref import (RUN_CHUNK, embedding_bag_backward_ref,
@@ -57,7 +58,7 @@ def embedding_bag(table, ids, mask, *, mode="sum"):
 def _bags(table, ids, mask, mode):
     global launches
     dev = table.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         return embedding_bag_ref(table, ids, mask, mode=mode)
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag: unsupported device {dev}")
@@ -128,7 +129,7 @@ def sorted_keys(ids, mask, n_rows: int):
 def row_bounds(key_sorted, n_rows: int):
     """``RowPlan.bounds`` from the sorted keys: on the card one pass over
     them (``row_bounds_cuda``), on the CPU the plain version."""
-    if key_sorted.device.type == "cpu":
+    if plain_device(key_sorted.device):
         return row_bounds_ref(key_sorted, n_rows)
     return row_bounds_cuda(key_sorted, n_rows)
 
@@ -171,7 +172,9 @@ def embedding_bag_backward(dout, ids, mask, n_rows: int, *, mode="sum"):
     host read."""
     global launches, launches_backward
     dev = dout.device
-    if dev.type == "cpu":
+    if shape_run(dev):
+        return dout.new_empty((n_rows, dout.shape[1]))
+    if plain_device(dev):
         return embedding_bag_backward_ref(dout, ids, mask, n_rows, mode=mode, chunk=RUN_CHUNK)
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag backward: unsupported device {dev}")

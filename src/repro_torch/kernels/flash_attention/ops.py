@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_device
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda,
     flash_attention_cuda,
@@ -98,7 +99,7 @@ def _forward(q, k, v, causal, window, q_offset, with_lse):
     kernel launch (counted). ``(out, lse or None)``."""
     global launches, launches_bf16_tc, launches_f32_simt, launches_fwd_lse
     dev = q.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         res = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                   with_lse=with_lse)
         return res if with_lse else (res, None)
@@ -129,7 +130,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None, q_offs
     [B, H, Sq] fp32; in the inputs' dtype. The plain version on the CPU,
     the backward kernels on CUDA (one counted launch of the pair)."""
     global launches_bwd
-    if q.device.type == "cpu":
+    if plain_device(q.device):
         return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window,
                                        q_offset=q_offset)
     if q.device.type != "cuda":

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_slices
+
 NEG_INF = -1e30
 
 
@@ -44,21 +46,28 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset=0, with_l
                         device=q.device)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    for b in range(B):
-        qb = qs[b].to(torch.float32).reshape(Sq, KV, G, dh).permute(1, 2, 0, 3)
-        kb = k[b].to(torch.float32).permute(1, 0, 2)  # [KV, Sk, dh]
-        vb = v[b].to(torch.float32).permute(1, 0, 2)
-        s = torch.einsum("kgqd,kcd->kgqc", qb, kb)
+    for sl in _sequences(q):
+        nb = len(range(B)[sl])
+        qb = qs[sl].to(torch.float32).reshape(nb, Sq, KV, G, dh).permute(0, 2, 3, 1, 4)
+        kb = k[sl].to(torch.float32).permute(0, 2, 1, 3)  # [nb, KV, Sk, dh]
+        vb = v[sl].to(torch.float32).permute(0, 2, 1, 3)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qb, kb)
         s = torch.where(allowed, s, NEG_INF)
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
         l = p.sum(-1, keepdim=True)
         if with_lse:
-            lse[b] = (m + torch.log(l)).reshape(H, Sq)
+            lse[sl] = (m + torch.log(l)).reshape(nb, H, Sq)
         p = p.to(v.dtype).to(torch.float32)
-        o = torch.einsum("kgqc,kcd->kgqd", p, vb) / l.clamp(min=1e-30)
-        out[b] = o.permute(2, 0, 1, 3).reshape(Sq, H, dh).to(q.dtype)
+        o = torch.einsum("bkgqc,bkcd->bkgqd", p, vb) / l.clamp(min=1e-30)
+        out[sl] = o.permute(0, 3, 1, 2, 4).reshape(nb, Sq, H, dh).to(q.dtype)
     return (out, lse) if with_lse else out
+
+
+def _sequences(q):
+    """The batch slices the plain versions take at a time: one sequence, so
+    that its scores are the largest temporary."""
+    return plain_slices(q.shape[0], 1, q.device)
 
 
 def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None, q_offset=0):
@@ -83,21 +92,22 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, window=None, q_
                         device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     f32 = torch.float32
-    for b in range(B):
-        heads = lambda t: t[b].to(f32).reshape(Sq, KV, G, dh).permute(1, 2, 0, 3)
-        qb, ob, dob = heads(qs), heads(o), heads(do)  # [KV, G, Sq, dh]
-        kb = k[b].to(f32).permute(1, 0, 2)  # [KV, Sk, dh]
-        vb = v[b].to(f32).permute(1, 0, 2)
-        lb = lse[b].reshape(KV, G, Sq, 1)
+    for sl in _sequences(q):
+        nb = len(range(B)[sl])
+        heads = lambda t: t[sl].to(f32).reshape(nb, Sq, KV, G, dh).permute(0, 2, 3, 1, 4)
+        qb, ob, dob = heads(qs), heads(o), heads(do)  # [nb, KV, G, Sq, dh]
+        kb = k[sl].to(f32).permute(0, 2, 1, 3)  # [nb, KV, Sk, dh]
+        vb = v[sl].to(f32).permute(0, 2, 1, 3)
+        lb = lse[sl].reshape(nb, KV, G, Sq, 1)
         empty = lb <= 0.5 * NEG_INF
-        s = torch.einsum("kgqd,kcd->kgqc", qb, kb)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qb, kb)
         p = torch.where(allowed, torch.exp(torch.where(allowed, s - lb, 0.0)), 0.0)
         p = torch.where(empty, 1.0 / max(Sk, 1), p)
-        dp = torch.einsum("kgqd,kcd->kgqc", dob, vb)
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", dob, vb)
         delta = (dob * ob).sum(-1, keepdim=True)
         ds = torch.where(allowed & ~empty, p * (dp - delta), 0.0)
-        dv[b] = torch.einsum("kgqc,kgqd->kcd", p, dob).permute(1, 0, 2).to(v.dtype)
-        dk[b] = torch.einsum("kgqc,kgqd->kcd", ds, qb).permute(1, 0, 2).to(k.dtype)
-        dqb = torch.einsum("kgqc,kcd->kgqd", ds, kb) * scale
-        dq[b] = dqb.permute(2, 0, 1, 3).reshape(Sq, H, dh).to(q.dtype)
+        dv[sl] = torch.einsum("bkgqc,bkgqd->bkcd", p, dob).permute(0, 2, 1, 3).to(v.dtype)
+        dk[sl] = torch.einsum("bkgqc,bkgqd->bkcd", ds, qb).permute(0, 2, 1, 3).to(k.dtype)
+        dqb = torch.einsum("bkgqc,bkcd->bkgqd", ds, kb) * scale
+        dq[sl] = dqb.permute(0, 3, 1, 2, 4).reshape(nb, Sq, H, dh).to(q.dtype)
     return dq, dk, dv

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import plain_device
 from repro_torch.kernels.onehop_gather.kernel import onehop_gather_cuda
 from repro_torch.kernels.onehop_gather.ref import onehop_gather_ref
 
@@ -29,7 +30,7 @@ def onehop_gather(start, deg, dst, eprop, vprop, roots, *, max_deg, edge_val,
     args = (start, deg, dst, eprop, vprop, roots)
     kw = dict(max_deg=max_deg, edge_val=edge_val, leaf_val=leaf_val)
     dev = roots.device
-    if dev.type == "cpu":
+    if plain_device(dev):
         return onehop_gather_ref(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"onehop_gather: unsupported device {dev}")

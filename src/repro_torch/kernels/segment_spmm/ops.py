@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import plain_device, shape_run
 from repro_torch.kernels.segment_spmm.kernel import segment_spmm_cuda
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref, segment_spmm_ref
 from repro_torch.utils import jax_index
@@ -102,7 +103,9 @@ def csr_sum(x, csr: SegmentCSR, backward: bool = False):
     version for a CPU tensor, else one counted kernel launch (``backward``
     marks a backward pass's)."""
     global launches, launches_backward
-    if x.device.type == "cpu":
+    if shape_run(x.device):
+        return x.new_empty((csr.n_nodes, x.shape[1]))
+    if plain_device(x.device):
         return segment_spmm_csr_ref(x, csr.src_sorted, csr.offsets)
     if csr.n_nodes == 0 or x.shape[1] == 0:
         return torch.zeros((csr.n_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
@@ -149,7 +152,7 @@ def segment_spmm(x, src=None, dst=None, n_nodes=None, edge_mask=None, *, csr=Non
         raise ValueError("segment_spmm: a gradient walks the csr's transpose; build it with "
                          "prepare_edges(..., transpose=True)")
     n = x.shape[0] if n_nodes is None else int(n_nodes)
-    if dev.type == "cpu":
+    if plain_device(dev):
         if csr is None and not grad:
             return segment_spmm_ref(x, src, dst, n_nodes, edge_mask)
     elif dev.type != "cuda":

@@ -139,5 +139,8 @@ def _load_balance_loss(probs, expert, E):
     router probability and the routed share of each expert."""
     N, k = expert.shape
     me = probs.mean(0)
-    ce = torch.bincount(expert.reshape(-1), minlength=E).to(torch.float32) / (N * k)
+    flat = expert.reshape(-1)
+    routed = torch.zeros(E, dtype=torch.int64, device=flat.device)
+    routed.scatter_add_(0, flat, torch.ones_like(flat))  # bincount, with a static shape
+    ce = routed.to(torch.float32) / (N * k)
     return E * torch.sum(me * ce)

@@ -8,8 +8,10 @@ where the reference scans. Every attention goes through the
 kernels too. An MoE block runs ``moe_ffn`` over the block's tokens
 flattened to ``[B*S, D]``, plus the always-on shared expert where the
 config has one, and ``forward`` returns the layers' summed load-balancing
-loss. The sharding hints (``constrain``, ``param_spec_rule``,
-``abstract_params``) are left out: they have no meaning on one card.
+loss. The reference's ``constrain`` hints are left out: they have no
+meaning on one card. ``abstract_params``, ``param_spec_rule`` and
+``kv_cache_spec_rule`` stay for the dry-run (``launch.steps``): the
+parameters as ``meta`` tensors, and the reference's specs by leaf path.
 
 Training (``loss_fn``, ``train_step``): ``forward`` checkpoints each block
 when ``cfg.remat`` (``torch.utils.checkpoint``, non-reentrant): only a
@@ -74,6 +76,64 @@ def param_shapes(cfg: LMConfig) -> dict:
         "final_norm": (cfg.d_model,),
         "layers": _layer_shapes(cfg),
     }
+
+
+BATCH = ("pod", "data")  # logical batch axes
+
+
+def abstract_params(cfg: LMConfig) -> dict:
+    """The parameter tree as ``meta`` tensors of ``cfg.dtype``: the
+    dry-run's zero-allocation stand-in."""
+    dt = _DTYPES[cfg.dtype]
+    meta = lambda s: torch.empty(s, dtype=dt, device="meta")
+    shapes = param_shapes(cfg)
+    out = {k: meta(s) for k, s in shapes.items() if k != "layers"}
+    out["layers"] = {k: meta(s) for k, s in shapes["layers"].items()}
+    return out
+
+
+def param_spec_rule(cfg: LMConfig):
+    """Logical specs by parameter path (the ``jax.tree_util.keystr`` string,
+    e.g. ``"['layers']['wq']"``), validated and dropped per mesh by
+    ``distributed.sharding.maybe_spec``: the reference's rule."""
+
+    def rule(path: str, leaf):
+        if "embed'" in path or path.endswith("embed']"):
+            return ("model", None) if "unembed" not in path else (None, "model")
+        if "unembed" in path:
+            return (None, "model")
+        if "norm" in path:
+            return (None,)
+        if any(k in path for k in ("wq", "wk", "wv", "w1", "w3", "ws1", "ws3")):
+            return (None, None, "model")
+        if any(k in path for k in ("wo", "w2", "ws2")):
+            return (None, "model", None)
+        if "router" in path:
+            return (None, None, None)
+        if any(k in path for k in ("we1", "we3")):
+            # expert parallel over 'model' when divisible, else TP on F
+            if cfg.n_experts % 16 == 0:
+                return (None, "model", None, None)
+            return (None, None, None, "model")
+        if "we2" in path:
+            if cfg.n_experts % 16 == 0:
+                return (None, "model", None, None)
+            return (None, None, "model", None)
+        return ()
+
+    return rule
+
+
+def kv_cache_spec_rule(cfg: LMConfig):
+    """KV cache specs: batch over (pod, data); heads over model when they
+    divide, else the sequence axis (context parallelism for long KV)."""
+
+    def rule(path: str, leaf):
+        if cfg.n_kv_heads % 16 == 0:
+            return (None, BATCH, None, "model", None)
+        return (None, BATCH, "model", None, None)
+
+    return rule
 
 
 def _init_leaf(shape, dt, generator, dev):
@@ -235,6 +295,8 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> KVCache:
+    """A zeroed cache on ``device`` (CUDA unless the caller names another;
+    ``meta`` gives the dry-run's abstract cache)."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = _DTYPES[cfg.dtype]

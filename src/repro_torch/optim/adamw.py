@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.checkpoint.ckpt import tree_leaves, tree_unflatten
+from repro_torch.kernels import plain_slices
 
 SLICE_ELEMS = 1 << 24  # elements of a leaf's slice: 64 MiB of fp32 a temporary
 
@@ -54,7 +55,7 @@ def leaf_slices(t: torch.Tensor):
     if t.dim() == 0 or t.numel() <= SLICE_ELEMS:
         return (t,)
     rows = max(1, SLICE_ELEMS // max(1, t.numel() // t.shape[0]))
-    return t.split(rows, 0)
+    return tuple(t[sl] for sl in plain_slices(t.shape[0], rows, t.device))
 
 
 def global_norm(leaves) -> torch.Tensor:

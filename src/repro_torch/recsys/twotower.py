@@ -1,9 +1,9 @@
 """Two-tower retrieval: towers, in-batch sampled softmax, serve paths.
 
 PyTorch twin of ``repro.recsys.twotower``. Parameters are a plain dict of
-tensors named as in the reference. The sharding hints (``constrain``,
-``param_spec_rule``, ``abstract_params``) are left out: they have no
-meaning on one card. In training each tower's bags go through the
+tensors named as in the reference. The reference's ``constrain`` hints
+are left out: they have no meaning on one card. ``abstract_params`` and
+``param_spec_rule`` stay for the dry-run (``launch.steps``). In training each tower's bags go through the
 ``embedding_bag`` kernel forward and its backward kernel for the table's
 dense gradient.
 """
@@ -33,6 +33,26 @@ def param_shapes(cfg: TwoTowerConfig) -> dict:
             shapes[f"{tower}_b{i}"] = (h,)
             last = h
     return shapes
+
+
+def abstract_params(cfg: TwoTowerConfig) -> dict:
+    """The parameters as ``meta`` tensors of ``cfg.dtype``."""
+    dt = _DTYPES[cfg.dtype]
+    return {k: torch.empty(s, dtype=dt, device="meta") for k, s in param_shapes(cfg).items()}
+
+
+def param_spec_rule(cfg: TwoTowerConfig):
+    """The reference's specs by parameter path: tables row-sharded over
+    ``model``, tower weights column-sharded, biases replicated."""
+
+    def rule(path: str, leaf):
+        if "table" in path:
+            return ("model", None)  # row-sharded embedding tables
+        if "_w" in path:
+            return (None, "model")
+        return (None,)
+
+    return rule
 
 
 def init_params(cfg: TwoTowerConfig, generator: torch.Generator, device=None) -> dict:

@@ -26,6 +26,8 @@ from repro_torch.kernels.block_gather import ops as bg_ops
 from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
 from repro_torch.utils import PROP_MISSING
 from test_kernels import _PRED_CASES
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 ROWS, LANES, THREADS = 16, 4, 256  # the kernel's kRows, kLanes, kThreads
 NAMES = ("leaf", "scan", "emask", "qual", "trunc")

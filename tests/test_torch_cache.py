@@ -15,6 +15,8 @@ import repro.core.cache as J
 import repro_torch.core.cache as T
 from repro_torch import interop
 from repro_torch.utils import SyncCount
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 MISSING = -(2**31) + 1
 

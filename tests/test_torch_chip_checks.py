@@ -8,11 +8,14 @@ the kernels' tilings: 64-key tiles (fp32 SIMT), and 128-row CTAs of two
 64-row warpgroups over 128-key tiles (bf16 tensor cores).
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 S, H, KV, DH = 256, 2, 1, 64
 
@@ -351,3 +354,120 @@ def test_embedding_bag_backward_passes_are_read_from_the_profile():
     assert passes == {"bounds": dict(launches=1.0, device_ms=0.05),
                       "chunks": dict(launches=1.0, device_ms=0.1),
                       "rows": dict(launches=1.0, device_ms=3.8)}
+
+
+# ---------------------------------------------------------------- phase 18
+def test_alloc_matches_rounds_each_tensor_and_allows_a_large_blocks_tail():
+    """A build's requested bytes equal its tensors'; the bytes held lie
+    between each tensor rounded up to 512 bytes and that plus 1 MiB for
+    each tensor over 1 MiB (a large block's unsplit tail)."""
+    sizes = [100, 512, 3 * 2**20 + 5]
+    lo = 512 + 512 + (3 * 2**20 + 512)
+    req = sum(sizes)
+    assert cs.alloc_matches(lo, req, sizes) and cs.alloc_matches(lo + 2**20, req, sizes)
+    assert not cs.alloc_matches(lo - 512, req, sizes)
+    assert not cs.alloc_matches(lo + 2**20 + 512, req, sizes)
+    assert not cs.alloc_matches(lo, req + 1, sizes)
+    assert cs.alloc_matches(1024, 612, [100, 512]) and not cs.alloc_matches(1536, 612, [100, 512])
+
+
+def test_output_leaves_walks_a_steps_output():
+    from repro_torch.lm.model import KVCache
+
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt)
+    out = (z(2, 1, dt=torch.int32), KVCache(z(3, 4), z(3, 4)), {"loss": z(), "a": z(5)}, None, 7)
+    assert cs.output_leaves(out) == [((2, 1), "torch.int32"), ((3, 4), "torch.float32"),
+                                     ((3, 4), "torch.float32"), ((5,), "torch.float32"),
+                                     ((), "torch.float32")]
+
+
+def test_one_hop_sets_keep_edges_and_leaves_of_the_served_values():
+    dst = np.array([[5, 6, 7], [8, 8, 9]])
+    eprop = np.array([[1, 0, 1], [1, 1, 1]])
+    vprop = np.array([[0, 0, 1], [0, 0, 1]])
+    assert cs.one_hop_sets([0, 1], dst, eprop, vprop, edge_val=1, leaf_val=0) == [{5}, {8}]
+
+
+def test_meta_cell_outputs_are_those_of_a_real_run():
+    """The meta run's output leaves, held against the card's in phase 18,
+    are those of the same cut cell run for real (here on the CPU), and its
+    distinct tensors' bytes are the dry-run's argument bytes less none."""
+    from repro_torch.configs import glm4_9b
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell
+
+    kw = dict(cfg=glm4_9b.SMOKE, info=dict(seq_len=16, global_batch=2))
+    want, sizes, out = cs.meta_cell("glm4-9b", "prefill_32k", make_debug_mesh(), **kw)
+    step, _, args = build_cell("glm4-9b", "prefill_32k", make_debug_mesh(), device="cpu",
+                               generator=torch.Generator().manual_seed(0), **kw)
+    assert out == cs.output_leaves(step(*args))
+    assert want == sum(sizes) == sum(t.numel() * t.element_size() for t in
+                                     [*args[0]["layers"].values(), args[1],
+                                      *(v for k, v in args[0].items() if k != "layers")])
+
+
+class _FakeLM:
+    def __init__(self, fn):
+        self.flash_attention = fn
+
+
+@pytest.mark.parametrize("fault", [None, "first band", "last band"])
+def test_flash_band_check_holds_both_bands(monkeypatch, fault):
+    """Phase 18's per-call check of the GLM4-9B prefill: the first and the
+    last GLM_BAND query rows of every call against the plain version over
+    those rows; a wrong row in either band fails it."""
+    def kernel(q, k, v, **kw):
+        out = flash_attention_ref(q, k, v, **kw).clone()
+        if fault == "first band":
+            out[:, 3] = out[:, 3] + 0.5
+        elif fault == "last band":
+            out[:, -2] = -out[:, -2]
+        return out
+
+    q, k, v = (t.float() for t in _inputs(5))
+    with cs.FlashBandCheck(_FakeLM(kernel)) as chk:
+        if fault is None:
+            chk.mod.flash_attention(q, k, v, causal=True, window=None)
+            assert chk.calls == 1 and chk.worst < 1e-6 and chk.last[0] is q
+        else:
+            with pytest.raises(AssertionError, match="differ from the plain version"):
+                chk.mod.flash_attention(q, k, v, causal=True, window=None)
+
+
+@pytest.mark.parametrize("fault", [None, "row"])
+def test_spmm_check_holds_every_slice_of_rows(monkeypatch, fault):
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.segment_spmm import ops as ss_ops
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    g = torch.Generator().manual_seed(3)
+    n, E = 50, 300
+    src, dst = torch.randint(0, n, (E,), generator=g), torch.randint(0, n, (E,), generator=g)
+    csr = ss_ops.prepare_edges(src, dst, n, n)
+    x = torch.randn(n, 4, generator=g)
+
+    def csr_sum(x_, csr_, backward=False):
+        out = ss_ops.csr_sum(x_, csr_)
+        if fault:
+            out[37, 1] += 1e-3
+        return out
+
+    fake = SimpleNamespace(csr_sum=csr_sum)
+    with cs.SpmmCheck(fake, slices=7) as chk:
+        if fault is None:
+            fake.csr_sum(x, csr)
+            assert chk.calls == 1 and chk.largest[0] == (n, 4) and chk.err < 1e-6
+        else:
+            with pytest.raises(AssertionError, match="rows 32..39 "):
+                fake.csr_sum(x, csr)
+    assert fake.csr_sum is csr_sum
+
+
+def test_dryrun_line_prints_a_record():
+    rec = dict(arch="glm4-9b", shape="train_4k", mesh="pod", fits_card=True, traced=True,
+               memory=dict(argument_bytes=3 * 2**29), cost=dict(flops_global=8.16e16))
+    assert cs.dryrun_line(rec) == ("dryrun glm4-9b train_4k pod: 1.500 GiB/device "
+                                   "fits_card=True traced=True tflop=81600.000")
+    rec.update(traced=False, cost=dict(flops_global=None))
+    assert cs.dryrun_line(rec).endswith("traced=False tflop=-")

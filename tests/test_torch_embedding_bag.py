@@ -17,6 +17,8 @@ from repro.recsys.embedding import embedding_bag as j_bag, embedding_bag_flat as
 from repro_torch.kernels.embedding_bag import ops
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.recsys.embedding import embedding_bag, embedding_bag_flat
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 J_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -26,6 +26,7 @@ import repro_torch.core as T
 from repro_torch import interop
 from repro_torch.core.population import CachePopulator as TPopulator
 from repro_torch.graphstore import make_mutation_batch as t_batch
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 
 def to_np(x):
@@ -54,9 +55,13 @@ class Both:
         self.tstore = interop.store_from_numpy(to_np(jstore), device="cpu")
         self.tcache = T.empty_cache(self.tspec.cache, device="cpu")
         self.jpop = JPopulator(self.jspec, TPL_META)
+        # its jitted CP steps, shared by every world of one spec: each
+        # compiles once a worker process, not once a test
+        self.jpop._jitted = self._jpop_steps.setdefault(self.jspec, {})
         self.tpop = TPopulator(self.tspec, TPL_META, device="cpu")
 
     _engines: dict = {}  # JAX engines jit once per (espec, plan); reuse them
+    _jpop_steps: dict = {}  # the JAX populator's steps by espec
 
     def run(self, plan, roots, fused=True, use_cache=True):
         roots = np.asarray(roots, np.int32)

@@ -62,15 +62,7 @@ from repro_torch.graphstore.partition import splice_owner_blocks
 from repro_torch.kernels.block_gather import ops as bg_ops
 from test_torch_partitioned_grw import tree_equal
 from test_torch_sharded import miss_key, to_np
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 
 # ------------------------------------------------------------ fault primitives

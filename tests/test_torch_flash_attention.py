@@ -22,6 +22,8 @@ from repro.lm.attention import decode_attention as j_decode, flash_attention as 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.lm.attention import decode_attention
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 J_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

@@ -26,6 +26,8 @@ from repro_torch.gnn.layers import mlp, pna_layer as t_pna_layer
 from repro_torch.gnn.models import forward as t_forward, init_params, loss_fn as t_loss
 from test_torch_cache import assert_cache_same
 from test_torch_engine import to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 # the reference under jit (configs static): the same arrays as its eager
 # call, at a fraction of the CPU time of compiling every op on its own

@@ -23,6 +23,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import torch
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 LOSS_TOL = 1e-4

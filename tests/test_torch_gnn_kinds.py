@@ -34,20 +34,11 @@ from repro_torch.gnn import models as TGM
 from repro_torch.kernels.segment_spmm import ops as ss_ops
 from repro_torch.optim import adamw, chain, clip_by_global_norm
 from repro_torch.optim.adamw import value_and_grad
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 TOL = 1e-4
 LR = 1e-2
 ARCHS = {"gat": "gat-cora", "egnn": "egnn", "nequip": "nequip"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(kind, cfg, seed=3, N=48, E=160, n_graphs=4, self_loops=False):

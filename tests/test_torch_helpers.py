@@ -11,6 +11,8 @@ import torch
 
 import repro.utils as J
 import repro_torch.utils as T
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 

@@ -16,6 +16,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -190,3 +192,27 @@ def test_failover_serve_flags_parse_as_the_reference(flags):
     assert {k: getattr(args, k) for k in want} == want
     with pytest.raises(SystemExit):
         serve.parse_args(["--inject-crash", "1:3", "--no-journal"])
+
+
+@pytest.mark.parametrize("module", ["launch/steps.py", "launch/dryrun.py", "launch/mesh.py",
+                                    "distributed/sharding.py", "lm/model.py",
+                                    "recsys/twotower.py"])
+def test_the_dryrun_twins_are_checked(module):
+    """The twins of the dry-run's reference modules (slice 18: the steps,
+    the dry-run, the mesh shapes, the spec helpers and the models' spec
+    rules) are among the files the import check walks."""
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES and (ROOT / "src" / "repro" / module).exists()
+
+
+def test_the_dryrun_holds_cells_against_cuda_by_default(monkeypatch, tmp_path):
+    """``python -m repro_torch.launch.dryrun`` holds the cells against the
+    card unless ``--device`` names another device, and raises where there
+    is none, before it builds a cell."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "build_cell", lambda *a, **k: pytest.fail("built a cell"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--arch", "pna", "--out", str(tmp_path)])
+    assert not any(tmp_path.iterdir())

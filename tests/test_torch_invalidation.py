@@ -17,6 +17,7 @@ import repro_torch.core as T
 from repro_torch.core.invalidation import invalidate_write_around as t_invalidate
 from repro_torch.graphstore import apply_mutations as t_apply, make_mutation_batch as t_batch
 from test_torch_engine import Both
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 
 def _random_commit(rng, nv, e_len):

@@ -39,6 +39,8 @@ from repro_torch.graphstore import partition as TP
 from repro_torch.graphstore.maintenance import DeviceGate
 from test_torch_partitioned_grw import tree_equal
 from test_torch_sharded import to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 SPEC, _ = build_world()
 TSPEC = interop.store_spec(tuple(SPEC))

@@ -19,6 +19,7 @@ from repro_torch.kernels.cache_probe import ops as t_probe_ops
 from repro_torch.kernels.cache_probe.ref import cache_probe_ref
 from repro_torch.kernels.onehop_gather import ops as t_gather_ops
 from repro_torch.kernels.onehop_gather.ref import onehop_gather_ref
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 
 def _probe_world(C, B, probes, seed=2):

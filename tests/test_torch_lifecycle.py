@@ -24,6 +24,7 @@ from repro_torch.core.keys import key_fingerprint, key_slot_hash
 from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator, TemplateState
 from repro_torch.core.oracle import HostStore, onehop_oracle
 from test_torch_engine import to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 
 @pytest.mark.parametrize("seed", [0, 2])

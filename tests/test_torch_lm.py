@@ -20,6 +20,8 @@ from repro.lm import model as JM
 from repro_torch import interop
 from repro_torch.configs import lm_shapes, yi_6b as t_yi
 from repro_torch.lm import LMConfig, model as TM
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 TOL = 1e-4
 S, B, N_DECODE = 16, 2, 3

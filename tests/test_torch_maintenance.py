@@ -36,16 +36,8 @@ from repro_torch.graphstore import partition as TP
 from test_partitioned_store import _PS_AX, _restack
 from test_torch_partitioned_grw import _MUTATIONS, tree_equal
 from test_torch_sharded import miss_key, to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 N = 4
 # the gated commit's batch: appends, deletes (one of an edge appended by

@@ -62,18 +62,9 @@ from repro_torch.graphstore import BlockCapacityError, WriteBehindJournal, make_
     replay
 from test_torch_partitioned_grw import tree_equal
 from test_torch_sharded import miss_key, to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 N = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _j_pstore(d):

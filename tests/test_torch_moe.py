@@ -25,19 +25,10 @@ from repro_torch import configs as t_configs, interop
 from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.lm import LMConfig, layers as TL, model as TM
 from repro_torch.optim.adamw import value_and_grad
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 TOL = 1e-5
 MODEL_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(seed, N, D, E, F, tie=False):

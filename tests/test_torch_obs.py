@@ -19,6 +19,8 @@ import repro_torch.obs.metrics as port_metrics
 import repro_torch.obs.schema as port_schema
 import repro_torch.obs.telemetry as port_tel
 import repro_torch.obs.validate as port_validate
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 PACKAGES = {"reference": (ref_hist, ref_metrics, ref_schema, ref_tel, ref_validate),
             "port": (port_hist, port_metrics, port_schema, port_tel, port_validate)}

@@ -22,22 +22,13 @@ from repro_torch import interop
 from repro_torch.checkpoint.ckpt import tree_leaves
 from repro_torch.optim import (adamw, chain, clip_by_global_norm, cosine_schedule,
                                int8_compress_grads)
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 # the modules (the packages export their functions under the same names)
 j_adamw_mod = importlib.import_module("repro.optim.adamw")
 t_adamw_mod = importlib.import_module("repro_torch.optim.adamw")
 
 TOL = 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree(rng, dtype=np.float32):

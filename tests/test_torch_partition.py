@@ -35,6 +35,8 @@ from repro_torch.graphstore import partition as TP
 from repro_torch.kernels.block_gather import ops as bg_ops
 from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
 from test_kernels import _PRED_CASES, _block_gather_world
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 N = 4
 

@@ -42,6 +42,8 @@ from repro_torch.graphstore import apply_mutations as t_apply, make_mutation_bat
 from repro_torch.graphstore import partition as TP
 from test_partitioned_store import _PS_AX, _restack
 from test_torch_sharded import miss_key, to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 N = 4
 # every section type, on the rows and edges the world has

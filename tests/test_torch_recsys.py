@@ -20,6 +20,8 @@ from repro.recsys import twotower as JT
 from repro_torch import interop
 from repro_torch.configs import two_tower_retrieval as t_cfgs
 from repro_torch.recsys import twotower as TT
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 TOL = 1e-5
 CFG = t_cfgs.SMOKE

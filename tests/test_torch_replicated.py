@@ -22,7 +22,6 @@ the JAX package in process (its single host; no JAX mesh subprocess):
 
 import numpy as np
 import pytest
-import torch
 
 import repro.core as J
 from conftest import TPL_META, build_world, common_watchlist_plan, enabled_ttable, fig1_plan
@@ -43,6 +42,7 @@ from repro_torch.graphstore import make_mutation_batch as t_batch
 from repro_torch.graphstore.mutations import shard_mutation_rows as t_shard_rows
 from repro_torch.kernels.block_gather import ops as bg_ops
 from test_torch_sharded import SHARDED_ONLY, miss_key, to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 PLANS = {"in_out": common_watchlist_plan(), "fig1": fig1_plan()}
 # each plan's roots: listings and watch-lists for the two-hop plan from
@@ -62,16 +62,6 @@ _COMMIT = dict(set_vprops=[(7, 0, 1), (8, 0, 0)], del_edges=[2], new_edges=[(0, 
                del_vertices=[9])
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def rw():
     """The ``conftest`` world in both packages, and the JAX single host's
@@ -87,7 +77,7 @@ def rw():
         tttable=interop.ttable_from_numpy(to_np(jttable)),
         tplans={k: interop.plan_from_numpy(to_np(p)) for k, p in PLANS.items()},
         engines={k: J.GraphEngine(jspec, p, True, fused=True) for k, p in PLANS.items()},
-        jpop=JPopulator(jspec, TPL_META), single={},
+        jpop=JPopulator(jspec, TPL_META), single={}, derived={},
     )
 
 
@@ -142,7 +132,10 @@ def test_op_stream_order_keys_are_global(rw, n):
         assert _op_set(tops) == _op_set(jops), (off, stride)
         return _op_set(tops)
 
-    full = both(ja, ta, 0, 1)
+    # the unsliced set does not depend on n: derived once for the module
+    if "unsliced" not in rw["derived"]:
+        rw["derived"]["unsliced"] = both(ja, ta, 0, 1)
+    full = rw["derived"]["unsliced"]
     sharded = set()
     for me in range(n):
         part = both(j_shard_rows(ja, n, me), t_shard_rows(ta, n, me), me, n)

@@ -41,18 +41,9 @@ from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_me
 from repro_torch.graphstore import make_mutation_batch
 from repro_torch.kernels.block_gather import ops as bg_ops
 from test_torch_sharded import SHARDED_ONLY, miss_key, to_np
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 N = 8  # the table cases' owners, as the reference's
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ table

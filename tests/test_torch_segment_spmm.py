@@ -18,6 +18,8 @@ from repro.kernels.segment_spmm.ops import segment_spmm as j_segment_spmm
 from repro.kernels.segment_spmm.ref import segment_spmm_ref as j_segment_spmm_ref
 from repro_torch.kernels.segment_spmm import ops
 from repro_torch.kernels.segment_spmm.ref import segment_spmm_csr_ref, segment_spmm_ref
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-1}
 J_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

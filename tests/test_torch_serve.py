@@ -46,6 +46,7 @@ from repro_torch.launch import serve
 from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
 from repro_torch.obs.telemetry import ServeTelemetry
 from repro_torch.obs.validate import validate_file
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 BASE = ["--shards", "4", "--batches", "6", "--batch", "16", "--vertices", "256",
@@ -69,16 +70,6 @@ FAILOVER_KEYS = ("unavailable_batches", "degraded_batches", "deferred_rows",
 COLUMN_SUMS = {"probe_hits": "hits", "miss_rows": "misses", "edges_scanned": "edges_scanned",
                "leaf_fetches": "leaf_fetches", "route_overflow": "route_overflow",
                "deferred_rows": "deferred"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,8 @@ from repro_torch.distributed import (
     flat_mesh,
 )
 from repro_torch.kernels.block_gather import ops as bg_ops
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 PLANS = {
     "in_out": common_watchlist_plan(),

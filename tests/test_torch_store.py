@@ -22,6 +22,7 @@ from repro_torch.graphstore import (
 )
 from repro_torch.graphstore.store import _gather
 from repro_torch.graphstore.txn import conflicts
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 
 def to_np(x):

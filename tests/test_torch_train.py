@@ -39,6 +39,7 @@ from repro_torch.launch import train as t_train
 from repro_torch.lm import LMConfig, model as TM
 from repro_torch.optim import adamw, chain, clip_by_global_norm
 from repro_torch.optim.adamw import value_and_grad
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 LR = 1e-2
 B, S = 2, 32
@@ -49,16 +50,6 @@ CONFIGS = {
 }
 # dtype: (loss relative, gradient tolerance, parameters after the step)
 TOLS = {"float32": (1e-5, 1e-4, LR * 1e-2), "bfloat16": (1e-2, 5e-2, 2 * LR)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port_cfg(jcfg):

@@ -42,18 +42,9 @@ from repro_torch.kernels.segment_spmm import ops as ss_ops
 from repro_torch.optim import adamw, chain, clip_by_global_norm
 from repro_torch.optim.adamw import value_and_grad
 from test_torch_gnn import _batch, _both, _params
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _close(got, want, tol=TOL):

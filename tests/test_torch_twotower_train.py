@@ -37,20 +37,11 @@ from repro_torch.optim import adamw, chain, clip_by_global_norm
 from repro_torch.optim.adamw import value_and_grad
 from repro_torch.recsys import twotower as TT
 from repro_torch.recsys.config import TwoTowerConfig
+from test_torch_fixtures import _torch_test_env  # noqa: F401
 
 BWD_TOL = 1e-6
 TOL = 1e-5
 LR = 1e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's tiny tensors: a pool's spin
-    waits slow them many times over when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _bags(seed, B, K, V):

@@ -26,6 +26,8 @@ from repro_torch.graphstore import apply_mutations as t_apply, make_mutation_bat
 from repro_torch.utils import SyncCount
 from test_torch_engine import Both, to_np
 from test_torch_invalidation import _populate_all, _random_commit
+from test_torch_fixtures import _torch_test_env  # noqa: F401
+
 
 _j_write_through = jax.jit(JI.write_through_update, static_argnums=0)
 _j_apply_stream = jax.jit(JI.apply_op_stream, static_argnums=0)
@@ -119,8 +121,11 @@ _VALUE_ROW_CASES = [
 ]
 
 
-@pytest.mark.parametrize("entry,op,leaf", _VALUE_ROW_CASES)
-def test_value_row_corner_cases(entry, op, leaf):
+@pytest.fixture(scope="module")
+def value_row_world():
+    """Three entries inserted in both packages (full single-chunk, two
+    chunks, partial), shared by the corner cases: (world, JAX cache, port
+    cache, leaves, params)."""
     w = Both()
     L = w.tspec.cache.max_leaves
     M = -(2**31) + 1
@@ -135,6 +140,12 @@ def test_value_row_corner_cases(entry, op, leaf):
     jc = J.cache_insert(w.jspec.cache, w.jcache, *args)
     tc = T.cache_insert(w.tspec.cache, w.tcache, *(torch.as_tensor(np.ascontiguousarray(a))
                                                    for a in args))
+    return w, jc, tc, leaves, params
+
+
+@pytest.mark.parametrize("entry,op,leaf", _VALUE_ROW_CASES)
+def test_value_row_corner_cases(value_row_world, entry, op, leaf):
+    w, jc, tc, leaves, params = value_row_world
     _cache_equal(tc, jc, "insert")
     row = {"full": 0, "multi": 1, "partial": 2, "missing": 3, "masked": 2}[entry]
     root = row
