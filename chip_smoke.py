@@ -269,6 +269,25 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    drain, ``serve_peak`` warm and ``serve_nocache``, every row equal to a
    numpy one-hop reference, ``serve_nocache``'s to ``serve_peak``'s, every
    ``cache_probe`` / ``block_gather`` call to its plain version.
+19. the eCommerce example and the partitioned runtime's options, right
+   after 15: (a) ``examples/serve_ecommerce_torch.py``'s loop over phase
+   3's world (imported from ``repro_torch.workload``, as every phase's
+   schema, templates, plans and writes are), 300 operations of each of the
+   R-hat / W-hat / R-low mixes at 8 roots a query, per mix p50 / p95 / p99
+   ms a query, hit rate, seed and wall time, every ``cache_probe`` call
+   equal to its plain version and phase 6's check on the final state; (b)
+   ``route_cap_factor="auto"``: a Zipf batch of each plan on phase 7's 4
+   owners equal to the default runtime's with no retry, then a batch of
+   512 watch-lists all owned by owner 0 of 8 (at 4 owners the default
+   factor 4 is the worst case, so nothing can overflow there) retried
+   once with worst-case caps and equal to ``route_cap_factor=None`` and the
+   single host, the ratcheted factor, the same batch unretried, both
+   batches' wall times; (c) ``fused_gather=False`` on phase 7's store, 4
+   Zipf batches on a cold cache equal to the fused runtime's, no
+   ``block_gather`` launch, both p50s; (d), inside 14 after its replay:
+   ``compact_store(native_only=True)`` on the migrated store, the migrated
+   roots' one-hop reads equal to those before it. Every kernel call of (b)
+   and (c) equals its plain version.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -277,7 +296,7 @@ later windows, so each window opens with spin kernels that take that loss
 and reports any kernel it still dropped; a device time is taken only from a
 window that dropped none. Each phase
 prints its peak device memory; each phase's world is freed before the next.
-Phase 11 runs right after 7, on its store, then 12, 13, 14 and 15, before 9;
+Phase 11 runs right after 7, on its store, then 12, 13, 14, 15 and 19, before 9;
 16 runs after 10, and its part (d) after 8; then 17 and 18.
 
 Any failure raises (non-zero exit). The last stdout line is the device
@@ -301,19 +320,19 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.workload import (  # noqa: E402  (the checkout's src, put on the path above)
+    E_INCLUDES, L_LISTING, L_USER, L_WATCHLIST, MISSING, MIXES, P_ISACTIVE, P_LAST_SEEN,
+    P_LISTING_ID, P_STATUS, TPL_META, WRITE_MIX, build_scaled_world, draw_write,
+    query_plans, serving_lifecycle, zipf_picks,
+)
+
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; non-tensor fp32 ops/s,
 # used as the operations bound for the kernels' integer compares
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 BF16_TENSOR_FLOPS = 989e12  # dense bf16 tensor-core peak: the attention bound
 
-MISSING = -(2**31) + 1
-L_USER, L_WATCHLIST, L_LISTING = 2, 0, 1
-E_INCLUDES, E_OWNS, E_SOLD_BY = 0, 1, 2
-P_STATUS, P_LISTING_ID, P_LAST_SEEN = 0, 1, 2
-P_ISACTIVE = 0
-WRITE_MIX = [("upsert", 0.4485), ("last_seen", 0.4394), ("del_edges", 0.1122)]
-MIXES = [("R_hat", 0.99), ("W_hat", 0.62)]
+TRAFFIC_MIXES = [(m, MIXES[m]["read_frac"]) for m in ("R_hat", "W_hat")]  # phase 4's mixes
 N_OPS = 100  # operations per traffic mix
 BATCH = 512  # Zipf roots per gR batch
 SCALE = 1600  # multiple of benchmarks/workload.py's default world size
@@ -325,148 +344,6 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-# ------------------------------------------------------------------ world
-def build_world(rng, device, scale, max_deg=64):
-    """The eCommerce schema of ``benchmarks/workload.py`` at ``scale`` times
-    its default counts: users own watch-lists, watch-lists include listings
-    (IsActive), listings are sold by users. Vectorised numpy from ``rng``."""
-    from repro_torch.core import CacheSpec, EngineSpec
-    from repro_torch.graphstore import StoreSpec, ingest
-
-    n_users, n_wl, n_list = 200 * scale, 300 * scale, 2000 * scale
-    nv = n_users + n_wl + n_list
-    u0, w0, l0 = 0, n_users, n_users + n_wl
-    vlabels = np.concatenate([np.full(n_users, L_USER), np.full(n_wl, L_WATCHLIST),
-                              np.full(n_list, L_LISTING)]).astype(np.int32)
-    vprops = np.full((nv, 3), MISSING, np.int32)
-    vprops[l0:, P_STATUS] = rng.integers(0, 2, n_list)
-    vprops[l0:, P_LISTING_ID] = 10_000 + np.arange(n_list)
-    vprops[:, P_LAST_SEEN] = 0
-    wl = np.arange(w0, w0 + n_wl, dtype=np.int64)
-    # owns: each watch-list owned by a user
-    own_src = rng.integers(u0, u0 + n_users, n_wl)
-    # includes: Zipf(1.4) watch-list sizes, capped; no duplicate pairs
-    sizes = np.minimum((rng.zipf(1.4, n_wl) * 12 // 3 + 2), max_deg - 8)
-    inc_src = np.repeat(wl, sizes)
-    inc_dst = l0 + rng.integers(0, n_list, len(inc_src))
-    _, first = np.unique(inc_src * n_list + (inc_dst - l0), return_index=True)
-    keep = np.sort(first)
-    inc_src, inc_dst = inc_src[keep], inc_dst[keep]
-    inc_act = rng.integers(0, 2, len(inc_src))
-    # sold_by: each listing sold by one user
-    sold_dst = rng.integers(u0, u0 + n_users, n_list)
-    esrc = np.concatenate([own_src, inc_src, np.arange(l0, nv)])
-    edst = np.concatenate([wl, inc_dst, sold_dst])
-    elab = np.concatenate([np.full(n_wl, E_OWNS), np.full(len(inc_src), E_INCLUDES),
-                           np.full(n_list, E_SOLD_BY)])
-    eprops = np.concatenate([np.full(n_wl, MISSING), inc_act, np.full(n_list, MISSING)])
-    # the FULL config's 8 edge slots per vertex; at scale 1600 this is
-    # v_cap 2^22, e_cap 2^25 and a 2^18-slot cache (2^26 slots / 256 chips)
-    v_cap = 1 << (nv + 512).bit_length()
-    spec = StoreSpec(v_cap=v_cap, e_cap=8 * v_cap, n_vprops=3, n_eprops=1, recent_cap=1024)
-    assert nv <= spec.v_cap and len(esrc) <= spec.e_cap
-    store = ingest(spec, vlabels, vprops, esrc, edst, elab, eprops[:, None], device=device)
-    cap = max(1 << 12, 1 << ((1 << 18) * scale // 1600).bit_length() - 1)
-    cspec = CacheSpec(capacity=cap, probes=8, max_leaves=32, max_chunks=2)
-    espec = EngineSpec(store=spec, cache=cspec, max_deg=max_deg, frontier=32)
-    includes = n_wl + np.arange(len(inc_src))  # edge slots of the includes edges
-    ranges = {L_USER: (u0, w0), L_WATCHLIST: (w0, l0), L_LISTING: (l0, nv)}
-    return espec, store, ranges, includes, len(esrc)
-
-
-def templates_and_plans():
-    """The six templates, six query plans and weights of the workload."""
-    from repro_torch.core import (
-        ANY_LABEL, DIR_IN, DIR_OUT, FINAL_COUNT, FINAL_IDS, FINAL_VALUES, OP_EQ,
-        WILDCARD, Hop, QueryPlan, Template, make_pred,
-    )
-
-    T = [
-        Template("SQ1", DIR_OUT, (L_WATCHLIST, []), (ANY_LABEL, [(P_ISACTIVE, OP_EQ, WILDCARD)]),
-                 (L_LISTING, [(P_STATUS, OP_EQ, WILDCARD)]), edge_label=E_INCLUDES),
-        Template("SQ2", DIR_IN, (L_LISTING, []), (ANY_LABEL, [(P_ISACTIVE, OP_EQ, WILDCARD)]),
-                 (L_WATCHLIST, []), edge_label=E_INCLUDES),
-        Template("SQ3", DIR_OUT, (L_USER, []), (ANY_LABEL, []), (L_WATCHLIST, []), edge_label=E_OWNS),
-        Template("SQ4", DIR_IN, (L_WATCHLIST, []), (ANY_LABEL, []), (L_USER, []), edge_label=E_OWNS),
-        Template("SQ5", DIR_OUT, (L_LISTING, []), (ANY_LABEL, []), (L_USER, []), edge_label=E_SOLD_BY),
-        Template("SQ6", DIR_IN, (L_USER, []), (ANY_LABEL, []),
-                 (L_LISTING, [(P_STATUS, OP_EQ, WILDCARD)]), edge_label=E_SOLD_BY),
-    ]
-    meta = {0: (DIR_OUT, E_INCLUDES), 1: (DIR_IN, E_INCLUDES), 2: (DIR_OUT, E_OWNS),
-            3: (DIR_IN, E_OWNS), 4: (DIR_OUT, E_SOLD_BY), 5: (DIR_IN, E_SOLD_BY)}
-
-    def params(*pairs):
-        p = np.full(6, MISSING, np.int32)
-        for i, v in pairs:
-            p[i] = v
-        return p
-
-    sq1 = Hop(DIR_OUT, E_INCLUDES, make_pred(L_WATCHLIST, []),
-              make_pred(ANY_LABEL, [(P_ISACTIVE, OP_EQ, WILDCARD)]),
-              make_pred(L_LISTING, [(P_STATUS, OP_EQ, WILDCARD)]), 0, params((0, 1), (3, 0)))
-    sq2 = Hop(DIR_IN, E_INCLUDES, make_pred(L_LISTING, []),
-              make_pred(ANY_LABEL, [(P_ISACTIVE, OP_EQ, WILDCARD)]),
-              make_pred(L_WATCHLIST, []), 1, params((0, 1)))
-    sq3 = Hop(DIR_OUT, E_OWNS, make_pred(L_USER, []), make_pred(ANY_LABEL, []),
-              make_pred(L_WATCHLIST, []), 2, params())
-    sq5 = Hop(DIR_OUT, E_SOLD_BY, make_pred(L_LISTING, []), make_pred(ANY_LABEL, []),
-              make_pred(L_USER, []), 4, params())
-    sq6 = Hop(DIR_IN, E_SOLD_BY, make_pred(L_USER, []), make_pred(ANY_LABEL, []),
-              make_pred(L_LISTING, [(P_STATUS, OP_EQ, WILDCARD)]), 5, params((3, 0)))
-    agg = Hop(DIR_OUT, E_INCLUDES, make_pred(L_WATCHLIST, []), make_pred(ANY_LABEL, []),
-              make_pred(L_LISTING, []), -1, params())
-    plans = [
-        ("q_fig1", QueryPlan((sq1,), FINAL_IDS), L_WATCHLIST, 0.30),
-        ("q_common", QueryPlan((sq2, sq1), FINAL_IDS, post_filter=("prop_neq_root", P_LISTING_ID)),
-         L_LISTING, 0.18),
-        ("q_user", QueryPlan((sq3, sq1), FINAL_IDS), L_USER, 0.14),
-        ("q_sellers", QueryPlan((sq3, sq1, sq5, sq6), FINAL_IDS), L_USER, 0.10),
-        ("q_values", QueryPlan((sq1,), FINAL_VALUES, final_prop=P_LISTING_ID), L_WATCHLIST, 0.14),
-        ("q_agg", QueryPlan((agg,), FINAL_COUNT, extra_phases=2), L_WATCHLIST, 0.14),
-    ]
-    return T, meta, plans
-
-
-def serving_ttable(templates):
-    """The template table with every template registered and enabled for
-    reads and writes through one query processor (the safe lifecycle)."""
-    from repro_torch.core import make_template_table
-    from repro_torch.core.lifecycle import GraphQP, ServiceCoordinator
-
-    qp = GraphQP("qp0")
-    sc = ServiceCoordinator([qp])
-    for t in range(len(templates)):
-        sc.register(t)
-        sc.enable(t)
-    assert sc.check_safety()
-    return qp.ttable_masks(make_template_table(templates), len(templates))
-
-
-def zipf_pick(rng, lo, hi, n, a=1.3):
-    return (lo + np.minimum(rng.zipf(a, n) - 1, hi - lo - 1)).astype(np.int32)
-
-
-def make_write(rng, espec, ranges, includes, kind, device):
-    """One gRW batch of the workload's write mix (None = predicate no-op)."""
-    from repro_torch.graphstore import make_mutation_batch
-
-    spec = espec.store
-    if kind == "upsert":
-        if rng.random() < 0.3:
-            return None
-        listing = int(zipf_pick(rng, *ranges[L_LISTING], 1)[0])
-        wl = int(zipf_pick(rng, *ranges[L_WATCHLIST], 1)[0])
-        return make_mutation_batch(
-            spec, set_vprops=[(listing, P_STATUS, int(rng.integers(0, 2)))],
-            new_edges=[(wl, listing, E_INCLUDES, [int(rng.integers(0, 2))])], device=device)
-    if kind == "last_seen":
-        v = int(zipf_pick(rng, *ranges[L_LISTING], 1)[0])
-        return make_mutation_batch(
-            spec, set_vprops=[(v, P_LAST_SEEN, int(rng.integers(1, 1 << 30)))], device=device)
-    eids = rng.choice(includes, size=int(rng.integers(1, 4)), replace=False)
-    return make_mutation_batch(spec, del_edges=[int(e) for e in eids], device=device)
 
 
 def tensor_bytes(state) -> int:
@@ -584,13 +461,13 @@ def run_traffic(seed, espec, state, ttable, plans, meta, ranges, includes, dev):
     # warm-up: one small batch per plan, outside the measured mixes
     wrng = np.random.default_rng(seed + 99)
     for name, plan, label, _ in plans:
-        _, misses, _ = engines[name].run(store, cache, ttable, zipf_pick(wrng, *ranges[label], 8))
+        _, misses, _ = engines[name].run(store, cache, ttable, zipf_picks(wrng, *ranges[label], 8))
         pop.queue.push(misses)
     cache = pop.drain(store, store, cache, ttable, 256)
     torch.cuda.synchronize()
 
     report = {}
-    for mi, (mix, read_frac) in enumerate(MIXES):
+    for mi, (mix, read_frac) in enumerate(TRAFFIC_MIXES):
         rng = np.random.default_rng(seed + 1000 * (mi + 1))
         lat, wlat, syncs = [], [], []
         hits = misses_n = 0
@@ -598,7 +475,7 @@ def run_traffic(seed, espec, state, ttable, plans, meta, ranges, includes, dev):
         for i in range(N_OPS):
             if rng.random() < read_frac:
                 name, plan, label, _ = plans[int(rng.choice(len(plans), p=weights))]
-                roots = zipf_pick(rng, *ranges[label], BATCH)
+                roots = zipf_picks(rng, *ranges[label], BATCH)
                 t0 = time.perf_counter()
                 _, misses, m = engines[name].run(store, cache, ttable, roots)
                 lat.append((time.perf_counter() - t0) * 1e3)
@@ -608,7 +485,7 @@ def run_traffic(seed, espec, state, ttable, plans, meta, ranges, includes, dev):
                 syncs.append(m["host_syncs"])
             else:
                 kind = kinds[int(rng.choice(len(kinds), p=wweights))]
-                mb = make_write(rng, espec, ranges, includes, kind, dev)
+                mb = draw_write(rng, espec.store, ranges, includes, kind, dev)
                 if mb is not None:
                     t0 = time.perf_counter()
                     store, cache, _, ovf = grw(store, cache, ttable, mb)
@@ -671,7 +548,7 @@ def profile_window(tag, seed, plans, ranges, run):
     (two of each cached read plan, ``run(name, roots)`` each)."""
     rng = np.random.default_rng(seed + 5)
     batches = [(n, label) for n, _, label, _ in plans if n != "q_agg"] * 2
-    roots = [(name, zipf_pick(rng, *ranges[label], BATCH)) for name, label in batches]
+    roots = [(name, zipf_picks(rng, *ranges[label], BATCH)) for name, label in batches]
     profiled(tag, f"{len(batches)} gR batches", lambda: [run(n, r) for n, r in roots])
 
 
@@ -812,7 +689,7 @@ def check_kernels(espec, state, plans, ranges, launches, dev, seed):
     # hop's flattened frontier (512 x 32 = 16,384 roots), each root's
     # max_chunks chunk keys in one launch, on the populated cache
     for n_roots in (512, 16384):
-        roots = zipf_pick(rng, *ranges[L_WATCHLIST], n_roots)
+        roots = zipf_picks(rng, *ranges[L_WATCHLIST], n_roots)
         a = probe_inputs(espec, cache, sq1, roots, dev)
         n_keys = a[4].shape[0]
         got = cp_ops.cache_probe(*a, probes=P)
@@ -845,7 +722,7 @@ def check_kernels(espec, state, plans, ranges, launches, dev, seed):
     dst = s.edst[perm].contiguous()
     eprop = s.eprops[perm, P_ISACTIVE].contiguous()
     vprop = s.vprops[:, P_STATUS].contiguous()
-    roots = np.concatenate([zipf_pick(rng, *ranges[L_WATCHLIST], 512), np.full(64, -1, np.int32)])
+    roots = np.concatenate([zipf_picks(rng, *ranges[L_WATCHLIST], 512), np.full(64, -1, np.int32)])
     a = (start, deg, dst, eprop, vprop, torch.as_tensor(roots, device=dev))
     kw = dict(max_deg=espec.max_deg, edge_val=1, leaf_val=0)
     got = og_ops.onehop_gather(*a, **kw)
@@ -889,7 +766,7 @@ def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed, e
     # (a) q_fig1 / q_values against a vectorised numpy one-hop reference
     for name in ("q_fig1", "q_values"):
         lo, hi = ranges[L_WATCHLIST]
-        roots = np.unique(np.concatenate([zipf_pick(rng, lo, hi, 128),
+        roots = np.unique(np.concatenate([zipf_picks(rng, lo, hi, 128),
                                           rng.integers(lo, hi, 128).astype(np.int32)]))
         res, _, m = engines[name].run(store, cache, ttable, roots)
         src, dst = h["esrc"][:e_len], h["edst"][:e_len]
@@ -918,7 +795,7 @@ def check_consistency(espec, state, ttable, plans, ranges, engines, dev, seed, e
         plain = GraphEngine(espec, plan, use_cache=False, device=dev)
         hits = explained = 0
         for _ in range(8):
-            roots = zipf_pick(rng, *ranges[label], 512)
+            roots = zipf_picks(rng, *ranges[label], 512)
             a, _, m = engines[name].run(store, cache, ttable, roots)
             b, _, _ = plain.run(store, cache, ttable, roots)
             differ = [i for i in range(len(roots)) if as_set(a[i]) != as_set(b[i])]
@@ -1036,7 +913,7 @@ def run_partitioned(seed, espec, store, ttable, plans, meta, ranges, includes, e
     cp_ops.launches = bg_ops.launches = 0
     for _ in range(P_ROUNDS):
         for name, plan, label, _ in plans:
-            roots = zipf_pick(rng, *ranges[label], BATCH)
+            roots = zipf_picks(rng, *ranges[label], BATCH)
             t = time.perf_counter()
             rh, mh, meth = engines[name].run(store, hcache, ttable, roots)
             lat_h.append((time.perf_counter() - t) * 1e3)
@@ -1307,7 +1184,7 @@ def run_partitioned_grw(seed, espec, rt, tiers, ttable, plans, ranges, includes,
                         pops, dev):
     """Phase 7's gRW rounds: one round of P_GRW_COMMITS commits per policy,
     write-around first, each opened by one untimed commit a tier whose
-    result is dropped. Each commit is one ``make_write`` batch of WRITE_MIX
+    result is dropped. Each commit is one ``draw_write`` batch of WRITE_MIX
     through ``run_grw_tx`` on the single host and on the partitioned tier,
     followed by a 512-root read batch of the next plan through both tiers
     with CP on both. The kernels' launches are counted per tier and stage
@@ -1348,7 +1225,7 @@ def run_partitioned_grw(seed, espec, rt, tiers, ttable, plans, ranges, includes,
     def write_batch():
         while True:
             kind = kinds[int(rng.choice(len(kinds), p=wweights))]
-            mb = make_write(rng, espec, ranges, hot, kind, dev)
+            mb = draw_write(rng, espec.store, ranges, hot, kind, dev)
             if mb is not None:
                 return mb
 
@@ -1371,7 +1248,7 @@ def run_partitioned_grw(seed, espec, rt, tiers, ttable, plans, ranges, includes,
         for i in range(P_GRW_COMMITS):
             mb = write_batch()
             name, plan, label = plan_cycle[i % len(plan_cycle)]
-            roots = zipf_pick(rng, *ranges[label], BATCH)
+            roots = zipf_picks(rng, *ranges[label], BATCH)
             pre = (hstore, hcache, pstore, pcache)
             last[policy] = mb
             with seg:
@@ -1933,7 +1810,7 @@ def run_durability(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inc
                                           replace=False), reverse=True)
                 eids = [int(alive_hot.pop(i)) for i in picks]
                 return make_mutation_batch(espec.store, del_edges=eids, device=dev)
-            mb = make_write(rng, espec, ranges, None, kind, dev)
+            mb = draw_write(rng, espec.store, ranges, None, kind, dev)
             if mb is not None:
                 return mb
 
@@ -1978,7 +1855,7 @@ def run_durability(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inc
         metric equal unless a root read crosses ``max_deg`` differently on
         the two stores."""
         name, plan, label = plan_cycle[i % len(plan_cycle)]
-        roots = zipf_pick(rng, *ranges[label], BATCH)
+        roots = zipf_picks(rng, *ranges[label], BATCH)
         outs = []
         with capture:
             for k, (r, s) in enumerate(zip(runtimes, stores)):
@@ -2237,7 +2114,7 @@ def run_serve(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes
     # (c) one batch with telemetry on and off, on runtimes of their own: the
     # same results, metrics (host reads included) and collectives, and no
     # block when off. It also makes the loop's first batch a warm one.
-    roots = zipf_pick(rng, *ranges[L_WATCHLIST], BATCH)
+    roots = zipf_picks(rng, *ranges[L_WATCHLIST], BATCH)
     seen = {}
     for on in (True, False):
         r = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev, telemetry=on)
@@ -2277,14 +2154,14 @@ def run_serve(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes
             marks["commit_end"] = {k: len(v) for k, v in capture.calls.items()}
             capture.__exit__(None, None, None)
         plan, label = plan_cycle[b % len(plan_cycle)]
-        return plan, zipf_pick(rng, *ranges[label], BATCH)
+        return plan, zipf_picks(rng, *ranges[label], BATCH)
 
     def next_commit(b):
         if b == 1:
             marks["commit_start"] = {k: len(v) for k, v in capture.calls.items()}
         while True:
             kind = kinds[int(rng.choice(len(kinds), p=wweights))]
-            mb = make_write(rng, espec, ranges, hot, kind, dev)
+            mb = draw_write(rng, espec.store, ranges, hot, kind, dev)
             if mb is not None:
                 commits.append(mb)
                 return mb
@@ -2518,7 +2395,7 @@ def run_failover(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inclu
     def write_batch():
         while True:
             kind = kinds[int(rng.choice(len(kinds), p=wweights))]
-            mb = make_write(rng, espec, ranges, hot, kind, dev)
+            mb = draw_write(rng, espec.store, ranges, hot, kind, dev)
             if mb is not None:
                 return mb
 
@@ -2542,7 +2419,7 @@ def run_failover(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inclu
     t_loop = time.perf_counter()
     for b in range(F_BATCHES):
         name, plan, label = plan_cycle[b % len(plan_cycle)]
-        roots = zipf_pick(rng, *ranges[label], BATCH)
+        roots = zipf_picks(rng, *ranges[label], BATCH)
         ctl.probe(b)
         # on every other degraded batch the healthy read goes first, so that
         # the order of the pair does not bias its ratio
@@ -2724,6 +2601,64 @@ def migration_write(rng, espec, hstore, mv, dev):
         del_edges=[int(own[-1])] if own.numel() else [], device=dev)
 
 
+def migrated_reads(rt, ps, roots, max_deg):
+    """Each root's one-hop reads in both orientations through the plain
+    gather at its storage owner under the runtime's table: its live lanes'
+    (leaf, label, props) in read order, -1 past them, and its truncation
+    flag."""
+    from repro_torch.distributed.routing import storage_owner_of
+    from repro_torch.graphstore.partition import BlockStoreView, local_shard
+
+    table = rt.rhost.device_table()
+    owner = storage_owner_of(table, roots, rt.n)
+    out = []
+    for s in range(rt.n):
+        view = BlockStoreView(rt.pspec, local_shard(rt.pspec, ps, s), s, rtable=table)
+        for incoming in (False, True):
+            other, mask, trunc, elabel, eprops = view.adjacency(roots[owner == s], max_deg,
+                                                                incoming=incoming)
+            v = torch.where(mask[..., None], torch.cat([other[..., None], elabel[..., None],
+                                                        eprops], -1), -1)
+            order = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices
+            out += [torch.take_along_dim(v, order[..., None], 1), trunc]
+    return out
+
+
+def run_native_only(rt, ps, max_deg):
+    """Phase 19 (d), on phase 14's migrated store ``ps``: one
+    ``compact_store(native_only=True)``. The migrated roots' one-hop reads
+    must equal those before it; the compaction without ``me`` is read too,
+    for contrast (it folds foreign rows into the CSR body)."""
+    from repro_torch.graphstore.maintenance import compact_store
+
+    roots = torch.as_tensor(sorted(rt.rhost.storage_exceptions), dtype=torch.int32,
+                            device=ps.version.device)
+    assert roots.numel(), "phase 19 (d): no vertex is away from its base owner"
+    recent = lambda p: int((p.out.blk_len - p.out.csr_len).sum() + (p.inc.blk_len
+                                                                     - p.inc.csr_len).sum())
+    before = migrated_reads(rt, ps, roots, max_deg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ps_n = compact_store(rt.pspec, ps, native_only=True)
+    torch.cuda.synchronize()
+    compact_ms = (time.perf_counter() - t) * 1e3
+    after = migrated_reads(rt, ps_n, roots, max_deg)
+    assert all(torch.equal(x, y) for x, y in zip(before, after)), \
+        "phase 19 (d): the native-only compaction changed a migrated root's reads"
+    folded = migrated_reads(rt, compact_store(rt.pspec, ps), roots, max_deg)
+    out = dict(migrated_roots=roots.numel(), compact_ms=compact_ms,
+               recent_lanes_before=recent(ps), recent_lanes_after=recent(ps_n),
+               default_compaction_reads_equal=all(torch.equal(x, y)
+                                                  for x, y in zip(before, folded)))
+    assert out["recent_lanes_after"] < out["recent_lanes_before"], out
+    print(f"migration native-only compaction (phase 19 d): {out['migrated_roots']} migrated "
+          f"roots read alike before and after compact_store(native_only=True) "
+          f"({compact_ms:.3f} ms; recent lanes {out['recent_lanes_before']} -> "
+          f"{out['recent_lanes_after']}); the default compaction's reads equal: "
+          f"{out['default_compaction_reads_equal']} | {card_line()}", flush=True)
+    return out
+
+
 def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
     """Phase 14: M_BATCHES gR batches on the phase-7 partitioned store with
     a ``RoutingTableHost`` attached and a ``MigrationEngine`` (the
@@ -2839,7 +2774,7 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
             mv = exc[int(rng.integers(0, len(exc)))]
             return migration_write(rng, espec, hstore, mv, dev), mv
         while True:
-            mb = make_write(rng, espec, ranges, hot_incl,
+            mb = draw_write(rng, espec.store, ranges, hot_incl,
                             kinds[int(rng.choice(len(kinds), p=wweights))], dev)
             if mb is not None:
                 return mb, None
@@ -2866,7 +2801,7 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
     t_loop = time.perf_counter()
     for b in range(M_BATCHES):
         name, plan, label = plan_cycle[b % len(plan_cycle)]
-        roots = zipf_pick(rng, *ranges[label], BATCH)
+        roots = zipf_picks(rng, *ranges[label], BATCH)
         pick = rng.random(BATCH) < M_HOT_FRAC
         roots = np.where(pick, hot[label][np.minimum(rng.zipf(1.2, BATCH) - 1, M_HOT - 1)],
                          roots).astype(np.int32)
@@ -2985,6 +2920,7 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
     assert rt_r.rhost is not None and rt_r.rhost.storage_exceptions == rhost.storage_exceptions
     del ps_r, rt_r
     shutil.rmtree(root)
+    native = run_native_only(rt, ps, espec.max_deg)
 
     # the post-migration block_gather call, timed beside its plain version
     a, kw = largest_after[2]
@@ -3025,6 +2961,7 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
         block_gather_post_migration=dict(bg_t, bound_ms=bg_bound, bound_by=bg_by, shape=bg_shape,
                                          nbytes=nbytes),
         serve_subprocess=dict(seconds=serve_s, routing_line=line), journal=jm,
+        native_only=native,
         seconds=time.perf_counter() - t_phase,
         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
@@ -3162,7 +3099,7 @@ def run_replicated(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inc
     # (a) the replicated tier against the single host
     for b in range(R_BATCHES):
         name, plan, label = plan_cycle[b % len(plan_cycle)]
-        roots = zipf_pick(rng, *ranges[label], BATCH)
+        roots = zipf_picks(rng, *ranges[label], BATCH)
         res, misses, m = rt_r.run_gr_tx_batch(hstore, caches["r"], ttable, plan, roots)
         batches.append((name, plan, roots, res))
         step_ms["replicated"].append(rt_r.last_step_seconds * 1e3)
@@ -3195,7 +3132,7 @@ def run_replicated(seed, espec, hstore, pstore, ttable, plans, meta, ranges, inc
 
     def write_batch():
         while True:
-            mb = make_write(rng, espec, ranges, hot,
+            mb = draw_write(rng, espec.store, ranges, hot,
                             kinds[int(rng.choice(len(kinds), p=wweights))], dev)
             if mb is not None:
                 return mb
@@ -3335,7 +3272,7 @@ def build_gnn_world(rng, device, n_vertices, max_deg=64):
                    device=device)
     cspec = CacheSpec(capacity=v_cap, probes=8, max_leaves=32, max_chunks=2)
     espec = EngineSpec(store=spec, cache=cspec, max_deg=max_deg, frontier=32)
-    ttable = serving_ttable(
+    ttable, _, _ = serving_lifecycle(
         [Template("NBR", DIR_OUT, (ANY_LABEL, []), (ANY_LABEL, []), (ANY_LABEL, []))])
     feats = rng.standard_normal((V, GNN_FEAT), dtype=np.float32)
     labels = rng.integers(0, GNN_CLASSES, V).astype(np.int32)
@@ -5383,6 +5320,249 @@ def phase_memory(tag):
     torch.cuda.reset_peak_memory_stats()
 
 
+# Phase 19: the eCommerce example's twin over phase 3's world, then the
+# partitioned runtime's options on phase 7's final store
+X_OPS = 300  # operations per mix of the example twin: ~280 reads in R-hat, so p99 is no one read
+AUTO_OWNERS = 8  # (b)'s overflow: at 4 owners the default hop-1 factor 4 is the worst case
+X_UNFUSED_BATCHES = 4  # (c): Zipf batches through each gather
+
+
+def load_example_twin():
+    """``examples/serve_ecommerce_torch.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "serve_ecommerce_torch.py")
+    spec = importlib.util.spec_from_file_location("serve_ecommerce_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_options(seed, world, hstore, pstore, plans, ranges, dev):
+    """Phase 19. (a) ``serve_mixes`` of the example twin over phase 3's
+    world (the scaled eCommerce world, cache empty): X_OPS operations of
+    each of the three mixes, every ``cache_probe`` call held to its plain
+    version, then phase 6's ``check_consistency`` on the example's final
+    store and cache. (b) ``route_cap_factor="auto"``: a Zipf batch of each
+    read plan on phase 7's 4-owner store equals the default runtime's
+    (rows, misses, metrics but ``host_syncs``) with no retry; then phase 7's
+    final single-host store over AUTO_OWNERS owners, a q_fig1 batch of
+    BATCH watch-lists all owned by owner 0 overflows the default buckets
+    (a rank's BATCH / AUTO_OWNERS rows in buckets of half that), retries once
+    and equals a ``route_cap_factor=None`` runtime and the single host; the
+    ratchet's factor, then the same batch unretried. (c)
+    ``fused_gather=False`` on phase 7's 4-owner store: X_UNFUSED_BATCHES
+    Zipf batches equal the fused runtime's and launch no ``block_gather``.
+    Every kernel call of (b) and (c) equals its plain version. Launches
+    are counted around the example's loop and the option runtimes' batches
+    (controls and checks left out). Returns the phase's report."""
+    import contextlib
+
+    import repro_torch.core.cache as cache_mod
+    from repro_torch.core import GraphEngine, empty_cache
+    from repro_torch.distributed import ShardedTxnRuntime, flat_mesh
+    from repro_torch.kernels.block_gather import ops as bg_ops
+    from repro_torch.kernels.block_gather.ref import block_gather_filter_ref
+    from repro_torch.kernels.cache_probe import ops as cp_ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    card = card_line()
+    espec, ttable = world.espec, world.ttable
+    byname = {n: (p, label) for n, p, label, _ in plans}
+    report = {}
+
+    # (a) the example twin
+    serve_mixes = load_example_twin().serve_mixes
+    probes = CallCapture((cache_mod, "cache_probe"))
+    cp_ops.launches = bg_ops.launches = 0
+    t = time.perf_counter()
+    with probes:
+        run = serve_mixes(world, X_OPS, seed)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    launches_a = {"cache_probe": cp_ops.launches, "block_gather": bg_ops.launches}
+    assert launches_a["cache_probe"] > 0, f"phase 19 (a) never launched cache_probe: {launches_a}"
+    check_probe_calls(probes.calls["cache_probe"], "phase 19 (a)")
+    n_probe_calls = len(probes.calls["cache_probe"])
+    del probes
+    mixes = {}
+    for name, r in run["mixes"].items():
+        lat = np.asarray(r["latency_s"]) * 1e3
+        mixes[name] = dict(seed=r["seed"], reads=len(lat), p50_ms=pct(lat, 50),
+                           p95_ms=pct(lat, 95), p99_ms=pct(lat, 99),
+                           hit_rate=r["hits"] / max(r["hits"] + r["misses"], 1), hits=r["hits"],
+                           misses=r["misses"], seconds=r["seconds"])
+        print(f"example twin (phase 19 a) {name}: seed={r['seed']} ops={X_OPS} "
+              f"reads={len(lat)} p50={mixes[name]['p50_ms']:.4f}ms "
+              f"p95={mixes[name]['p95_ms']:.4f}ms p99={mixes[name]['p99_ms']:.4f}ms per query "
+              f"hit_rate={mixes[name]['hit_rate']:.4f} wall={r['seconds']:.3f}s | {card}",
+              flush=True)
+    population = {k: run[k] for k in ("committed", "aborted", "discarded")}
+    assert mixes["R_hat"]["hit_rate"] > 0 and population["committed"] > 0, (mixes, population)
+    print(f"example twin (phase 19 a) cache: {run['cache_stats']} population: {population}",
+          flush=True)
+    engines = {n: GraphEngine(espec, p, use_cache=True, device=dev) for n, p, _, _ in plans}
+    check_consistency(espec, (run["store"], run["cache"]), ttable, plans, ranges, engines, dev,
+                      seed)
+    report["a"] = dict(ops=X_OPS, mixes=mixes, cache_stats=run["cache_stats"], **population,
+                       loop_seconds=loop_s, launches=launches_a,
+                       cache_probe_calls_checked=n_probe_calls)
+    del run, engines
+
+    # (b) and (c): the option runtimes counted, controls and checks not
+    capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
+    checked = {"cache_probe": 0, "block_gather": 0}
+
+    @contextlib.contextmanager
+    def uncounted():
+        capture.__exit__(None, None, None)
+        saved = cp_ops.launches, bg_ops.launches
+        try:
+            yield
+        finally:
+            cp_ops.launches, bg_ops.launches = saved
+            capture.__enter__()
+
+    def check_calls(where):
+        with uncounted():
+            if capture.calls["cache_probe"]:
+                check_probe_calls(capture.calls["cache_probe"], where)
+            for a, kw in capture.calls["block_gather"]:
+                got, want = bg_ops.block_gather(*a, **kw), block_gather_filter_ref(*a, **kw)
+                for name, g, w in zip(("leaf", "scan", "emask", "qual", "trunc"), got, want):
+                    assert torch.equal(g, w), f"block_gather {name} disagrees with its plain " \
+                        f"version ({where})"
+            for k in checked:
+                checked[k] += len(capture.calls[k])
+                capture.calls[k].clear()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def same(got, want, where, syncs_too=False):
+        (r1, m1, met1), (r2, m2, met2) = got, want
+        assert np.array_equal(r1, r2), f"{where}: rows differ"
+        assert miss_key(m1) == miss_key(m2), f"{where}: misses differ"
+        if met2 is not None:
+            strip = lambda m: {k: v for k, v in m.items()
+                               if k not in ("host_syncs", "route_cap_retries")}
+            assert strip(met1) == strip(met2), f"{where}: metrics {met1} != {met2}"
+
+    def single_host(plan, roots):
+        eng = GraphEngine(espec, plan, use_cache=True, device=dev)
+        return eng.run(hstore, empty_cache(espec.cache, device=dev), ttable, roots)
+
+    rng = np.random.default_rng(seed + 191)
+    cp_ops.launches = bg_ops.launches = 0
+    capture.__enter__()
+    # (b) 1: a Zipf batch of each plan at phase 7's 4 owners, "auto" against the default
+    rt_auto4 = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), route_cap_factor="auto", device=dev)
+    rt_def4 = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev)
+    for name, (plan, label) in byname.items():
+        roots = zipf_picks(rng, *ranges[label], BATCH)
+        got = rt_auto4.run_gr_tx_batch(pstore, rt_auto4.empty_cache(), ttable, plan, roots)
+        with uncounted():
+            want = rt_def4.run_gr_tx_batch(pstore, rt_def4.empty_cache(), ttable, plan, roots)
+        same(got, want, f"phase 19 (b) Zipf {name}")
+        assert got[2]["route_cap_retries"] == 0, f"phase 19 (b) Zipf {name} retried"
+        check_calls(f"phase 19 (b) Zipf {name}")
+    zipf_factor = rt_auto4._effective_cap_factor()
+    # (b) 2: every root at one owner of AUTO_OWNERS
+    rt_auto = ShardedTxnRuntime(espec, flat_mesh(AUTO_OWNERS), route_cap_factor="auto",
+                                device=dev)
+    rt_none = ShardedTxnRuntime(espec, flat_mesh(AUTO_OWNERS), route_cap_factor=None, device=dev)
+    with uncounted():
+        ps8 = rt_auto.partition_store(hstore)
+    plan = byname["q_fig1"][0]
+    lo, hi = ranges[L_WATCHLIST]
+    base = -(-lo // AUTO_OWNERS) * AUTO_OWNERS
+    one = (base + AUTO_OWNERS * np.arange(BATCH)).astype(np.int32)
+    assert one[-1] < hi and (one % AUTO_OWNERS == 0).all()
+    first, first_ms = timed(lambda: rt_auto.run_gr_tx_batch(ps8, rt_auto.empty_cache(), ttable,
+                                                             plan, one))
+    assert first[2]["route_cap_retries"] == 1 and rt_auto.route_cap_retries == 1, first[2]
+    ratchet = rt_auto._effective_cap_factor()
+    with uncounted():
+        worst = rt_none.run_gr_tx_batch(ps8, rt_none.empty_cache(), ttable, plan, one)
+        host = single_host(plan, one)
+        # what the default caps drop: the first dispatch alone
+        rt_def = ShardedTxnRuntime(espec, flat_mesh(AUTO_OWNERS), device=dev)
+        dropped = rt_def.run_gr_tx_batch(ps8, rt_def.empty_cache(), ttable, plan, one)[2]
+    same(first, worst, "phase 19 (b) the retried batch against route_cap_factor=None")
+    same(first, (host[0], host[1], None), "phase 19 (b) the retried batch against the single host")
+    check_calls("phase 19 (b) retried")
+    again, again_ms = timed(lambda: rt_auto.run_gr_tx_batch(ps8, rt_auto.empty_cache(), ttable,
+                                                            plan, one))
+    assert again[2]["route_cap_retries"] == 0 and rt_auto.route_cap_retries == 1, again[2]
+    same(again, worst, "phase 19 (b) the repeat batch")
+    check_calls("phase 19 (b) repeat")
+    launches_b = {"cache_probe": cp_ops.launches, "block_gather": bg_ops.launches}
+    report["b"] = dict(
+        zipf_batches=len(byname), zipf_factor=list(zipf_factor), owners=AUTO_OWNERS,
+        default_first_dispatch=dict(route_overflow=dropped["route_overflow"],
+                                    route_cap_retries=dropped["route_cap_retries"]),
+        retried=dict(wall_ms=first_ms, route_cap_retries=first[2]["route_cap_retries"],
+                     host_syncs=first[2]["host_syncs"]),
+        ratcheted_factor=list(ratchet), skew_seen=rt_auto._route_skew_seen,
+        repeat=dict(wall_ms=again_ms, route_cap_retries=again[2]["route_cap_retries"],
+                    host_syncs=again[2]["host_syncs"]),
+        launches=launches_b)
+    assert dropped["route_overflow"] > 0, \
+        f"phase 19 (b): the default caps dropped nothing {dropped}"
+    print(f"auto caps (phase 19 b): {len(byname)} Zipf batches of {BATCH} at {N_OWNERS} owners "
+          f"equal the default runtime's, no retry, factor then {tuple(zipf_factor)}; {BATCH} "
+          f"watch-lists all at owner 0 of {AUTO_OWNERS}: the default caps drop "
+          f"{dropped['route_overflow']} rows, 'auto' retried once ({first_ms:.3f} ms wall, "
+          f"host_syncs {first[2]['host_syncs']}) and equals route_cap_factor=None and the single "
+          f"host; the ratchet holds {tuple(ratchet)} (skew {rt_auto._route_skew_seen:.4f}); the "
+          f"same batch again {again_ms:.3f} ms wall, no retry | {card}", flush=True)
+    del ps8, rt_auto, rt_none, rt_def
+
+    # (c) the unfused owner gather against the fused one
+    cp_ops.launches = bg_ops.launches = 0
+    rt_fused = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev)
+    rt_unfused = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), fused_gather=False, device=dev)
+    ms = {"fused": [], "unfused": []}
+    names = [n for n, *_ in plans]
+    for b in range(X_UNFUSED_BATCHES):
+        name = names[b % len(names)]
+        plan, label = byname[name]
+        roots = zipf_picks(rng, *ranges[label], BATCH)
+        got, t_u = timed(lambda: rt_unfused.run_gr_tx_batch(pstore, rt_unfused.empty_cache(),
+                                                            ttable, plan, roots))
+        with uncounted():
+            want, t_f = timed(lambda: rt_fused.run_gr_tx_batch(pstore, rt_fused.empty_cache(),
+                                                               ttable, plan, roots))
+        same(got, want, f"phase 19 (c) batch {b} ({name})")
+        assert got[2]["misses"] > 0, f"phase 19 (c) batch {b}: nothing executed"
+        ms["unfused"].append(t_u)
+        ms["fused"].append(t_f)
+        check_calls(f"phase 19 (c) batch {b}")
+    capture.__exit__(None, None, None)
+    launches_c = {"cache_probe": cp_ops.launches, "block_gather": bg_ops.launches}
+    assert launches_c["block_gather"] == 0 and launches_c["cache_probe"] > 0, launches_c
+    assert min(checked.values()) > 0, f"phase 19 checked no call of a kernel: {checked}"
+    report["c"] = dict(batches=X_UNFUSED_BATCHES, unfused_ms=ms["unfused"], fused_ms=ms["fused"],
+                       unfused_p50_ms=pct(ms["unfused"], 50), fused_p50_ms=pct(ms["fused"], 50),
+                       launches=launches_c)
+    print(f"unfused gather (phase 19 c): {X_UNFUSED_BATCHES} Zipf batches of {BATCH} on a cold "
+          f"cache equal the fused runtime's (rows, misses, metrics but host_syncs); batch p50 "
+          f"unfused {report['c']['unfused_p50_ms']:.3f} ms, fused "
+          f"{report['c']['fused_p50_ms']:.3f} ms; launches {launches_c} | {card}", flush=True)
+    report.update(kernel_calls_checked=checked, seconds=time.perf_counter() - t_phase,
+                  peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print("options report (phase 19): " + json.dumps(report), flush=True)
+    print(f"phase 19: {report['seconds']:.1f}s, peak device memory "
+          f"{report['peak_device_gib']:.2f} GiB", flush=True)
+    return report
+
+
 def run_graph(seed, dev):
     """Phases 3-7 and 11-15, the graph-cache paths; returns their kernel
     rows. Their worlds are locals, freed when it returns."""
@@ -5397,9 +5577,10 @@ def run_graph(seed, dev):
 
     rng = np.random.default_rng(seed)
     t0 = time.perf_counter()
-    espec, store, ranges, includes, n_edges = build_world(rng, dev, SCALE)
-    templates, meta, plans = templates_and_plans()
-    ttable = serving_ttable(templates)
+    world = build_scaled_world(rng, dev, SCALE)
+    espec, store, ttable = world.espec, world.store, world.ttable
+    ranges, includes, n_edges = world.ranges(), world.includes_eids, int(store.e_len)
+    meta, plans = TPL_META, [p[:4] for p in query_plans()]
     cache = empty_cache(espec.cache, device=dev)
     torch.cuda.synchronize()
     nv = ranges[L_LISTING][1]
@@ -5520,6 +5701,19 @@ def run_graph(seed, dev):
             row["launches"] += r_report["launches"][row["name"]]
             row["launches_by_path"]["phase 15"] = r_report["launches"][row["name"]]
     phase_memory("phase 15")
+
+    # 19. the example twin over phase 3's world, then the runtime's options
+    # on the phase-7 stores ((d) ran inside 14); the two kernels' launches
+    # counted around each part (zeroed inside, just before)
+    o_report = run_options(seed, world, hstore, pstore, plans, ranges, dev)
+    for row in rows:
+        if row["name"] in ("cache_probe", "block_gather"):
+            for part, path in (("a", "example twin"), ("b", "auto caps"),
+                               ("c", "unfused gather")):
+                k = o_report[part]["launches"][row["name"]]
+                row["launches"] += k
+                row["launches_by_path"][f"phase 19 ({part}) {path}"] = k
+    phase_memory("phase 19")
     return rows
 
 
@@ -5926,7 +6120,7 @@ def run_graph_cells(seed, dev):
     plan, _ = gs.config_plan_and_ttable(cfg)
     # the roots: Zipf(1.3) over the vertices, the same for every shape
     rng = np.random.default_rng(seed + 113)
-    roots = {s: zipf_pick(rng, 0, cfg.v_total, ecommerce_graph.SHAPES[s]["batch"], a=GRAPH_ZIPF)
+    roots = {s: zipf_picks(rng, 0, cfg.v_total, ecommerce_graph.SHAPES[s]["batch"], a=GRAPH_ZIPF)
              for s in ("serve_low", "serve_peak")}
     roots["serve_nocache"] = roots["serve_peak"]
     for s, (_, a) in cells.items():

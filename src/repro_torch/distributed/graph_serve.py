@@ -158,6 +158,7 @@ from repro_torch.core.runtime import (
     compact_rows,
     decode_miss_records,
     make_plan_fn,
+    onehop_exec_view,
     pack_query_frame,
     pack_result_frame,
     pad_roots,
@@ -247,7 +248,7 @@ class _MeshRead:
 # what a gR batch records on its runtime: a hedged read's racers keep these
 # apart, and the winner's are adopted (``ShardedTxnRuntime.racer``)
 _OBSERVED = ("last_step_seconds", "last_owner_stage", "last_step_owner_seconds",
-             "locality_retries")
+             "locality_retries", "route_cap_retries", "_route_skew_seen")
 
 
 class _SpanLog:
@@ -306,11 +307,14 @@ class _MeshTier:
         pspec, espec = self.pspec, self.rt.lspec
         if pspec is None:
             return None  # the replicated store: the full-store onehop_exec
+        # the block_gather kernel's fused executor, or (fused_gather=False)
+        # the multi-op gather over the same view, for A/B comparison
+        run = block_onehop_exec if self.rt.fused_gather else onehop_exec_view
 
         def exec_fn(store, roots_f, params, miss_m):
             view = BlockStoreView(pspec, store, self.me, rtable=self.rtable)
-            return block_onehop_exec(espec, view, hop.direction, hop.edge_label,
-                                     hop.pr, hop.pe, hop.pl, roots_f, params, miss_m)
+            return run(espec, view, hop.direction, hop.edge_label,
+                       hop.pr, hop.pe, hop.pl, roots_f, params, miss_m)
 
         return exec_fn
 
@@ -400,19 +404,33 @@ class ShardedTxnRuntime:
     cache capacity, split into ``n`` co-partitioned blocks of
     ``capacity // n`` slots (each a power of two). Block capacities are
     ``blk_slack`` times the uniform share, twice by default
-    (``partition.default_pspec``); ``maintenance_tick`` and ``grow_blocks``
-    change them. With ``use_cache=False`` a read never probes the cache:
-    every frontier root runs against storage (the ``serve_nocache`` cell).
+    (``partition.default_pspec``), unless ``e_blk_cap`` names them;
+    ``recent_blk_cap`` sets the recent window (the base store's by
+    default, never above ``e_blk_cap``). ``maintenance_tick`` and
+    ``grow_blocks`` change them. With ``use_cache=False`` a read never
+    probes the cache: every frontier root runs against storage (the
+    ``serve_nocache`` cell).
 
     ``route_cap_factor`` bounds the per-peer routing buckets: the default is
     the reference's measured production caps, a tuple gives per-hop factors
     (hop ``i`` uses entry ``min(i, last)``), and ``None`` sizes them for the
     worst case, so nothing can drop (the parity tests' configuration).
+    ``"auto"`` sizes them from the measured per-owner frontier skew
+    (``_effective_cap_factor``), starting at the default and ratcheting up
+    with each telemetry batch; a batch that still overflows is dispatched
+    once more with worst-case caps (``route_cap_retries``).
+
+    ``fused_gather`` (default on) executes the partitioned tier's misses
+    through the ``block_gather`` kernel (``block_onehop_exec``);
+    ``fused_gather=False`` runs ``onehop_exec_view`` over the same
+    ``BlockStoreView`` instead, for A/B comparison. Only this argument
+    selects the unfused path.
 
     The maintenance ops and sweeps each rank derives per commit, and the
-    ops it routes to each peer, are bounded by the single host's caps
-    (``OPS_CAP`` / ``SWEEP_CAP``) on both tiers; ops they drop count in
-    ``op_overflow``.
+    ops it routes to each peer, are bounded by ``ops_cap`` / ``sweep_cap``
+    / ``ops_route_cap`` (the single host's ``OPS_CAP`` / ``SWEEP_CAP`` by
+    default; ``ops_route_cap`` defaults to ``ops_cap``) on both tiers; ops
+    they drop count in ``op_overflow``.
 
     ``telemetry`` (default on) assembles the owner-stage block of every gR
     batch into ``last_owner_stage``; ``last_step_seconds`` is the batch's
@@ -430,7 +448,11 @@ class ShardedTxnRuntime:
 
     def __init__(self, espec, mesh: LocalMesh, *, use_cache: bool = True,
                  store_tier: str = "partitioned",
-                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR, blk_slack: float = 2.0,
+                 route_cap_factor=DEFAULT_ROUTE_CAP_FACTOR,
+                 ops_cap: int = OPS_CAP, sweep_cap: int = SWEEP_CAP,
+                 ops_route_cap: int | None = None,
+                 blk_slack: float = 2.0, e_blk_cap: int | None = None,
+                 recent_blk_cap: int | None = None, fused_gather: bool = True,
                  device=None, telemetry: bool = True, tracer=None):
         if store_tier not in ("partitioned", "replicated"):
             raise ValueError(f"unknown store tier {store_tier!r}")
@@ -448,13 +470,27 @@ class ShardedTxnRuntime:
         self.use_cache = bool(use_cache)
         self.store_tier = store_tier
         # the block layout; None on the replicated tier, which has no blocks
-        self.pspec = (default_pspec(espec.store, n, slack=blk_slack)
-                      if store_tier == "partitioned" else None)
+        self.pspec = None
+        if store_tier == "partitioned":
+            pspec = default_pspec(espec.store, n, slack=blk_slack, recent_blk_cap=recent_blk_cap)
+            if e_blk_cap is not None:
+                pspec = pspec._replace(e_blk_cap=int(e_blk_cap),
+                                       recent_blk_cap=min(pspec.recent_blk_cap, int(e_blk_cap)))
+            self.pspec = pspec
         if isinstance(route_cap_factor, (list, tuple)):
             route_cap_factor = tuple(route_cap_factor)
             if not route_cap_factor or not all(isinstance(f, int) for f in route_cap_factor):
                 raise ValueError("per-hop route_cap_factor entries must be ints")
+        elif isinstance(route_cap_factor, str) and route_cap_factor != "auto":
+            raise ValueError(f"unknown route_cap_factor {route_cap_factor!r}")
         self.route_cap_factor = route_cap_factor
+        # the largest per-owner frontier skew seen so far ("auto" caps), and
+        # the batches the overflow retry dispatched again
+        self._route_skew_seen = None
+        self.route_cap_retries = 0
+        self.fused_gather = bool(fused_gather)
+        self.ops_cap, self.sweep_cap = int(ops_cap), int(sweep_cap)
+        self.ops_route_cap = int(ops_cap if ops_route_cap is None else ops_route_cap)
         # the identity table, threaded through every step while no
         # RoutingTableHost is attached (``attach_routing``)
         self.identity = identity_table(n, device=self.device)
@@ -553,17 +589,19 @@ class ShardedTxnRuntime:
         return grown
 
     def maintenance_tick(self, pstore, policy: MaintenancePolicy | None = None, *,
-                         journal=None):
+                         occupancy: dict | None = None, journal=None):
         """Run due maintenance between transaction batches, in a
         ``compaction_tick`` span: read the block lengths, then grow and / or
         compact as ``policy`` decides, journaling each event (GROW / COMPACT)
-        so replay repeats it at the same point. Returns ``(pstore', info)``.
-        (The reference's ``occupancy=``, a report the caller holds already,
-        waits for a caller: its serve loop does not tick.)"""
+        so replay repeats it at the same point. ``occupancy``, a report the
+        caller holds already for this ``pstore`` (any dict with
+        ``max_occupancy`` and ``max_recent_fill``, such as one built from
+        ``run_grw_tx``'s metrics), is used as is, with no read of the block
+        lengths. Returns ``(pstore', info)``."""
         self._require_blocks("maintenance_tick")
         with self.tracer.span("compaction_tick"):
             policy = MaintenancePolicy() if policy is None else policy
-            occ = self.store_occupancy(pstore)
+            occ = self.store_occupancy(pstore) if occupancy is None else occupancy
             dec = decide_maintenance(self.pspec, occ, policy, self.mutation_rows_since_compact)
             info = dict(compacted=False, grown_to=None, reason=dec.reason,
                         max_occupancy=occ["max_occupancy"],
@@ -626,13 +664,40 @@ class ShardedTxnRuntime:
         return self.identity, None
 
     # --------------------------------------------------------- gR-Tx path
-    def _hop_route_caps(self, plan, Bloc: int):
+    def _effective_cap_factor(self, worst_case: bool = False):
+        """The cap factor a batch routes with. ``"auto"`` starts at
+        ``DEFAULT_ROUTE_CAP_FACTOR`` and, once a telemetry batch has run,
+        takes ``f = max(2, ceil(1.25 * skew))`` from the largest per-owner
+        frontier skew seen (``_observe_route_skew``), as ``(max(f, 4),
+        max(f, 3))``: it only grows. ``worst_case=True`` gives None (no
+        drop), the overflow retry's caps."""
+        if worst_case:
+            return None
+        rcf = self.route_cap_factor
+        if rcf == "auto":
+            if self._route_skew_seen is None:
+                return DEFAULT_ROUTE_CAP_FACTOR
+            f = max(2, int(np.ceil(self._route_skew_seen * 1.25)))
+            return (max(f, DEFAULT_ROUTE_CAP_FACTOR[0]), max(f, DEFAULT_ROUTE_CAP_FACTOR[1]))
+        return rcf
+
+    def _observe_route_skew(self, stage):
+        """Ratchet the measured skew from a batch's ``[n, S]`` owner-stage
+        block: the largest owner's share of the routed frontier rows times
+        ``n``, kept if it exceeds every earlier one."""
+        fr = np.asarray(stage)[:, OWNER_STAGE_FIELDS.index("frontier_rows")].astype(np.float64)
+        if fr.sum() > 0:
+            skew = float(fr.max() * self.n / fr.sum())
+            self._route_skew_seen = (skew if self._route_skew_seen is None
+                                     else max(self._route_skew_seen, skew))
+
+    def _hop_route_caps(self, plan, Bloc: int, *, worst_case: bool = False):
         """Per-hop per-peer routing capacity: ``ceil(factor * rows / n)`` for
         the ``rows = Bloc * A`` a rank routes at a hop, or ``rows`` (no
-        drop) when the factor is None."""
+        drop) when the factor is None (``_effective_cap_factor``)."""
         caps, A = [], 1
         F, RW = self.espec.frontier, self.espec.result_width
-        rcf = self.route_cap_factor
+        rcf = self._effective_cap_factor(worst_case)
         for i, _ in enumerate(plan.hops):
             rows = Bloc * A
             f = rcf[min(i, len(rcf) - 1)] if isinstance(rcf, tuple) else rcf
@@ -657,6 +722,12 @@ class ShardedTxnRuntime:
         counts the rows, ``locality_retries`` the batches). With no owner
         down and no cache exception the batch does no deferral work.
 
+        Under ``route_cap_factor="auto"`` a batch whose metrics show
+        ``route_overflow > 0`` is dispatched once more with worst-case caps:
+        the second run's results, misses and metrics replace the first's,
+        ``host_syncs`` adds its reads, ``metrics["route_cap_retries"]`` is 1
+        and ``route_cap_retries`` counts the batch.
+
         ``metrics["host_syncs"]`` counts each rank's miss-count read per hop,
         each rank's merge rounds and the one result copy. With telemetry on,
         the owner-stage block rides that copy and lands in
@@ -664,15 +735,15 @@ class ShardedTxnRuntime:
         attributes ``last_step_seconds`` to the owners by their work."""
         table, rhost = self._resolve_rtable(rtable)
         split = rhost is not None and bool(rhost.cache_exceptions)
-        result, misses, metrics, deferred = self._gr_batch(store, cache, ttable, plan, roots,
-                                                           down, table, split)
+        result, misses, metrics, deferred = self._gr_capped(store, cache, ttable, plan, roots,
+                                                            down, table, split)
         metrics["locality_retry_rows"] = 0
         if split and deferred.any():
             roots = np.asarray(roots, np.int32)
             idx = np.flatnonzero(deferred & rhost.is_split(roots))
             if idx.size:
-                r2, mis2, m2, d2 = self._gr_batch(store, cache, ttable, plan, roots[idx], down,
-                                                  rhost.storage_table(), False)
+                r2, mis2, m2, d2 = self._gr_capped(store, cache, ttable, plan, roots[idx], down,
+                                                   rhost.storage_table(), False)
                 result, deferred = result.copy(), deferred.copy()
                 result[idx] = r2
                 deferred[idx] = d2
@@ -686,11 +757,31 @@ class ShardedTxnRuntime:
             return result, misses, metrics, deferred
         return result, misses, metrics
 
-    def _gr_batch(self, store, cache, ttable, plan, roots, down, rtable, split: bool):
+    def _gr_capped(self, store, cache, ttable, plan, roots, down, rtable, split: bool):
+        """``_gr_batch`` with the ``"auto"`` caps' overflow retry: a batch
+        that overflowed runs once more with worst-case caps, and its
+        results, misses and metrics replace the first run's (``host_syncs``
+        adds both runs' reads). The observations stay the first run's."""
+        out = self._gr_batch(store, cache, ttable, plan, roots, down, rtable, split)
+        retry = self.route_cap_factor == "auto" and out[2]["route_overflow"] > 0
+        if retry:
+            syncs = out[2]["host_syncs"]
+            out = self._gr_batch(store, cache, ttable, plan, roots, down, rtable, split,
+                                 worst_case=True)
+            out[2]["host_syncs"] += syncs
+            self.route_cap_retries += 1
+        out[2]["route_cap_retries"] = int(retry)
+        return out
+
+    def _gr_batch(self, store, cache, ttable, plan, roots, down, rtable, split: bool, *,
+                  worst_case: bool = False):
         """One gR batch under the routing table ``rtable`` (``split``: it
         may hold cache exceptions, so rows routed to a split vertex's cache
         home defer). Returns ``(result, misses, metrics, deferred)``, each
-        cut to the batch."""
+        cut to the batch. A first dispatch records its observations (the
+        wall clock, the owner-stage block, which also ratchets the ``"auto"``
+        skew); the overflow retry's (``worst_case``, no-drop caps) records
+        none."""
         from repro_torch.core.engine import _to_host
 
         n, tr = self.n, self.tracer
@@ -708,7 +799,8 @@ class ShardedTxnRuntime:
         t0 = time.perf_counter()
         with tr.span("gr_dispatch"):
             result, row_def, mroots, mcounts, m = self._gr_programs(
-                store, cache, ttable, plan, proots, bvalid, down, rtable, split, syncs)
+                store, cache, ttable, plan, proots, bvalid, down, rtable, split, syncs,
+                worst_case=worst_case)
         n_seg = len(mroots)
         # the owner-stage block leaves the metrics before the copy, so the
         # metrics dict is the one telemetry=False builds
@@ -716,34 +808,38 @@ class ShardedTxnRuntime:
         extra = ([row_def] if row_def is not None else []) + ([stage] if stage is not None else [])
         with tr.span("gr_sync"):
             metrics, (result, *host) = _to_host(m, [result, *mroots, *mcounts, *extra])
-        self.last_step_seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
         with tr.span("gr_unpack"):
             stage = host.pop() if stage is not None else None
             deferred = host.pop() if row_def is not None else np.zeros(len(result), bool)
             version = metrics.pop("_version")
             metrics["host_syncs"] = syncs.n + 1
-            metrics["route_cap_retries"] = 0  # the "auto" caps are not ported
             misses = decode_miss_records(plan, self.use_cache, host[:n_seg], host[n_seg:],
                                           version)
+        if worst_case:
+            return result[:B], misses, metrics, deferred[:B]
+        self.last_step_seconds = seconds
         if stage is not None:
             self.last_owner_stage = stage.astype(np.int64)
             self.last_step_owner_seconds = attribute_step_seconds(self.last_step_seconds,
                                                                   self.last_owner_stage)
+            # the "auto" caps' input: the peak owner share of routed rows
+            self._observe_route_skew(self.last_owner_stage)
         else:
             self.last_owner_stage = self.last_step_owner_seconds = None
         return result[:B], misses, metrics, deferred[:B]
 
     def _gr_programs(self, store, cache, ttable, plan, proots, bvalid, down, rtable,
-                     split: bool, syncs):
+                     split: bool, syncs, worst_case: bool = False):
         """Every rank's gR program over the padded batch ``proots`` /
         ``bvalid`` (rank ``r`` takes rows ``[r * B/n, (r + 1) * B/n)``), on
         the device: ``(result, row deferred or None, miss roots by segment,
         miss counts by segment, metrics with "_version")``, the metrics'
         values still tensors. ``down`` is the host mask of owners down, or
-        None."""
+        None. ``worst_case`` routes with no-drop caps."""
         n, pspec = self.n, self.pspec
         Bloc = proots.shape[0] // n
-        caps = self._hop_route_caps(plan, Bloc)
+        caps = self._hop_route_caps(plan, Bloc, worst_case=worst_case)
         programs = []
         for me in range(n):
             tier = _MeshTier(self, caps, me, rtable, down, split)
@@ -785,17 +881,18 @@ class ShardedTxnRuntime:
     # -------------------------------------------------------- gRW-Tx path
     def _route_and_apply_ops(self, cache, ops, sweeps, through: bool, syncs, rtable):
         """One rank's maintenance apply, a per-rank program: compact the
-        derived ops to ``OPS_CAP`` rows and route each, as one frame
+        derived ops to ``ops_cap`` rows and route each, as one frame
         ``[flags | kind | tpl | root | params | vid | order]``, to the shard
         holding its root's cache entries (``cache_owner_of`` under
         ``rtable``) in one
-        all_to_all; all-gather the sweeps, which every rank applies whole (a
+        all_to_all of ``ops_route_cap`` rows a peer; all-gather the sweeps
+        (compacted to ``sweep_cap`` rows), which every rank applies whole (a
         sweep of another shard's root matches nothing here); then apply
         sweeps, then ops, to the rank's cache block. Returns (cache',
         occupancy delta, overflow)."""
-        n, cap, lcspec = self.n, OPS_CAP, self.lspec.cache
+        n, cap, lcspec = self.n, self.ops_route_cap, self.lspec.cache
         (okind, otpl, oroot, oparams, ovid, oorder), _, ovf_c = compact_rows(
-            ops.ok, OPS_CAP, (ops.kind, ops.tpl, ops.root, ops.params, ops.vid, ops.order),
+            ops.ok, self.ops_cap, (ops.kind, ops.tpl, ops.root, ops.params, ops.vid, ops.order),
             (0, -1, NULL_ID, 0, NULL_ID, 0),
         )
         dest = torch.where(oroot != NULL_ID, cache_owner_of(rtable, oroot, n), -1)
@@ -811,7 +908,7 @@ class ShardedTxnRuntime:
             vid=recv[:, 4 + P], order=recv[:, 5 + P],
             ok=(recv[:, 0] & WIRE_FLAG_VALID) == WIRE_FLAG_VALID,
         )
-        (stpl, sroot), _, ovf_s = compact_rows(sweeps.ok, SWEEP_CAP,
+        (stpl, sroot), _, ovf_s = compact_rows(sweeps.ok, self.sweep_cap,
                                                (sweeps.tpl, sweeps.root), (-1, NULL_ID))
         g = yield (ALL_GATHER, torch.stack([stpl, sroot], dim=1))
         gsw = SweepStream(tpl=g[:, 0], root=g[:, 1], ok=g[:, 1] != NULL_ID)

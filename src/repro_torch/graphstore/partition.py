@@ -1,9 +1,9 @@
 """The partitioned dual-CSR storage tier: owner-local edge blocks.
 
 PyTorch twin of ``repro.graphstore.partition``: the read side, the geid
-index and the gRW commit (``apply_mutations_partitioned``); block
-maintenance is in ``graphstore.maintenance``, and ``splice_owner_blocks``
-waits for failover. ``PartitionedGraphStore`` splits edge
+index, the gRW commit (``apply_mutations_partitioned``) and the recovery
+splice (``splice_owner_blocks``); block maintenance is in
+``graphstore.maintenance``. ``PartitionedGraphStore`` splits edge
 storage into owner-local blocks, so a one-hop scan reads only tensors of
 the shard that owns the hop's root:
 

@@ -360,14 +360,15 @@ def serve_loop(args, rt, pstore, ttable, tpl_meta,
         total.update({k: mm[k] for k in ("migration_rounds", "migrated_vertices",
                                          "migrated_rows", "migration_deferred_rounds",
                                          "table_epoch")})
-        total["route_cap_retries"] = 0  # the "auto" caps are not ported
+        total["route_cap_retries"] = rt.route_cap_retries
         log(f"routing: migration_rounds={mm['migration_rounds']} "
             f"migrated_vertices={mm['migrated_vertices']} migrated_rows={mm['migrated_rows']} "
             f"deferred_rounds={mm['migration_deferred_rounds']} "
             f"table_epoch={mm['table_epoch']} storage_exceptions={mm['storage_exceptions']} "
             f"cache_exceptions={mm['cache_exceptions']} "
             f"locality_routed={total['locality_routed']} "
-            f"locality_retry_rows={total['locality_retry_rows']} route_cap_retries=0")
+            f"locality_retry_rows={total['locality_retry_rows']} "
+            f"route_cap_retries={rt.route_cap_retries}")
     # the end-of-run report, after journal.stop so the final flush is counted
     report = telemetry.report()
 

@@ -23,6 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "train_lm_100m_torch.py", ROOT / "examples" / "gnn_cached_sampling_torch.py",
+    ROOT / "examples" / "serve_ecommerce_torch.py",
 ]
 
 
@@ -52,6 +53,28 @@ def test_the_partitioned_tiers_twins_are_checked(module):
     replicated tier since slice 13)."""
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES and (ROOT / "src" / "repro" / module).exists()
+
+
+def _fixed_zero_writes(path):
+    """Assignments of the constant 0 to a ``["route_cap_retries"]`` item."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Constant) \
+                and node.value.value == 0:
+            for t in node.targets:
+                if isinstance(t, ast.Subscript) and isinstance(t.slice, ast.Constant) \
+                        and t.slice.value == "route_cap_retries":
+                    yield node.lineno
+
+
+@pytest.mark.parametrize("module", ["distributed/graph_serve.py", "launch/serve.py"])
+def test_route_cap_retries_are_counted_not_fixed(module):
+    """The "auto" caps' retries are the runtime's count in the batch metrics
+    and in the serve loop's report, no longer a fixed 0."""
+    path = ROOT / "src" / "repro_torch" / module
+    text = path.read_text()
+    assert not list(_fixed_zero_writes(path)), f"{module} writes a fixed route_cap_retries"
+    assert "route_cap_retries=0" not in text and "not ported" not in text
+    assert "route_cap_retries" in text
 
 
 @pytest.mark.parametrize("module", ["optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
