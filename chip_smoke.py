@@ -282,12 +282,7 @@ a 2^18-slot one-hop result cache, built on the card from ``--seed``. Phases:
    factor 4 is the worst case, so nothing can overflow there) retried
    once with worst-case caps and equal to ``route_cap_factor=None`` and the
    single host, the ratcheted factor, the same batch unretried, both
-   batches' wall times; (c) ``fused_gather=False`` on phase 7's store, 4
-   Zipf batches on a cold cache equal to the fused runtime's, no
-   ``block_gather`` launch, both p50s; (d), inside 14 after its replay:
-   ``compact_store(native_only=True)`` on the migrated store, the migrated
-   roots' one-hop reads equal to those before it. Every kernel call of (b)
-   and (c) equals its plain version.
+   batches' wall times. Every kernel call of (b) equals its plain version.
 
 Between 4 and 5, in 7, 8 and 10, a short ``torch.profiler`` window prints
 the device's busy time by kernel and its idle share. Phase 8 runs last, after
@@ -2601,64 +2596,6 @@ def migration_write(rng, espec, hstore, mv, dev):
         del_edges=[int(own[-1])] if own.numel() else [], device=dev)
 
 
-def migrated_reads(rt, ps, roots, max_deg):
-    """Each root's one-hop reads in both orientations through the plain
-    gather at its storage owner under the runtime's table: its live lanes'
-    (leaf, label, props) in read order, -1 past them, and its truncation
-    flag."""
-    from repro_torch.distributed.routing import storage_owner_of
-    from repro_torch.graphstore.partition import BlockStoreView, local_shard
-
-    table = rt.rhost.device_table()
-    owner = storage_owner_of(table, roots, rt.n)
-    out = []
-    for s in range(rt.n):
-        view = BlockStoreView(rt.pspec, local_shard(rt.pspec, ps, s), s, rtable=table)
-        for incoming in (False, True):
-            other, mask, trunc, elabel, eprops = view.adjacency(roots[owner == s], max_deg,
-                                                                incoming=incoming)
-            v = torch.where(mask[..., None], torch.cat([other[..., None], elabel[..., None],
-                                                        eprops], -1), -1)
-            order = torch.sort((~mask).to(torch.int8), dim=1, stable=True).indices
-            out += [torch.take_along_dim(v, order[..., None], 1), trunc]
-    return out
-
-
-def run_native_only(rt, ps, max_deg):
-    """Phase 19 (d), on phase 14's migrated store ``ps``: one
-    ``compact_store(native_only=True)``. The migrated roots' one-hop reads
-    must equal those before it; the compaction without ``me`` is read too,
-    for contrast (it folds foreign rows into the CSR body)."""
-    from repro_torch.graphstore.maintenance import compact_store
-
-    roots = torch.as_tensor(sorted(rt.rhost.storage_exceptions), dtype=torch.int32,
-                            device=ps.version.device)
-    assert roots.numel(), "phase 19 (d): no vertex is away from its base owner"
-    recent = lambda p: int((p.out.blk_len - p.out.csr_len).sum() + (p.inc.blk_len
-                                                                     - p.inc.csr_len).sum())
-    before = migrated_reads(rt, ps, roots, max_deg)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    ps_n = compact_store(rt.pspec, ps, native_only=True)
-    torch.cuda.synchronize()
-    compact_ms = (time.perf_counter() - t) * 1e3
-    after = migrated_reads(rt, ps_n, roots, max_deg)
-    assert all(torch.equal(x, y) for x, y in zip(before, after)), \
-        "phase 19 (d): the native-only compaction changed a migrated root's reads"
-    folded = migrated_reads(rt, compact_store(rt.pspec, ps), roots, max_deg)
-    out = dict(migrated_roots=roots.numel(), compact_ms=compact_ms,
-               recent_lanes_before=recent(ps), recent_lanes_after=recent(ps_n),
-               default_compaction_reads_equal=all(torch.equal(x, y)
-                                                  for x, y in zip(before, folded)))
-    assert out["recent_lanes_after"] < out["recent_lanes_before"], out
-    print(f"migration native-only compaction (phase 19 d): {out['migrated_roots']} migrated "
-          f"roots read alike before and after compact_store(native_only=True) "
-          f"({compact_ms:.3f} ms; recent lanes {out['recent_lanes_before']} -> "
-          f"{out['recent_lanes_after']}); the default compaction's reads equal: "
-          f"{out['default_compaction_reads_equal']} | {card_line()}", flush=True)
-    return out
-
-
 def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, includes, dev):
     """Phase 14: M_BATCHES gR batches on the phase-7 partitioned store with
     a ``RoutingTableHost`` attached and a ``MigrationEngine`` (the
@@ -2920,7 +2857,6 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
     assert rt_r.rhost is not None and rt_r.rhost.storage_exceptions == rhost.storage_exceptions
     del ps_r, rt_r
     shutil.rmtree(root)
-    native = run_native_only(rt, ps, espec.max_deg)
 
     # the post-migration block_gather call, timed beside its plain version
     a, kw = largest_after[2]
@@ -2961,7 +2897,6 @@ def run_migration(seed, espec, hstore, pstore, ttable, plans, meta, ranges, incl
         block_gather_post_migration=dict(bg_t, bound_ms=bg_bound, bound_by=bg_by, shape=bg_shape,
                                          nbytes=nbytes),
         serve_subprocess=dict(seconds=serve_s, routing_line=line), journal=jm,
-        native_only=native,
         seconds=time.perf_counter() - t_phase,
         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
@@ -5324,7 +5259,6 @@ def phase_memory(tag):
 # partitioned runtime's options on phase 7's final store
 X_OPS = 300  # operations per mix of the example twin: ~280 reads in R-hat, so p99 is no one read
 AUTO_OWNERS = 8  # (b)'s overflow: at 4 owners the default hop-1 factor 4 is the worst case
-X_UNFUSED_BATCHES = 4  # (c): Zipf batches through each gather
 
 
 def load_example_twin():
@@ -5351,10 +5285,8 @@ def run_options(seed, world, hstore, pstore, plans, ranges, dev):
     BATCH watch-lists all owned by owner 0 overflows the default buckets
     (a rank's BATCH / AUTO_OWNERS rows in buckets of half that), retries once
     and equals a ``route_cap_factor=None`` runtime and the single host; the
-    ratchet's factor, then the same batch unretried. (c)
-    ``fused_gather=False`` on phase 7's 4-owner store: X_UNFUSED_BATCHES
-    Zipf batches equal the fused runtime's and launch no ``block_gather``.
-    Every kernel call of (b) and (c) equals its plain version. Launches
+    ratchet's factor, then the same batch unretried. Every kernel call of
+    (b) equals its plain version. Launches
     are counted around the example's loop and the option runtimes' batches
     (controls and checks left out). Returns the phase's report."""
     import contextlib
@@ -5411,7 +5343,7 @@ def run_options(seed, world, hstore, pstore, plans, ranges, dev):
                        cache_probe_calls_checked=n_probe_calls)
     del run, engines
 
-    # (b) and (c): the option runtimes counted, controls and checks not
+    # (b): the option runtimes counted, controls and checks not
     capture = CallCapture((bg_ops, "block_gather"), (cache_mod, "cache_probe"))
     checked = {"cache_probe": 0, "block_gather": 0}
 
@@ -5524,37 +5456,8 @@ def run_options(seed, world, hstore, pstore, plans, ranges, dev):
           f"same batch again {again_ms:.3f} ms wall, no retry | {card}", flush=True)
     del ps8, rt_auto, rt_none, rt_def
 
-    # (c) the unfused owner gather against the fused one
-    cp_ops.launches = bg_ops.launches = 0
-    rt_fused = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), device=dev)
-    rt_unfused = ShardedTxnRuntime(espec, flat_mesh(N_OWNERS), fused_gather=False, device=dev)
-    ms = {"fused": [], "unfused": []}
-    names = [n for n, *_ in plans]
-    for b in range(X_UNFUSED_BATCHES):
-        name = names[b % len(names)]
-        plan, label = byname[name]
-        roots = zipf_picks(rng, *ranges[label], BATCH)
-        got, t_u = timed(lambda: rt_unfused.run_gr_tx_batch(pstore, rt_unfused.empty_cache(),
-                                                            ttable, plan, roots))
-        with uncounted():
-            want, t_f = timed(lambda: rt_fused.run_gr_tx_batch(pstore, rt_fused.empty_cache(),
-                                                               ttable, plan, roots))
-        same(got, want, f"phase 19 (c) batch {b} ({name})")
-        assert got[2]["misses"] > 0, f"phase 19 (c) batch {b}: nothing executed"
-        ms["unfused"].append(t_u)
-        ms["fused"].append(t_f)
-        check_calls(f"phase 19 (c) batch {b}")
     capture.__exit__(None, None, None)
-    launches_c = {"cache_probe": cp_ops.launches, "block_gather": bg_ops.launches}
-    assert launches_c["block_gather"] == 0 and launches_c["cache_probe"] > 0, launches_c
     assert min(checked.values()) > 0, f"phase 19 checked no call of a kernel: {checked}"
-    report["c"] = dict(batches=X_UNFUSED_BATCHES, unfused_ms=ms["unfused"], fused_ms=ms["fused"],
-                       unfused_p50_ms=pct(ms["unfused"], 50), fused_p50_ms=pct(ms["fused"], 50),
-                       launches=launches_c)
-    print(f"unfused gather (phase 19 c): {X_UNFUSED_BATCHES} Zipf batches of {BATCH} on a cold "
-          f"cache equal the fused runtime's (rows, misses, metrics but host_syncs); batch p50 "
-          f"unfused {report['c']['unfused_p50_ms']:.3f} ms, fused "
-          f"{report['c']['fused_p50_ms']:.3f} ms; launches {launches_c} | {card}", flush=True)
     report.update(kernel_calls_checked=checked, seconds=time.perf_counter() - t_phase,
                   peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
     print("options report (phase 19): " + json.dumps(report), flush=True)
@@ -5702,14 +5605,13 @@ def run_graph(seed, dev):
             row["launches_by_path"]["phase 15"] = r_report["launches"][row["name"]]
     phase_memory("phase 15")
 
-    # 19. the example twin over phase 3's world, then the runtime's options
-    # on the phase-7 stores ((d) ran inside 14); the two kernels' launches
-    # counted around each part (zeroed inside, just before)
+    # 19. the example twin over phase 3's world, then the "auto" caps on the
+    # phase-7 stores; the two kernels' launches counted around each part
+    # (zeroed inside, just before)
     o_report = run_options(seed, world, hstore, pstore, plans, ranges, dev)
     for row in rows:
         if row["name"] in ("cache_probe", "block_gather"):
-            for part, path in (("a", "example twin"), ("b", "auto caps"),
-                               ("c", "unfused gather")):
+            for part, path in (("a", "example twin"), ("b", "auto caps")):
                 k = o_report[part]["launches"][row["name"]]
                 row["launches"] += k
                 row["launches_by_path"][f"phase 19 ({part}) {path}"] = k

@@ -58,19 +58,16 @@ class FailoverController:
 
     ``plan`` scripts faults for chaos runs (None: probes heartbeat from the
     runtime's measured step time); ``hedge_after`` is the straggler hedge's
-    deadline in seconds. ``default_policy`` is the write policy of a commit
-    that names none (``run_grw``), and of the replayed and drained records
-    that carry none. ``rhost``, a ``RoutingTableHost``, routes every read,
-    write and recovery; without one, the runtime's attached table, read at
-    each call, does, so failover composes with migrated placements and with
-    a table attached after the controller is built. It needs the
-    partitioned store tier (a replicated runtime raises ``ValueError``)."""
+    deadline in seconds. The runtime's attached ``RoutingTableHost``, read
+    at each call, routes every read, write and recovery, so failover
+    composes with migrated placements and with a table attached after the
+    controller is built. It needs the partitioned store tier (a replicated
+    runtime raises ``ValueError``)."""
 
     def __init__(self, rt, journal: Optional[WriteBehindJournal], ttable, *,
                  plan: Optional[ShardFaultPlan] = None,
                  detector: Optional[FailureDetector] = None,
-                 hedge: Optional[HedgedCalls] = None, hedge_after: float = 0.05,
-                 default_policy: str = "write-around", rhost=None):
+                 hedge: Optional[HedgedCalls] = None, hedge_after: float = 0.05):
         if rt.pspec is None:
             # recovery replays and splices an owner's blocks
             raise ValueError("failover needs the partitioned store tier; this runtime serves "
@@ -82,17 +79,9 @@ class FailoverController:
         self.detector = detector if detector is not None else FailureDetector(n=rt.n)
         self.hedge = hedge
         self.hedge_after = hedge_after
-        self.default_policy = default_policy
-        self._rhost = rhost
         self.failed_batches = 0  # raised NodeFailure before detection
         self.degraded_batches = 0
         self.deferred_rows = 0
-
-    @property
-    def rhost(self):
-        """The routing table of this call: the one given, else the
-        runtime's attached one (or None)."""
-        return self._rhost if self._rhost is not None else self.rt.rhost
 
     # ---------------------------------------------------------------- probe
     def probe(self, batch_idx: int) -> frozenset:
@@ -139,7 +128,7 @@ class FailoverController:
             with (self.journal.epochs.pin_scope() if self.journal is not None
                   else contextlib.nullcontext()):
                 return rt.run_gr_tx_batch(pstore, cache, self.ttable, qplan, roots,
-                                          down=m if m.any() else None, rtable=self._rhost,
+                                          down=m if m.any() else None,
                                           return_deferred=True)
 
         from_hedge = False
@@ -186,23 +175,21 @@ class FailoverController:
         return out, from_hedge
 
     # ---------------------------------------------------------------- write
-    def run_grw(self, pstore, cache, batch, *, policy: Optional[str] = None, gate=None,
+    def run_grw(self, pstore, cache, batch, *, policy: str = "write-around", gate=None,
                 occupancy_metrics: bool = True):
-        """Commit one gRW batch under ``policy`` (``default_policy`` when
-        None), or queue it durably while any owner is down: the journal
-        takes it with ``applied=False`` and the store does not move (the
-        module docstring says why every commit queues). Returns ``(pstore,
-        cache, metrics)`` either way."""
-        policy = self.default_policy if policy is None else policy
+        """Commit one gRW batch, or queue it durably while any owner is
+        down: the journal takes it with ``applied=False`` and the store does
+        not move (the module docstring says why every commit queues).
+        Returns ``(pstore, cache, metrics)`` either way."""
         if self.detector.down():
-            rhost = self.rhost
+            rhost = self.rt.rhost
             self.journal.append_commit(
                 batch, policy=policy, gate=gate, applied=False,
                 route=rhost.storage_owner if rhost is not None else None)
             return pstore, cache, {"queued": 1, **self.journal.metrics()}
         pstore, cache, metrics = self.rt.run_grw_tx(
             pstore, cache, self.ttable, batch, policy=policy, gate=gate,
-            occupancy_metrics=occupancy_metrics, journal=self.journal, rtable=self._rhost)
+            occupancy_metrics=occupancy_metrics, journal=self.journal)
         metrics["queued"] = 0
         return pstore, cache, metrics
 
@@ -215,10 +202,8 @@ class FailoverController:
         and ``drain_seconds``."""
         t0 = time.perf_counter()
         pstore, info = replay_to_owner(self.journal, self.rt, self.ttable, live_pstore=pstore,
-                                       owner=owner, default_policy=self.default_policy)
-        pstore, cache, dinfo = drain_queued(self.journal, self.rt, self.ttable, pstore, cache,
-                                            default_policy=self.default_policy,
-                                            rhost=self._rhost)
+                                       owner=owner)
+        pstore, cache, dinfo = drain_queued(self.journal, self.rt, self.ttable, pstore, cache)
         self.detector.mark_recovered(owner)
         if self.plan is not None:
             self.plan.revive(owner)

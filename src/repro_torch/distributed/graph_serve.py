@@ -158,7 +158,6 @@ from repro_torch.core.runtime import (
     compact_rows,
     decode_miss_records,
     make_plan_fn,
-    onehop_exec_view,
     pack_query_frame,
     pack_result_frame,
     pad_roots,
@@ -307,14 +306,11 @@ class _MeshTier:
         pspec, espec = self.pspec, self.rt.lspec
         if pspec is None:
             return None  # the replicated store: the full-store onehop_exec
-        # the block_gather kernel's fused executor, or (fused_gather=False)
-        # the multi-op gather over the same view, for A/B comparison
-        run = block_onehop_exec if self.rt.fused_gather else onehop_exec_view
 
         def exec_fn(store, roots_f, params, miss_m):
             view = BlockStoreView(pspec, store, self.me, rtable=self.rtable)
-            return run(espec, view, hop.direction, hop.edge_label,
-                       hop.pr, hop.pe, hop.pl, roots_f, params, miss_m)
+            return block_onehop_exec(espec, view, hop.direction, hop.edge_label,
+                                     hop.pr, hop.pe, hop.pl, roots_f, params, miss_m)
 
         return exec_fn
 
@@ -420,12 +416,6 @@ class ShardedTxnRuntime:
     with each telemetry batch; a batch that still overflows is dispatched
     once more with worst-case caps (``route_cap_retries``).
 
-    ``fused_gather`` (default on) executes the partitioned tier's misses
-    through the ``block_gather`` kernel (``block_onehop_exec``);
-    ``fused_gather=False`` runs ``onehop_exec_view`` over the same
-    ``BlockStoreView`` instead, for A/B comparison. Only this argument
-    selects the unfused path.
-
     The maintenance ops and sweeps each rank derives per commit, and the
     ops it routes to each peer, are bounded by ``ops_cap`` / ``sweep_cap``
     / ``ops_route_cap`` (the single host's ``OPS_CAP`` / ``SWEEP_CAP`` by
@@ -452,7 +442,7 @@ class ShardedTxnRuntime:
                  ops_cap: int = OPS_CAP, sweep_cap: int = SWEEP_CAP,
                  ops_route_cap: int | None = None,
                  blk_slack: float = 2.0, e_blk_cap: int | None = None,
-                 recent_blk_cap: int | None = None, fused_gather: bool = True,
+                 recent_blk_cap: int | None = None,
                  device=None, telemetry: bool = True, tracer=None):
         if store_tier not in ("partitioned", "replicated"):
             raise ValueError(f"unknown store tier {store_tier!r}")
@@ -488,7 +478,6 @@ class ShardedTxnRuntime:
         # the batches the overflow retry dispatched again
         self._route_skew_seen = None
         self.route_cap_retries = 0
-        self.fused_gather = bool(fused_gather)
         self.ops_cap, self.sweep_cap = int(ops_cap), int(sweep_cap)
         self.ops_route_cap = int(ops_cap if ops_route_cap is None else ops_route_cap)
         # the identity table, threaded through every step while no

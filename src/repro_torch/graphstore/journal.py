@@ -797,8 +797,7 @@ def replay(journal: WriteBehindJournal, rt, ttable, *, default_policy: str = "wr
     return pstore, last, info
 
 
-def replay_to_owner(journal: WriteBehindJournal, rt, ttable, *, live_pstore, owner: int,
-                    default_policy: str = "write-around"):
+def replay_to_owner(journal: WriteBehindJournal, rt, ttable, *, live_pstore, owner: int):
     """Recovery as migration: rebuild a dead owner's blocks from durable
     state and graft them into the live store that kept serving degraded.
 
@@ -812,12 +811,10 @@ def replay_to_owner(journal: WriteBehindJournal, rt, ttable, *, live_pstore, own
     replayed store in place on the device: recovery holds the live store,
     the replayed one and the host copy ``restore_chain`` reads, no more.
     The caller then runs ``drain_queued`` and marks the owner healthy.
-    ``default_policy`` is the replayed commits' policy where a record names
-    none. Returns ``(pstore, info)``; ``info`` adds ``replay_seconds`` and
+    Returns ``(pstore, info)``; ``info`` adds ``replay_seconds`` and
     ``splice_seconds``."""
     t0 = time.perf_counter()
-    replayed, last, info = replay(journal, rt, ttable, default_policy=default_policy,
-                                  upto_seq=journal.applied_seq)
+    replayed, last, info = replay(journal, rt, ttable, upto_seq=journal.applied_seq)
     t1 = time.perf_counter()
     pstore = splice_owner_blocks(rt.pspec, live_pstore, replayed, owner)
     int(pstore.version)  # the splice's copies end before its time is taken
@@ -826,28 +823,22 @@ def replay_to_owner(journal: WriteBehindJournal, rt, ttable, *, live_pstore, own
     return pstore, info
 
 
-def drain_queued(journal: WriteBehindJournal, rt, ttable, pstore, cache, *,
-                 after_seq: Optional[int] = None, default_policy: str = "write-around",
-                 rhost=None):
+def drain_queued(journal: WriteBehindJournal, rt, ttable, pstore, cache):
     """Apply the commits that queued (durable, unapplied) during an outage,
     in journal order, through the normal gRW step against the LIVE store and
     cache, so the write policy and the maintenance listener see them as
-    commits that landed late, which they are. Applies the records after
-    ``after_seq`` (default ``journal.applied_seq``), a commit that names no
-    policy under ``default_policy``. Advances ``journal.applied_seq``
-    record by record and clears the queued count. ``rhost`` (default: the
-    runtime's attached ``RoutingTableHost``, read at the call) routes the
-    drained appends and takes the moves of drained MIGRATE records.
-    Returns ``(pstore, cache, info)``; ``info`` adds ``drain_seconds``."""
+    commits that landed late, which they are. Advances
+    ``journal.applied_seq`` record by record and clears the queued count.
+    The runtime's attached ``RoutingTableHost`` routes the drained appends
+    and takes the moves of drained MIGRATE records. Returns ``(pstore,
+    cache, info)``; ``info`` adds ``drain_seconds``."""
     t0 = time.perf_counter()
     journal.flush()
-    after = journal.applied_seq if after_seq is None else int(after_seq)
-    rhost = rhost if rhost is not None else rt.rhost
     info = {"drained_commits": 0, "drained_compactions": 0, "drained_growths": 0,
             "drained_migrations": 0}
-    for rec in journal.read_records(after_seq=after):
-        pstore, cache = _apply_record(rt, ttable, pstore, cache, rec, default_policy, info,
-                                      "drained", rhost)
+    for rec in journal.read_records(after_seq=journal.applied_seq):
+        pstore, cache = _apply_record(rt, ttable, pstore, cache, rec, "write-around", info,
+                                      "drained", rt.rhost)
         with journal._lock:
             journal.applied_seq = max(journal.applied_seq, rec.seq)
     with journal._lock:

@@ -122,21 +122,18 @@ def compact_block(pspec: PartitionedStoreSpec, blk: EdgeBlock, *, purge: bool = 
 
 
 def compact_store(pspec: PartitionedStoreSpec, ps: PartitionedGraphStore, *,
-                  purge: bool = False, native_only: bool = False,
-                  tracer=None) -> PartitionedGraphStore:
+                  purge: bool = False, tracer=None) -> PartitionedGraphStore:
     """Compact both blocks of every shard of a global-layout store and join
     them in shard order; the replicated tier passes through. Owner-local: no
-    collectives. ``native_only`` threads each shard's index as ``me``, so
-    migrated-in foreign rows stay in the recent region (the compaction a
-    migrated store needs; on a store that never migrated it equals the
-    default bit for bit). ``tracer`` (an ``obs.trace.Tracer``) times the
-    pass in a ``compact_store`` span."""
+    collectives. ``tracer`` (an ``obs.trace.Tracer``) times the pass in a
+    ``compact_store`` span. The reference's ``native_only`` (``me`` per
+    shard, so migrated-in rows stay in the recent region) has no twin:
+    neither package has a caller that sets it."""
     with (tracer if tracer is not None else NULL_TRACER).span("compact_store"):
         shards = [local_shard(pspec, ps, s) for s in range(pspec.n_shards)]
-        me = lambda s: s if native_only else None
-        return join_shards([p._replace(out=compact_block(pspec, p.out, purge=purge, me=me(s)),
-                                       inc=compact_block(pspec, p.inc, purge=purge, me=me(s)))
-                            for s, p in enumerate(shards)])
+        return join_shards([p._replace(out=compact_block(pspec, p.out, purge=purge),
+                                       inc=compact_block(pspec, p.inc, purge=purge))
+                            for p in shards])
 
 
 # ------------------------------------------------------------- elasticity

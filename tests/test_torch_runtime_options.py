@@ -10,19 +10,13 @@ Against the JAX package on the same inputs:
   ``_hop_route_caps`` equal the reference's methods, called on a stand-in
   object, over the same owner-stage blocks; a batch that does not overflow
   equals the default runtime's.
-- ``fused_gather=False`` at 4 and 1 owners equals the fused runtime and the
-  JAX single host, cold and after CP, and never reaches ``block_gather``.
 - The block layout from ``e_blk_cap`` / ``recent_blk_cap`` and the op caps
   equal the reference constructor's (on a stand-in mesh); a commit past a
   small ``ops_cap`` / ``ops_route_cap`` reports the overflow the reference's
   commit reports under a named-axis ``jax.vmap``.
-- Write-through under failover: a crash, queued commits and recovery under
-  ``default_policy="write-through"`` equal a control that committed live
-  under write-through; ``drain_queued(after_seq=)`` applies the later
-  records only; an explicit ``rhost`` wins over the runtime's.
 - ``maintenance_tick(occupancy=)`` reads no block length and reports what
-  the reference's tick reports; ``compact_store(native_only=True)`` equals
-  the reference's on a migrated store and the default on an unmigrated one.
+  the reference's tick reports; ``compact_store`` of a migrated store
+  equals the reference's.
 - ``examples/serve_ecommerce_torch.py`` prints the reference example's hit
   rates, cache stats and population counts, run in the same process.
 """
@@ -42,7 +36,7 @@ import repro.core as J
 import repro.core.invalidation as JI
 import repro.graphstore.maintenance as JM
 import repro.graphstore.migration as JMig
-from conftest import MISSING, TPL_META, build_world, enabled_ttable, sq1_hop, sq2_hop
+from conftest import MISSING, build_world, enabled_ttable, sq1_hop, sq2_hop
 from repro.distributed.graph_serve import ShardedTxnRuntime as JRuntime
 from repro.distributed.routing import identity_table as j_identity
 from repro.graphstore import StoreSpec as JStoreSpec
@@ -50,17 +44,13 @@ from repro.graphstore import ingest as j_ingest
 from repro.graphstore import make_mutation_batch as j_batch
 from repro.graphstore import partition as JP
 from repro.obs.trace import NULL_TRACER as J_NULL_TRACER
-import repro_torch.distributed.fault as TF
 import repro_torch.distributed.graph_serve as graph_serve
 import repro_torch.graphstore.maintenance as TM
 import repro_torch.graphstore.migration as TMig
 from repro_torch import interop
-from repro_torch.distributed import ShardedMissDrain, ShardedTxnRuntime, flat_mesh
-from repro_torch.distributed.failover import FailoverController
-from repro_torch.distributed.routing import RoutingTableHost
-from repro_torch.graphstore import WriteBehindJournal, drain_queued, make_mutation_batch
+from repro_torch.distributed import ShardedTxnRuntime, flat_mesh
+from repro_torch.graphstore import make_mutation_batch
 from repro_torch.graphstore import partition as TP
-from repro_torch.graphstore.journal import decode_commit
 from repro_torch.obs.metrics import OWNER_STAGE_FIELDS
 from test_partitioned_store import _PS_AX
 from test_torch_migration import _j_pstore
@@ -241,46 +231,6 @@ def test_auto_caps_without_overflow_equal_the_default_runtime(sw):
     assert miss_key(ma) == miss_key(md) and mta == mtd and mta["route_cap_retries"] == 0
 
 
-# ------------------------------------------------------- the unfused gather
-@pytest.mark.parametrize("n", [4, 1])
-def test_unfused_gather_matches_the_fused_runtime_and_the_single_host(sw, n, monkeypatch):
-    calls = []
-    fused_exec = graph_serve.block_onehop_exec
-    monkeypatch.setattr(graph_serve, "block_onehop_exec",
-                        lambda *a, **k: calls.append(1) or fused_exec(*a, **k))
-    jplan = PLANS["in_out"]
-    plan = interop.plan_from_numpy(to_np(jplan))
-    roots = np.array([5, 6, 7, 8, 9, 0, 3], np.int32)
-    rts = {f: ShardedTxnRuntime(sw["tspec"], flat_mesh(n), route_cap_factor=None,
-                                fused_gather=f, device="cpu") for f in (True, False)}
-    ps = rts[True].partition_store(sw["tstore"])
-    caches = {f: rt.empty_cache() for f, rt in rts.items()}
-    jcache = J.empty_cache(sw["jspec"].cache)
-    for phase in ("cold", "warm"):
-        jr, jm, jmet = sw["engines"]["in_out"].run(sw["jstore"], jcache, sw["jttable"], roots)
-        jmet.pop("host_syncs")
-        got = {}
-        for f, rt in rts.items():
-            before = len(calls)
-            got[f] = rt.run_gr_tx_batch(ps, caches[f], sw["tttable"], plan, roots)
-            assert (len(calls) > before) == (f and got[f][2]["misses"] > 0), (phase, f)
-        for f in (True, False):
-            r, ms, m = got[f]
-            np.testing.assert_array_equal(r, np.asarray(jr))
-            assert miss_key(ms) == miss_key(jm) and _strip(m) == jmet, (phase, f)
-        assert got[True][2] == got[False][2]
-        if phase == "cold":
-            assert jmet["misses"] > 0
-            for f, rt in rts.items():
-                drain = ShardedMissDrain(rt, TPL_META)
-                drain.push(got[f][1])
-                caches[f] = drain.drain(ps, ps, caches[f], sw["tttable"])
-            jpop = sw["jpop"]
-            jpop.queue.push(jm)
-            jcache = jpop.drain(sw["jstore"], sw["jstore"], jcache, sw["jttable"])
-    tree_equal(interop.cache_to_numpy(caches[False]), interop.cache_to_numpy(caches[True]))
-
-
 # ------------------------------------------------------ layout and op caps
 _MESH = lambda n: types.SimpleNamespace(axis_names=("shard",), shape={"shard": n})
 
@@ -360,103 +310,6 @@ def test_op_caps_report_the_references_commit_overflow(op_world):
     assert got["default"]["op_overflow"] == 0
 
 
-# ------------------------------------------------ write-through under failover
-@pytest.fixture(scope="module")
-def fo_world():
-    spec, store = build_world(n_watchlists=8, n_listings=24, seed=1)
-    cspec = J.CacheSpec(capacity=1024, probes=8, max_leaves=16, max_chunks=2)
-    jespec = J.EngineSpec(store=spec, cache=cspec, max_deg=32, frontier=32)
-    jttable, _, _ = enabled_ttable()
-    return dict(spec=spec, tspec=interop.store_spec(tuple(spec)),
-                tespec=interop.engine_spec(tuple(spec), tuple(cspec), 32, 32),
-                tstore=interop.store_from_numpy(to_np(store), device="cpu"),
-                tttable=interop.ttable_from_numpy(to_np(jttable)))
-
-
-_FO_EDGES = ([(0, 9, 0, [1]), (5, 13, 0, [1])], [(1, 8, 0, [0]), (6, 21, 0, [1])],
-             [(2, 10, 0, [1])])
-
-
-def _warm(rt, ps, ttable, plan, roots):
-    cache = rt.empty_cache()
-    _, ms, _ = rt.run_gr_tx_batch(ps, cache, ttable, plan, roots)
-    d = ShardedMissDrain(rt, TPL_META)
-    d.push(ms)
-    return d.drain(ps, ps, cache, ttable)
-
-
-def test_write_through_failover_recovers_to_a_live_write_through_control(fo_world, tmp_path):
-    plan = interop.plan_from_numpy(to_np(J.QueryPlan(hops=(sq1_hop(),))))
-    roots = np.arange(0, 8, dtype=np.int32)
-    ttable = fo_world["tttable"]
-    batches = [make_mutation_batch(fo_world["tspec"], new_edges=e, device="cpu")
-               for e in _FO_EDGES[:2]]
-    mk = lambda: ShardedTxnRuntime(fo_world["tespec"], flat_mesh(N), route_cap_factor=None,
-                                   device="cpu")
-    rt = mk()
-    ps0 = rt.partition_store(fo_world["tstore"])
-    controls = {}
-    for policy in ("write-through", "write-around"):
-        rt_c = mk()
-        ps_c, cache_c = ps0, _warm(rt_c, ps0, ttable, plan, roots)
-        for mb in batches:
-            ps_c, cache_c, _ = rt_c.run_grw_tx(ps_c, cache_c, ttable, mb, policy)
-        controls[policy] = (interop.pstore_to_numpy(ps_c), interop.cache_to_numpy(cache_c))
-    ps, cache = ps0, _warm(rt, ps0, ttable, plan, roots)
-    j = WriteBehindJournal(str(tmp_path / "j"), N)
-    j.checkpoint(ps, e_blk_cap=rt.pspec.e_blk_cap, recent_blk_cap=rt.pspec.recent_blk_cap,
-                 store_version=int(ps.version))
-    ctl = FailoverController(rt, j, ttable, plan=TF.ShardFaultPlan(crash={1: 1}),
-                             detector=TF.FailureDetector(n=N, fail_threshold=1),
-                             default_policy="write-through")
-    ctl.probe(1)
-    ctl.run_gr(ps, cache, plan, roots, 1)  # degraded
-    for mb in batches:
-        ps, cache, w = ctl.run_grw(ps, cache, mb)  # no policy named: the default's
-        assert w["queued"] == 1
-    j.flush()
-    queued = [decode_commit(r.payload, device="cpu")[1]
-              for r in j.read_records(after_seq=j.applied_seq)]
-    assert queued == ["write-through"] * 2
-    ps, cache, info = ctl.recover(ps, cache, 1)
-    assert info["drained_commits"] == 2
-    tree_equal(interop.pstore_to_numpy(ps), controls["write-through"][0])
-    tree_equal(interop.cache_to_numpy(cache), controls["write-through"][1])
-    # write-through took value edits write-around does not: the check sees a difference
-    assert any(not np.array_equal(controls["write-through"][1][f], controls["write-around"][1][f])
-               for f in controls["write-around"][1])
-
-
-def test_drain_queued_after_seq_applies_only_the_later_records(fo_world, tmp_path):
-    ttable = fo_world["tttable"]
-    batches = [make_mutation_batch(fo_world["tspec"], new_edges=e, device="cpu")
-               for e in _FO_EDGES]
-    rt = ShardedTxnRuntime(fo_world["tespec"], flat_mesh(N), route_cap_factor=None,
-                           device="cpu")
-    ps = rt.partition_store(fo_world["tstore"])
-    j = WriteBehindJournal(str(tmp_path / "j"), N)
-    seqs = [j.append_commit(mb, policy=None if i == 2 else "write-around", applied=False)
-            for i, mb in enumerate(batches)]
-    ps_c, cache_c, _ = rt.run_grw_tx(ps, rt.empty_cache(), ttable, batches[2], "write-through")
-    got, cache, info = drain_queued(j, rt, ttable, ps, rt.empty_cache(), after_seq=seqs[1],
-                                    default_policy="write-through")
-    assert info["drained_commits"] == 1 and j.applied_seq == seqs[2]
-    tree_equal(interop.pstore_to_numpy(got), interop.pstore_to_numpy(ps_c))
-    tree_equal(interop.cache_to_numpy(cache), interop.cache_to_numpy(cache_c))
-
-
-def test_an_explicit_routing_table_wins_over_the_runtimes(fo_world, tmp_path):
-    rt = ShardedTxnRuntime(fo_world["tespec"], flat_mesh(N), device="cpu")
-    j = WriteBehindJournal(str(tmp_path / "j"), N)
-    mine, attached = RoutingTableHost(N, device="cpu"), RoutingTableHost(N, device="cpu")
-    ctl, ctl_default = (FailoverController(rt, j, fo_world["tttable"], rhost=mine),
-                        FailoverController(rt, j, fo_world["tttable"]))
-    assert ctl.rhost is mine and ctl_default.rhost is None
-    rt.attach_routing(attached)  # after the controllers were built
-    assert ctl.rhost is mine and ctl_default.rhost is attached
-    assert ctl.default_policy == ctl_default.default_policy == "write-around"
-
-
 # ------------------------------------------------------------- maintenance
 def test_maintenance_tick_with_an_occupancy_reads_nothing_more(op_world, monkeypatch):
     reads = []
@@ -506,15 +359,9 @@ def migrated():
 
 
 @pytest.mark.parametrize("purge", [False, True])
-def test_native_only_compaction_matches_the_reference(migrated, purge):
+def test_migrated_store_compaction_matches_the_reference(migrated, purge):
+    # the default compaction folds migrated-in foreign rows into the CSR body
     pspec = migrated["pspec"]
-    got = TM.compact_store(pspec, migrated["mps"], purge=purge, native_only=True)
-    want = JM.compact_store(pspec, migrated["jmps"], purge=purge, native_only=True)
-    tree_equal(interop.pstore_to_numpy(got), to_np(want), "native_only")
-    folded = TM.compact_store(pspec, migrated["mps"], purge=purge)
-    assert not np.array_equal(interop.pstore_to_numpy(folded)["out"]["csr_len"],
-                              interop.pstore_to_numpy(got)["out"]["csr_len"])
-    # a store that never migrated compacts alike either way
-    tree_equal(interop.pstore_to_numpy(TM.compact_store(pspec, migrated["ps"], purge=purge,
-                                                        native_only=True)),
-               interop.pstore_to_numpy(TM.compact_store(pspec, migrated["ps"], purge=purge)))
+    got = TM.compact_store(pspec, migrated["mps"], purge=purge)
+    want = JM.compact_store(pspec, migrated["jmps"], purge=purge)
+    tree_equal(interop.pstore_to_numpy(got), to_np(want), "compacted")
